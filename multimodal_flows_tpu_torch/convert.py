@@ -1,0 +1,58 @@
+"""Flax -> PyTorch parameter conversion.
+
+`params_from_flax(tree)` takes the flax encoder subtree
+(`params['params']['encoder']`) as nested mappings of numpy arrays and
+returns a state dict for the port's encoder (`MMFModel.encoder`), whose
+module names mirror the flax names:
+
+- a Dense `kernel` (in, out) becomes the Linear `weight` (out, in);
+- `bias` carries over unchanged;
+- an Embed `embedding` becomes the Embedding `weight`;
+- a LayerNorm's `LayerNorm_0/{scale, bias}` become `{weight, bias}`.
+
+Any other leaf name raises.  `load_flax_params` loads the result
+strictly, so a torch parameter left unset, or a flax leaf with no torch
+counterpart, raises too.  The `multitask` loss subtree is training's and
+is not converted.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+
+def _walk(tree: Mapping, prefix=()):
+    for key, value in tree.items():
+        path = prefix + (str(key),)
+        if isinstance(value, Mapping):
+            yield from _walk(value, path)
+        else:
+            yield path, value
+
+
+def params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    out: Dict[str, torch.Tensor] = {}
+    for path, leaf in _walk(tree):
+        arr = np.array(leaf, dtype=np.float32)
+        *mods, name = path
+        mods = [m for m in mods if m != "LayerNorm_0"]
+        if name == "kernel":
+            if arr.ndim != 2:
+                raise ValueError(f"{'/'.join(path)}: Dense kernel must be 2-D, got {arr.shape}")
+            arr, name = arr.T, "weight"
+        elif name in ("scale", "embedding"):
+            name = "weight"
+        elif name != "bias":
+            raise KeyError(f"no conversion rule for flax leaf {'/'.join(path)}")
+        out[".".join([*mods, name])] = torch.from_numpy(np.ascontiguousarray(arr))
+    return out
+
+
+def load_flax_params(module: nn.Module, tree: Mapping) -> None:
+    """Load a converted flax subtree into `module`, strictly (missing or
+    unexpected names and shape mismatches raise)."""
+    module.load_state_dict(params_from_flax(tree), strict=True)

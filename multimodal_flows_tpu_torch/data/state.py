@@ -1,0 +1,105 @@
+"""Multimodal particle-cloud state (PyTorch port of
+`multimodal_flows_tpu/data/state.py:MultiModal`).
+
+A plain dataclass of tensors; every field may be None:
+  time:       (B,)        float32 — bridge time per jet
+  continuous: (B, D, Fc)  float32 — particle kinematics (pt, eta_rel, phi_rel)
+  discrete:   (B, D, 1)   int     — flavor tokens in {0..V-1}, 0 = pad
+  mask:       (B, D, 1)   int     — 1 for real particles
+
+`save_to` writes the same HDF5 datasets as the JAX package, so files
+written by either package load in both.  `h5py` is imported where it is
+used: the GPU machine may not have it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Callable, Optional, Sequence
+
+import numpy as np
+import torch
+
+Tensor = torch.Tensor
+
+_MODES = ("time", "continuous", "discrete", "mask")
+
+
+@dataclasses.dataclass
+class MultiModal:
+    time: Optional[Tensor] = None
+    continuous: Optional[Tensor] = None
+    discrete: Optional[Tensor] = None
+    mask: Optional[Tensor] = None
+
+    def __len__(self) -> int:
+        for m in reversed(_MODES):
+            v = getattr(self, m)
+            if v is not None:
+                return int(v.shape[0])
+        return 0
+
+    @property
+    def num_particles(self) -> Optional[int]:
+        """Max number of particles D (None for per-point states)."""
+        for m in ("continuous", "discrete", "mask"):
+            v = getattr(self, m)
+            if v is not None and v.ndim >= 2:
+                return int(v.shape[1])
+        return None
+
+    def map(self, fn: Callable[[Tensor], Tensor]) -> "MultiModal":
+        """Apply `fn` to every non-None field."""
+        return MultiModal(**{m: None if getattr(self, m) is None else fn(getattr(self, m))
+                             for m in _MODES})
+
+    def replace(self, **kw) -> "MultiModal":
+        return dataclasses.replace(self, **kw)
+
+    def __getitem__(self, index) -> "MultiModal":
+        return self.map(lambda a: a[index])
+
+    def to(self, device) -> "MultiModal":
+        return self.map(lambda a: a.to(device))
+
+    def apply_mask(self, condition: Optional[Tensor] = None) -> "MultiModal":
+        """Zero out padded entries; discrete is cast to int32."""
+        cond = self.mask if condition is None else condition
+        continuous, discrete = self.continuous, self.discrete
+        if continuous is not None:
+            continuous = continuous * cond
+        if discrete is not None:
+            discrete = (discrete * cond).to(torch.int32)
+        return self.replace(continuous=continuous, discrete=discrete)
+
+    @staticmethod
+    def concat(states: Sequence["MultiModal"], dim: int = 0) -> "MultiModal":
+        def cat(name):
+            parts = [getattr(s, name) for s in states if getattr(s, name) is not None]
+            return torch.cat(parts, dim=dim) if parts else None
+
+        return MultiModal(**{m: cat(m) for m in _MODES})
+
+    # -------------------------------------------------------------- HDF5 I/O
+
+    def save_to(self, path: str) -> None:
+        """Write the fields to an HDF5 file, atomically (tmp file + rename)."""
+        import h5py
+
+        tmp = path + ".tmp"
+        with h5py.File(tmp, "w") as f:
+            for mode in _MODES:
+                v = getattr(self, mode)
+                if v is not None:
+                    f.create_dataset(mode, data=v.detach().cpu().numpy())
+        os.replace(tmp, path)
+
+    @classmethod
+    def load_from(cls, path: str) -> "MultiModal":
+        """Load the fields of an HDF5 file as CPU tensors."""
+        import h5py
+
+        with h5py.File(path, "r") as f:
+            return cls(**{m: torch.from_numpy(np.asarray(f[m])) if m in f else None
+                          for m in _MODES})
