@@ -4,27 +4,35 @@
 
 1. Setup: refuses to run without CUDA; turns TF32 off; prints the card's
    name and power limit.
-2. Builds the K1 kernel (`multimodal_flows_tpu_torch/csrc/btc_attention.cu`)
-   with nvcc for sm_90a and prints the build time and the compiler's
+2. Builds the two kernels from the checkout's sources, one nvcc each, both
+   at once: K1 (`multimodal_flows_tpu_torch/csrc/btc_attention.cu`) and K2
+   (`csrc/set_attention.cu`); prints each build's time and the compiler's
    register / shared-memory report.
-3. Holds K1 against its plain PyTorch version on the card, fp32, on the
-   shapes the sampler gives it (packed segment rows, key-masked wide jets,
-   small and unmasked forms), and compares the autograd gradients once.
-4. Times K1 and the plain version at the two flagship shapes (CUDA events,
-   median of alternating runs after warm-up).
-5. Drives the serving path: the flagship MMF at full width (random weights
-   from a seed) through `generate_packed` on 512 jets of AOJ-like
-   multiplicity plus 4 jets wider than a packed row, and checks that both
-   the segment and the key-mask forms of K1 ran, and that the output is
-   well formed.  Then runs the sampler for 8 steps on the card and on the
-   CPU (plain attention) from one source with one set of uniforms and
-   compares them.
-6. Prints one JSON line per kernel, the card line, and the contract line
-   {"ok": true, "device": {...}} last.  Any failure exits non-zero.
+3. Holds each kernel against its plain PyTorch version on the card, fp32,
+   on the shapes the sampler gives it, and compares the autograd gradients
+   once per kernel (K2's with the bias's gradient).
+4. Times each kernel and its plain version at the packed-row shapes (CUDA
+   events, median of alternating runs after warm-up).
+5. Drives the serving paths through `generate_packed`, each with the
+   launch counters set to 0 just before it and read just after:
+   - the flagship MMF at full width on 512 jets of AOJ-like multiplicity
+     plus 4 jets wider than a packed row: K1 in its segment and key-mask
+     forms, K2 never;
+   - the co-occurrence MMF (the flagship plus `use_coocurrence`), the same
+     jets: K2 in its bias + segments form (packed rows) and its bias form
+     (the bucketed wide jets), K1 never;
+   - MJB + FlavorFormer (pairwise, learned positions: bucketed) and
+     CFM + KinFormer (Lund bias: packed rows) at the CLI's widths, with
+     lambda_u set nonzero, fewer jets and steps: K2 ran.
+   Each path's output must be well formed; both MMF samplers must agree
+   with the CPU sampler (plain attention) for 8 steps on shared uniforms.
+6. Prints one JSON line of the kernels, the card line, and the contract
+   line {"ok": true, "device": {...}} last.  Any failure exits non-zero.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import subprocess
 import time
@@ -35,12 +43,14 @@ import torch
 from multimodal_flows_tpu_torch.config import Config
 from multimodal_flows_tpu_torch.data.packing import build_packed_rows, pack_jets
 from multimodal_flows_tpu_torch.data.state import MultiModal
+from multimodal_flows_tpu_torch.models.blocks import pair_mask_bias
 from multimodal_flows_tpu_torch.ops import btc_attention as k1
-from multimodal_flows_tpu_torch.ops.attention import attention_btc_reference
+from multimodal_flows_tpu_torch.ops import set_attention as k2
+from multimodal_flows_tpu_torch.ops.attention import attention_btc_reference, attention_reference
 from multimodal_flows_tpu_torch.sampling.generator import generate_packed
-from multimodal_flows_tpu_torch.train.systems import MMF
+from multimodal_flows_tpu_torch.train.systems import build_system
 
-# fp32 on both sides, TF32 off; the kernel sums over <= 150 keys in
+# fp32 on both sides, TF32 off; the kernels sum over <= 256 keys in
 # another order than the plain version's matmuls
 ATOL, RTOL = 2e-5, 1e-5
 # the gradients go through the same plain backward on both sides; their
@@ -50,10 +60,17 @@ GRAD_ATOL, GRAD_RTOL = 1e-4, 1e-4
 FLAGSHIP = dict(model="ParticleFormer", n_embd=256, n_inner=512, n_layer=5, n_layer_fused=6,
                 n_head=4, vocab_size=9, dim_continuous=3, max_num_particles=150,
                 batch_size=128, multitask_loss="time-weighted")
+COOCC = dict(FLAGSHIP, use_coocurrence=True)
+# the training CLI's default widths (scripts/train_mmf.py:57-66), pair_chunk 16
+CLI = dict(n_embd=256, n_inner=512, n_layer=5, n_head=4, vocab_size=9, dim_continuous=3,
+           max_num_particles=150, pair_chunk=16)
+FLAVOR = dict(CLI, model="FlavorFormer", use_pairwise=True, use_pos_emb=True)
+KIN = dict(CLI, model="KinFormer", use_pairwise=True)
+LAMBDA_U = 0.5
 
 # (B, T, C, H), form: the flagship packed rows (half- and full-width
 # blocks), wide jets at T=150, the parity-test shapes, the kernel's limits
-KERNEL_CASES = [
+K1_CASES = [
     ((128, 128, 128, 4), "segments"),
     ((128, 128, 256, 4), "segments"),
     ((16, 150, 128, 4), "key_mask"),
@@ -63,6 +80,17 @@ KERNEL_CASES = [
     ((16, 150, 128, 4), "none"),
     ((4, 256, 512, 4), "segments"),
 ]
+# token-major (B, T, C, H) and form: the co-occurrence packed rows, the
+# bucketed wide jets (pair mask + bias), the pair mask alone (a broadcast
+# bias), the kernel's limits; then CrossAttention's head-major shapes
+K2_BTC_CASES = [
+    ((128, 128, 128, 4), "bias_segments"),
+    ((128, 128, 256, 4), "bias_segments"),
+    ((16, 150, 256, 4), "pair_mask_bias"),
+    ((16, 150, 128, 4), "pair_mask"),
+    ((4, 256, 512, 4), "bias_segments"),
+]
+K2_HEAD_MAJOR_CASES = [((16, 4, 150, 64, 64), True), ((16, 4, 150, 64, 64), False)]
 TIMED = [(128, 128, 128, 4), (128, 128, 256, 4)]
 
 
@@ -87,52 +115,111 @@ def _packed_segments(B: int, T: int, rng: np.random.Generator) -> np.ndarray:
 
 
 def _case_inputs(shape, form, dev, seed=0):
-    B, T, C, _ = shape
+    """q, k, v (B, T, C), key mask, segments, bias and the real query rows
+    of one kernel case."""
+    B, T, C, H = shape
     gen = torch.Generator(device=dev).manual_seed(seed)
     q, k, v = (torch.randn((B, T, C), generator=gen, device=dev) for _ in range(3))
     rng = np.random.default_rng(seed)
-    km = seg = None
+    km = seg = bias = None
     real = torch.ones((B, T), dtype=torch.bool, device=dev)
-    if form == "segments":
+    if form in ("segments", "bias_segments"):
         seg = torch.from_numpy(_packed_segments(B, T, rng)).to(dev)
         real = seg >= 0
-    elif form == "key_mask":
+    elif form in ("key_mask", "pair_mask", "pair_mask_bias"):
         mult = torch.from_numpy(rng.integers(2, T + 1, size=B)).to(dev)
         real = torch.arange(T, device=dev)[None, :] < mult[:, None]
-        km = torch.where(real, 0.0, -1e9).to(torch.float32)
-    return q, k, v, km, seg, real
+        if form == "key_mask":
+            km = torch.where(real, 0.0, -1e9).to(torch.float32)
+        else:
+            bias = pair_mask_bias(real[..., None].to(torch.int32))
+    if form in ("bias_segments", "pair_mask_bias"):
+        pairwise = torch.randn((B, H, T, T), generator=gen, device=dev)
+        bias = pairwise if bias is None else bias + pairwise
+    return q, k, v, km, seg, bias, real
 
 
-def check_kernel(dev) -> float:
+def _held(name, out, ref, real) -> float:
+    """max abs error over the real query rows; raises past the tolerance."""
+    torch.cuda.synchronize()
+    if not torch.isfinite(out).all():
+        raise AssertionError(f"{name}: non-finite output")
+    err = (out - ref).abs()[real]
+    bad = err > ATOL + RTOL * ref.abs()[real]
+    max_err = float(err.max())
+    print(f"{name}: max_abs_err {max_err:.3e} (atol {ATOL}, rtol {RTOL}, "
+          f"{int(real.sum())} real rows)")
+    if bad.any():
+        raise AssertionError(f"{name}: {int(bad.sum())} values out of tolerance")
+    return max_err
+
+
+def _grads_held(name, fns, leaves):
+    """Compare the autograd gradients of fns[0] (a kernel) and fns[1] (its
+    plain version) of sum(out**2) with respect to `leaves`."""
+    grads = []
+    for fn in fns:
+        ls = [t.clone().requires_grad_(True) for t in leaves]
+        (fn(*ls) ** 2).sum().backward()
+        grads.append([t.grad for t in ls])
+    for i, (a, b) in enumerate(zip(*grads)):
+        err = float((a - b).abs().max())
+        print(f"{name} grad of input {i} {tuple(a.shape)} vs plain: max_abs_err {err:.3e}")
+        if a.shape != b.shape or not torch.allclose(a, b, atol=GRAD_ATOL, rtol=GRAD_RTOL):
+            raise AssertionError(f"{name} gradient {i} out of tolerance")
+
+
+def check_k1(dev) -> float:
     worst = 0.0
-    for shape, form in KERNEL_CASES:
-        q, k, v, km, seg, real = _case_inputs(shape, form, dev)
+    for shape, form in K1_CASES:
+        q, k, v, km, seg, _, real = _case_inputs(shape, form, dev)
         H = shape[3]
         out = k1.btc_attention(q, k, v, H, km, seg)
         ref = attention_btc_reference(q, k, v, H, km, seg)
-        torch.cuda.synchronize()
-        if not torch.isfinite(out).all():
-            raise AssertionError(f"K1 {shape} {form}: non-finite output")
-        err = (out - ref).abs()[real]
-        bad = err > ATOL + RTOL * ref.abs()[real]
-        max_err = float(err.max())
-        print(f"K1 vs plain {shape} {form}: max_abs_err {max_err:.3e} "
-              f"(atol {ATOL}, rtol {RTOL}, {int(real.sum())} real rows)")
-        if bad.any():
-            raise AssertionError(f"K1 {shape} {form}: {int(bad.sum())} values out of tolerance")
-        worst = max(worst, max_err)
+        worst = max(worst, _held(f"K1 vs plain {shape} {form}", out, ref, real))
+    q, k, v, km, _, _, _ = _case_inputs((16, 150, 128, 4), "key_mask", dev, seed=1)
+    _grads_held("K1", [lambda a, b, c: k1.btc_attention(a, b, c, 4, km, None),
+                       lambda a, b, c: attention_btc_reference(a, b, c, 4, km, None)],
+                [q, k, v])
+    return worst
 
-    q, k, v, km, _, _ = _case_inputs((16, 150, 128, 4), "key_mask", dev, seed=1)
-    grads = []
-    for fn in (k1.btc_attention, attention_btc_reference):
-        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
-        (fn(*leaves, 4, km, None) ** 2).sum().backward()
-        grads.append([t.grad for t in leaves])
-    for name, a, b in zip("qkv", *grads):
-        err = float((a - b).abs().max())
-        print(f"K1 grad d{name} vs plain: max_abs_err {err:.3e}")
-        if not torch.allclose(a, b, atol=GRAD_ATOL, rtol=GRAD_RTOL):
-            raise AssertionError(f"K1 gradient d{name} out of tolerance")
+
+def _head_major_inputs(shape, masked, dev, seed=2):
+    """CrossAttention's shapes: q (B, H, Tq, Dh), k/v (B, H, Tk, Dh), with
+    or without a key mask and a (B, 1, Tq, Tk) bias."""
+    B, H, Tq, Tk, Dh = shape
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((B, H, Tq, Dh), generator=gen, device=dev)
+    k, v = (torch.randn((B, H, Tk, Dh), generator=gen, device=dev) for _ in range(2))
+    if not masked:
+        return q, k, v, None, None
+    rng = np.random.default_rng(seed)
+    mult = torch.from_numpy(rng.integers(2, Tk + 1, size=B)).to(dev)
+    km = torch.where(torch.arange(Tk, device=dev)[None, :] < mult[:, None], 0.0, -1e9)
+    bias = torch.randn((B, 1, Tq, Tk), generator=gen, device=dev)
+    return q, k, v, km.to(torch.float32), bias
+
+
+def check_k2(dev) -> float:
+    worst = 0.0
+    for shape, form in K2_BTC_CASES:
+        q, k, v, km, seg, bias, real = _case_inputs(shape, form, dev)
+        H = shape[3]
+        out = k2.set_attention_btc(q, k, v, H, km, bias, seg)
+        ref = attention_btc_reference(q, k, v, H, km, seg, bias)
+        worst = max(worst, _held(f"K2 vs plain {shape} {form} bias {tuple(bias.shape)}",
+                                 out, ref, real))
+    for shape, masked in K2_HEAD_MAJOR_CASES:
+        q, k, v, km, bias = _head_major_inputs(shape, masked, dev)
+        out = k2.set_attention(q, k, v, km, bias)
+        ref = attention_reference(q, k, v, km, bias)
+        real = torch.ones(out.shape[:3], dtype=torch.bool, device=dev)
+        form = "key_mask + (B,1,Tq,Tk) bias" if masked else "no mask, no bias"
+        worst = max(worst, _held(f"K2 vs plain head-major {shape} {form}", out, ref, real))
+    q, k, v, km, bias = _head_major_inputs(K2_HEAD_MAJOR_CASES[0][0], True, dev, seed=3)
+    _grads_held("K2", [lambda a, b, c, d: k2.set_attention(a, b, c, km, d),
+                       lambda a, b, c, d: attention_reference(a, b, c, km, d)],
+                [q, k, v, bias])
     return worst
 
 
@@ -154,17 +241,26 @@ def _median_ms(fns, n=40, warmup=5):
     return [float(np.median(ts)) for ts in times]
 
 
-def time_kernel(dev):
+def time_kernels(dev):
+    """{(kernel, shape): (ms, plain_ms)} at the packed-row shapes: K1 in its
+    segment form, K2 in its bias + segments form."""
     result = {}
     with torch.no_grad():
         for shape in TIMED:
-            q, k, v, _, seg, _ = _case_inputs(shape, "segments", dev)
+            q, k, v, _, seg, bias, _ = _case_inputs(shape, "bias_segments", dev)
             H = shape[3]
-            ms, plain_ms = _median_ms([lambda: k1.btc_attention(q, k, v, H, None, seg),
-                                       lambda: attention_btc_reference(q, k, v, H, None, seg)])
-            print(f"K1 time {shape} segments: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-                  f"(median of 40, CUDA events)")
-            result[shape] = (ms, plain_ms)
+            pairs = {
+                "K1": (lambda: k1.btc_attention(q, k, v, H, None, seg),
+                       lambda: attention_btc_reference(q, k, v, H, None, seg)),
+                "K2": (lambda: k2.set_attention_btc(q, k, v, H, None, bias, seg),
+                       lambda: attention_btc_reference(q, k, v, H, None, seg, bias)),
+            }
+            for name, fns in pairs.items():
+                ms, plain_ms = _median_ms(list(fns))
+                form = "segments" if name == "K1" else "bias (B,H,T,T) + segments"
+                print(f"{name} time {shape} {form}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+                      f"(median of 40, CUDA events)")
+                result[name, shape] = (ms, plain_ms)
     return result
 
 
@@ -172,26 +268,33 @@ def _pad_masks(mult, D):
     return (np.arange(D)[None, :] < np.asarray(mult)[:, None]).astype(np.int64)[..., None]
 
 
-def main_path(system):
+def _jets(rng, n, n_wide, D=150):
+    """n AOJ-like jets plus n_wide jets of 135-150, wider than a packed row."""
+    return np.concatenate([_multiplicities(rng, n, D), rng.integers(135, D + 1, size=n_wide)])
+
+
+def drive(name, system, mult, steps, expect):
+    """One serving path: counts set to 0, `generate_packed`, counts read.
+    `expect(k1_launches, k2_launches)` returns what is wrong, or ''."""
     cfg = system.config
-    rng = np.random.default_rng(0)
-    mult = np.concatenate([_multiplicities(rng, 512, cfg.max_num_particles),
-                           rng.integers(135, 151, size=4)])
     pad_masks = _pad_masks(mult, cfg.max_num_particles)
     kw = dict(pack_width=128, batch_size=128, seed=0)
     generate_packed(system, pad_masks[-40:], num_timesteps=2, **kw)  # warm-up
 
     k1.reset_launch_counts()
-    res = generate_packed(system, pad_masks, num_timesteps=100, **kw)
-    launches = dict(k1.LAUNCHES)
-    print(f"main path launches of K1: {launches}")
-    if launches["segments"] == 0 or launches["key_mask"] == 0:
-        raise AssertionError(f"main path did not run both K1 forms: {launches}")
+    k2.reset_launch_counts()
+    res = generate_packed(system, pad_masks, num_timesteps=steps, **kw)
+    launches = {"K1": dict(k1.LAUNCHES), "K2": dict(k2.LAUNCHES)}
+    print(f"{name}: launches {launches}")
+    wrong = expect(launches["K1"], launches["K2"])
+    if wrong:
+        raise AssertionError(f"{name}: {wrong}")
 
     s = res.sample
     N, D = pad_masks.shape[:2]
     if s.continuous.shape != (N, D, cfg.dim_continuous) or s.discrete.shape != (N, D, 1):
-        raise AssertionError(f"bad output shapes {s.continuous.shape} {s.discrete.shape}")
+        raise AssertionError(f"{name}: bad output shapes {s.continuous.shape} "
+                             f"{s.discrete.shape}")
     pad = s.mask[..., 0] == 0
     checks = {
         "finite": bool(torch.isfinite(s.continuous).all()),
@@ -199,19 +302,20 @@ def main_path(system):
         "pads zero": bool((s.continuous[pad] == 0).all() and (s.discrete[pad] == 0).all()),
         "mask kept": bool((s.mask.numpy() == pad_masks).all()),
     }
-    print(f"main path checks: {checks}")
+    print(f"{name}: checks {checks}")
     if not all(checks.values()):
-        raise AssertionError(f"main path output failed {checks}")
-    print(f"main path: {N} jets ({int((mult > 128).sum())} wider than a row), 100 steps, "
+        raise AssertionError(f"{name}: output failed {checks}")
+    print(f"{name}: {N} jets ({int((mult > 128).sum())} wider than a row), {steps} steps, "
           f"wall {res.wall_time_s:.3f} s, {res.jets_per_sec:.2f} jets/s")
     return launches, res
 
 
-def sampler_vs_cpu(system, dev, steps=8, rows=8):
-    """The flagship sampler on the card (K1) and on the CPU (plain
-    attention), same weights, source and uniforms."""
+def sampler_vs_cpu(name, system, cfg_kw, dev, steps=8, rows=8):
+    """The MMF sampler on the card and on the CPU (plain attention), same
+    weights, source, segments and uniforms."""
     cfg = system.config
-    cpu_system = MMF(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    cpu_system = build_system(Config(**cfg_kw), "MMF", device="cpu",
+                              generator=torch.Generator().manual_seed(0))
     rng = np.random.default_rng(1)
     mult = _multiplicities(rng, 4 * rows, 128)
     row_of, offset_of, n_rows = pack_jets(mult, 128)
@@ -229,10 +333,35 @@ def sampler_vs_cpu(system, dev, steps=8, rows=8):
     real = torch.from_numpy(seg >= 0)
     err = float((outs[0].continuous - outs[1].continuous).abs()[real].max())
     same = float((outs[0].discrete[..., 0] == outs[1].discrete[..., 0])[real].float().mean())
-    print(f"sampler card vs CPU, {steps} steps x {rows} packed rows: continuous max_abs_err "
-          f"{err:.3e} (atol 1e-4), tokens equal on {same:.4f} of real sites (>= 0.99)")
+    print(f"{name} sampler card vs CPU, {steps} steps x {rows} packed rows: continuous "
+          f"max_abs_err {err:.3e} (atol 1e-4), tokens equal on {same:.4f} of real sites (>= 0.99)")
     if err > 1e-4 or same < 0.99:
-        raise AssertionError("the sampler on the card disagrees with the CPU sampler")
+        raise AssertionError(f"{name}: the sampler on the card disagrees with the CPU sampler")
+
+
+def _system(kind, cfg_kw, dev):
+    system = build_system(Config(**cfg_kw), kind, device=dev,
+                          generator=torch.Generator().manual_seed(0))
+    if hasattr(system.module, "lambda_u"):  # initialised to 0, which turns the bias off
+        with torch.no_grad():
+            system.module.lambda_u.fill_(LAMBDA_U)
+    return system
+
+
+def _build_all():
+    """Build both kernels at once, one nvcc each; print the reports."""
+    def timed(mod):
+        t0 = time.perf_counter()
+        mod.build()
+        return time.perf_counter() - t0
+
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        seconds = list(pool.map(timed, (k1, k2)))
+    for name, mod, s in (("K1", k1, seconds[0]), ("K2", k2, seconds[1])):
+        print(f"{name} build: {s:.2f} s ({mod.library_path().name})")
+        log = mod.library_path().with_suffix(".log")
+        if log.exists():
+            print(log.read_text().strip())
 
 
 def main() -> None:
@@ -245,31 +374,53 @@ def main() -> None:
     dev = torch.device("cuda:0")
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    t0 = time.perf_counter()
-    k1.build()
-    print(f"K1 build: {time.perf_counter() - t0:.2f} s ({k1.library_path().name})")
-    log = k1.library_path().with_suffix(".log")
-    if log.exists():
-        print(log.read_text().strip())
+    _build_all()
+    err = {"K1": check_k1(dev), "K2": check_k2(dev)}
+    times = time_kernels(dev)
 
-    max_err = check_kernel(dev)
-    times = time_kernel(dev)
+    rng = np.random.default_rng(0)
+    mult = _jets(rng, 512, 4)
 
-    system = MMF(Config(**FLAGSHIP), device=dev, generator=torch.Generator().manual_seed(0))
-    launches, _ = main_path(system)
-    sampler_vs_cpu(system, dev)
+    flagship = _system("MMF", FLAGSHIP, dev)
+    main_launches, _ = drive(
+        "flagship MMF", flagship, mult, 100,
+        lambda l1, l2: ("did not run both K1 forms" if not (l1["segments"] and l1["key_mask"])
+                        else "launched K2" if sum(l2.values()) else ""))
+    sampler_vs_cpu("flagship MMF", flagship, FLAGSHIP, dev)
+    del flagship
 
-    ms, plain_ms = times[TIMED[0]]
-    print(json.dumps({"kernels": [{
-        "name": "btc_attention (K1, timed at B=128 T=128 C=128 H=4 segments)",
-        "route": "cuda",
-        "source": "multimodal_flows_tpu_torch/csrc/btc_attention.cu",
-        "replaces": "multimodal_flows_tpu/ops/pallas_attention.py:201",
-        "launches": sum(launches.values()),
-        "max_abs_err": max_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-    }]}))
+    coocc = _system("MMF", COOCC, dev)
+    coocc_launches, _ = drive(
+        "co-occurrence MMF", coocc, mult, 100,
+        lambda l1, l2: ("did not run K2 as bias + segments and as bias"
+                        if not (l2["bias_segments"] and l2["bias"])
+                        else "launched K1" if sum(l1.values()) else ""))
+    sampler_vs_cpu("co-occurrence MMF", coocc, COOCC, dev)
+    del coocc
+
+    for name, kind, cfg_kw, n, steps in (
+            ("MJB + FlavorFormer (pairwise, pos-emb)", "MJB", FLAVOR, 256, 20),
+            ("CFM + KinFormer (Lund)", "CFM", KIN, 128, 10)):
+        system = _system(kind, cfg_kw, dev)
+        drive(name, system, _jets(rng, n, 2), steps,
+              lambda l1, l2: "did not run K2" if not sum(l2.values()) else "")
+        del system
+
+    (k1_ms, k1_plain), (k2_ms, k2_plain) = times["K1", TIMED[0]], times["K2", TIMED[0]]
+    print(json.dumps({"kernels": [
+        {"name": "btc_attention (K1, timed at B=128 T=128 C=128 H=4 segments)",
+         "route": "cuda",
+         "source": "multimodal_flows_tpu_torch/csrc/btc_attention.cu",
+         "replaces": "multimodal_flows_tpu/ops/pallas_attention.py:201",
+         "launches": sum(main_launches["K1"].values()),
+         "max_abs_err": err["K1"], "ms": k1_ms, "plain_ms": k1_plain},
+        {"name": "set_attention (K2, timed at B=128 T=128 C=128 H=4 bias + segments)",
+         "route": "cuda",
+         "source": "multimodal_flows_tpu_torch/csrc/set_attention.cu",
+         "replaces": "multimodal_flows_tpu/ops/pallas_attention.py:48",
+         "launches": sum(coocc_launches["K2"].values()),
+         "max_abs_err": err["K2"], "ms": k2_ms, "plain_ms": k2_plain},
+    ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

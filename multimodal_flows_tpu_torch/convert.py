@@ -8,7 +8,10 @@ module names mirror the flax names:
 - a Dense `kernel` (in, out) becomes the Linear `weight` (out, in);
 - `bias` carries over unchanged;
 - an Embed `embedding` becomes the Embedding `weight`;
-- a LayerNorm's `LayerNorm_0/{scale, bias}` become `{weight, bias}`.
+- a LayerNorm's `LayerNorm_0/{scale, bias}` (the project's wrapper) and a
+  bare flax `nn.LayerNorm`'s `{scale, bias}` (KinFormer's `wue_ln`)
+  become `{weight, bias}`;
+- the 0-d `lambda_u` gate carries over as a 0-d parameter.
 
 Any other leaf name raises.  `load_flax_params` loads the result
 strictly, so a torch parameter left unset, or a flax leaf with no torch
@@ -46,9 +49,12 @@ def params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
             arr, name = arr.T, "weight"
         elif name in ("scale", "embedding"):
             name = "weight"
+        elif name == "lambda_u":
+            if arr.ndim != 0:
+                raise ValueError(f"{'/'.join(path)}: lambda_u must be 0-d, got {arr.shape}")
         elif name != "bias":
             raise KeyError(f"no conversion rule for flax leaf {'/'.join(path)}")
-        out[".".join([*mods, name])] = torch.from_numpy(np.ascontiguousarray(arr))
+        out[".".join([*mods, name])] = torch.from_numpy(arr.copy())
     return out
 
 

@@ -1,9 +1,10 @@
 """Shared network blocks (PyTorch port of `multimodal_flows_tpu/models/blocks.py`).
 
 MLP (fc -> exact GELU -> proj), LayerNorm with optional bias and fp32
-statistics, the sinusoidal timestep embedding and the compact additive key
-mask.  `init_weights` reproduces the JAX initialisation: Linear and
-Embedding weights N(0, 0.02), biases zero, LayerNorm scale 1 and bias 0.
+statistics, the sinusoidal timestep embedding, the compact additive key
+mask and the additive pair mask.  `init_weights` reproduces the JAX
+initialisation: Linear and Embedding weights N(0, 0.02), biases zero,
+LayerNorm scale 1 and bias 0.
 """
 
 from __future__ import annotations
@@ -85,3 +86,13 @@ def key_mask_bias(mask: Tensor, neg: float = -1e9) -> Tensor:
     keys, `neg` on pad keys.  Rows of pad queries come out as garbage that
     every consumer masks."""
     return torch.where(mask[..., 0] > 0, 0.0, neg).to(torch.float32)
+
+
+def pair_mask_bias(mask: Tensor, neg: float = -1e9) -> Tensor:
+    """(B, D, 1) pad mask -> additive float32 pair bias (B, 1, D, D): 0 on
+    real pairs, `neg` otherwise, so learned pairwise biases compose with
+    hard masking.  A pad query row is `neg` (+ bias) throughout and
+    softmaxes to finite attention; its output is masked downstream."""
+    m = mask[..., 0] > 0
+    pair = m[:, None, :, None] & m[:, None, None, :]
+    return torch.where(pair, 0.0, neg).to(torch.float32)

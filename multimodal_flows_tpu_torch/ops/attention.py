@@ -1,15 +1,20 @@
-"""Masked set attention over token-major (B, T, C) tensors (PyTorch port of
-`multimodal_flows_tpu/ops/attention.py:139-234`).
+"""Masked set attention (PyTorch port of
+`multimodal_flows_tpu/ops/attention.py:83-234`).
 
-- `attention_btc_reference` is the plain PyTorch twin of
-  `_xla_attention_btc` in its exact-softmax, bias-free, dropout-free form.
-  It is the CPU path and the oracle the K1 kernel is held to.
-- `multihead_attention_btc` dispatches on the tensors' device: CUDA
-  tensors go to the hand-written K1 kernel (`ops/btc_attention.py`), CPU
-  tensors to the reference.
+- `attention_reference` is the plain PyTorch twin of `_xla_attention` /
+  `_xla_reference` (head-major (B, H, T, Dh), key mask and bias) and
+  `attention_btc_reference` that of `_xla_attention_btc` (token-major
+  (B, T, C), key mask, bias and segments), both in their exact-softmax,
+  dropout-free form.  They are the CPU paths and the oracles the kernels
+  are held to.
+- `multihead_attention` (head-major) and `multihead_attention_btc`
+  (token-major) dispatch on the tensors' device.  CUDA tensors go to a
+  hand-written kernel: K2 (`ops/set_attention.py`) for head-major calls
+  and for every biased call, K1 (`ops/btc_attention.py`) for bias-free
+  token-major calls.  CPU tensors go to the plain versions.
 
 The JAX sampler's clamped unnormalized softmax is a TPU shortcut and is
-not ported: both paths compute the exact max-subtracted softmax.
+not ported: every path computes the exact max-subtracted softmax.
 """
 
 from __future__ import annotations
@@ -20,15 +25,36 @@ import torch
 
 Tensor = torch.Tensor
 
+_DROPOUT = "attention dropout comes with training (ROADMAP.md Queue 1 item 14)"
+
+
+def attention_reference(q: Tensor, k: Tensor, v: Tensor,
+                        key_mask: Optional[Tensor] = None,
+                        bias: Optional[Tensor] = None) -> Tensor:
+    """softmax(q k^T / sqrt(Dh) + key_mask + bias) v over head-major
+    q (B, H, Tq, Dh), k/v (B, H, Tk, Dh); key_mask (B, Tk) additive, bias
+    additive and broadcastable to (B, H, Tq, Tk)."""
+    scale = 1.0 / float(q.shape[-1]) ** 0.5
+    scores = torch.einsum("bhqd,bhkd->bhqk", q, k).to(torch.float32) * scale
+    if key_mask is not None:
+        scores = scores + key_mask[:, None, None, :].to(torch.float32)
+    if bias is not None:
+        scores = scores + bias.to(torch.float32)
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", probs.to(v.dtype), v)
+
 
 def attention_btc_reference(q: Tensor, k: Tensor, v: Tensor, n_head: int,
                             key_mask: Optional[Tensor] = None,
-                            segments: Optional[Tensor] = None) -> Tensor:
-    """softmax(q k^T / sqrt(hs) + key_mask) v per head, heads packed in C.
+                            segments: Optional[Tensor] = None,
+                            bias: Optional[Tensor] = None) -> Tensor:
+    """softmax(q k^T / sqrt(hs) + key_mask + bias) v per head, heads packed
+    in C.
 
-    key_mask (B, T) is additive (0 / -1e9).  segments (B, T) int ids (pads
-    -1) restrict attention to same-segment pairs: a cross-segment score is
-    replaced by -1e9, after the key mask is added.
+    key_mask (B, Tk) is additive (0 / -1e9); bias is additive and
+    broadcastable to (B, H, T, Tk).  segments (B, T) int ids (pads -1)
+    restrict attention to same-segment pairs: a cross-segment score is
+    replaced by -1e9, after the key mask and the bias are added.
     """
     B, T, C = q.shape
     Tk = k.shape[1]
@@ -40,6 +66,8 @@ def attention_btc_reference(q: Tensor, k: Tensor, v: Tensor, n_head: int,
     scores = torch.einsum("bqhd,bkhd->bhqk", q4, k4).to(torch.float32) * scale
     if key_mask is not None:
         scores = scores + key_mask[:, None, None, :].to(scores.dtype)
+    if bias is not None:
+        scores = scores + bias.to(scores.dtype)
     if segments is not None:
         same = segments[:, None, :, None] == segments[:, None, None, :]
         scores = torch.where(same, scores, -1e9)
@@ -48,23 +76,42 @@ def attention_btc_reference(q: Tensor, k: Tensor, v: Tensor, n_head: int,
     return out.reshape(B, T, C)
 
 
+def multihead_attention(q: Tensor, k: Tensor, v: Tensor,
+                        bias: Optional[Tensor] = None,
+                        key_mask: Optional[Tensor] = None, *,
+                        dropout_rate: float = 0.0) -> Tensor:
+    """Attention over head-major (B, H, T, Dh) q/k/v with an additive key
+    mask and bias: the K2 kernel on CUDA tensors, the reference on CPU
+    tensors."""
+    if dropout_rate > 0.0:
+        raise NotImplementedError(_DROPOUT)
+    if q.device.type == "cuda":
+        from multimodal_flows_tpu_torch.ops.set_attention import set_attention
+
+        return set_attention(q, k, v, key_mask, bias)
+    if q.device.type == "cpu":
+        return attention_reference(q, k, v, key_mask, bias)
+    raise ValueError(f"no attention path for device {q.device}")
+
+
 def multihead_attention_btc(q: Tensor, k: Tensor, v: Tensor, n_head: int,
                             bias: Optional[Tensor] = None,
                             key_mask: Optional[Tensor] = None, *,
                             dropout_rate: float = 0.0,
                             segments: Optional[Tensor] = None) -> Tensor:
     """Attention over token-major (B, T, C) q/k/v with heads packed in C:
-    the K1 kernel on CUDA tensors, the reference on CPU tensors."""
-    if bias is not None:
-        raise NotImplementedError(
-            "biased attention is kernel K2, not ported yet (ROADMAP.md Queue 2)")
+    on CUDA tensors the K2 kernel with a bias and the K1 kernel without
+    one, on CPU tensors the reference."""
     if dropout_rate > 0.0:
-        raise NotImplementedError(
-            "attention dropout comes with training (ROADMAP.md Queue 1 item 14)")
+        raise NotImplementedError(_DROPOUT)
     if q.device.type == "cuda":
+        if bias is not None:
+            from multimodal_flows_tpu_torch.ops.set_attention import set_attention_btc
+
+            return set_attention_btc(q, k, v, n_head, key_mask, bias, segments)
         from multimodal_flows_tpu_torch.ops.btc_attention import btc_attention
 
         return btc_attention(q, k, v, n_head, key_mask, segments)
     if q.device.type == "cpu":
-        return attention_btc_reference(q, k, v, n_head, key_mask, segments)
+        return attention_btc_reference(q, k, v, n_head, key_mask, segments, bias)
     raise ValueError(f"no attention path for device {q.device}")

@@ -6,10 +6,8 @@ segment-masked set attention, q/k/v (B, T, C) fp32 with the heads packed
 in C.  The source file says what bounds the kernel on the card and how its
 design answers that.
 
-Build: at first use, `nvcc` compiles the source for `sm_90a` into a shared
-library with a plain C interface under `build/multimodal_flows_tpu_torch/`
-of the checkout, named by a hash of the source and the flags; it is loaded
-with ctypes.  Nothing is compiled when this module is imported.
+Build: `ops/cuda_build.py` compiles the source with nvcc for `sm_90a` at
+first use and loads it with ctypes; nothing is compiled at import.
 
 The wrapper takes CUDA tensors only and launches the kernel or raises;
 the plain version (`ops/attention.py:attention_btc_reference`) serves CPU
@@ -21,16 +19,13 @@ through XLA; a backward kernel comes with packed training.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 from typing import Optional
 
 import torch
 
 from multimodal_flows_tpu_torch.ops.attention import attention_btc_reference
+from multimodal_flows_tpu_torch.ops.cuda_build import CudaLibrary
 
 Tensor = torch.Tensor
 
@@ -40,12 +35,14 @@ MAX_HEAD_SIZE = 128
 #: launches of the kernel by form, counted where the launch succeeds
 LAUNCHES = {"segments": 0, "key_mask": 0, "none": 0}
 
-SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "btc_attention.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "multimodal_flows_tpu_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "--ptxas-options=-v")
 
-_lib: Optional[ctypes.CDLL] = None
+def _declare(lib: ctypes.CDLL) -> None:
+    lib.btc_attention_fwd.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
+        ctypes.c_float, ctypes.c_void_p]
+    lib.btc_attention_fwd.restype = ctypes.c_int
+
+
+_LIB = CudaLibrary("btc_attention.cu", _declare)
 
 
 def reset_launch_counts() -> None:
@@ -53,46 +50,13 @@ def reset_launch_counts() -> None:
         LAUNCHES[form] = 0
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(default):
-        return default
-    raise RuntimeError("nvcc not found: the K1 kernel builds only where the CUDA toolkit is")
-
-
 def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libbtc_attention_{digest.hexdigest()[:16]}.so"
+    return _LIB.path()
 
 
 def build() -> ctypes.CDLL:
-    """Compile (if this source has no library yet) and load the kernel.
-    The compiler's register and shared-memory report is kept beside the
-    library as `<name>.log`."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    so = library_path()
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {SOURCE}:\n{proc.stdout}{proc.stderr}")
-        so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
-    lib.btc_attention_fwd.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
-        ctypes.c_float, ctypes.c_void_p]
-    lib.btc_attention_fwd.restype = ctypes.c_int
-    lib.btc_attention_error_string.argtypes = [ctypes.c_int]
-    lib.btc_attention_error_string.restype = ctypes.c_char_p
-    _lib = lib
-    return lib
+    """Compile (if this source has no library yet) and load the kernel."""
+    return _LIB.load()
 
 
 def _check(q: Tensor, k: Tensor, v: Tensor, n_head: int,
@@ -140,9 +104,7 @@ def _launch(q: Tensor, k: Tensor, v: Tensor, n_head: int,
             None if key_mask is None else key_mask.data_ptr(),
             None if segments is None else segments.data_ptr(),
             out.data_ptr(), B, T, C, n_head, scale, stream)
-    if rc != 0:
-        raise RuntimeError(f"btc_attention launch failed: CUDA error {rc} "
-                           f"({lib.btc_attention_error_string(rc).decode()})")
+    _LIB.check(rc)
     form = "segments" if segments is not None else "key_mask" if key_mask is not None else "none"
     LAUNCHES[form] += 1
     return out

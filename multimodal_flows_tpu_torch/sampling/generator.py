@@ -1,10 +1,13 @@
 """Generation: batched sampling on the system's device (PyTorch port of
 `multimodal_flows_tpu/sampling/generator.py`).
 
-`generate_packed` is the serving entry point: jets of multiplicity up to
-`pack_width` share packed rows behind a block-diagonal segment mask
-(segment attention, the K1 kernel on CUDA); wider jets go through
-`generate_bucketed` at their bucket width (key-mask attention).  Batches
+`generate_packed` is the serving entry point, for any of the three
+systems (MMF, CFM, MJB): jets of multiplicity up to `pack_width` share
+packed rows behind a block-diagonal segment mask; wider jets go through
+`generate_bucketed` at their bucket width, and an encoder with learned
+positions goes bucketed throughout.  On CUDA the attention of a packed
+row is K1 (segments) or, with a pairwise bias, K2 (bias + segments); a
+bucketed batch takes K1's key-mask form or K2's pair-mask bias.  Batches
 run one after another in eager PyTorch; the JAX package's
 `max_dispatch_steps` chunking, a workaround for its remote-TPU transport,
 has no counterpart here.  Destandardization with the dataset metadata and
@@ -52,6 +55,13 @@ def make_noise_source(generator: torch.Generator, pad_mask: Tensor,
                       dtype=torch.int32, device=device) * mask
     t0 = torch.full((B,), config.time_eps, dtype=torch.float32, device=device)
     return MultiModal(time=t0, continuous=x, discrete=k, mask=mask)
+
+
+#: encoders that take packed multi-jet rows (segment ids); EPiC and
+#: FusedParticleFormer are listed as in the JAX package, and raise in the
+#: registry until they are ported
+_PACKABLE_MODELS = ("ParticleFormer", "FusedParticleFormer", "KinFormer",
+                    "FlavorFormer", "EPiC")
 
 
 def _snap_batch(n: int) -> int:
@@ -184,12 +194,14 @@ def generate_packed(system, pad_masks: np.ndarray, *, num_timesteps: int,
     Exactly the per-jet model: attention is restricted to same-segment
     pairs, all dense and solver work is per token, and on the sampling
     grid every jet shares the same t.  Jets wider than `pack_width` go
-    through the bucketed path."""
+    through the bucketed path, and so does every jet of an encoder that
+    cannot be packed (learned positions)."""
     cfg = system.config
     num_jets, D = pad_masks.shape[0], pad_masks.shape[1]
     kw = dict(num_timesteps=num_timesteps, temperature=temperature, top_k=top_k,
               top_p=top_p, use_final_max_rates=use_final_max_rates)
-    if cfg.use_pos_emb or not _first_n_filled(pad_masks):
+    if (cfg.model not in _PACKABLE_MODELS or cfg.use_pos_emb
+            or not _first_n_filled(pad_masks)):
         return generate_bucketed(system, pad_masks, batch_size=batch_size, seed=seed,
                                  metadata=metadata, **kw)
 

@@ -74,7 +74,9 @@ def test_config_yaml_round_trips_between_packages(tmp_path):
 
 
 def test_unported_model_raises_with_roadmap_pointer():
-    with pytest.raises(KeyError, match="ROADMAP"):
-        build_model(Config(model="KinFormer"))
-    with pytest.raises(NotImplementedError, match="K2"):
-        build_model(Config(use_coocurrence=True))
+    with pytest.raises(KeyError, match="ROADMAP.md Queue 1 item 17"):
+        build_model(Config(model="FusedParticleFormer"))
+    with pytest.raises(KeyError, match="ROADMAP.md Queue 1 item 18"):
+        build_model(Config(model="EPiC"))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_model(Config(compute_dtype="bfloat16"))
