@@ -6,13 +6,20 @@
    name and power limit.
 2. Builds the two kernels from the checkout's sources, one nvcc each, both
    at once: K1 (`multimodal_flows_tpu_torch/csrc/btc_attention.cu`) and K2
-   (`csrc/set_attention.cu`); prints each build's time and the compiler's
-   register / shared-memory report.
+   (`csrc/set_attention.cu`), both around the shared core
+   `csrc/set_attention_core.cuh`; prints each build's time, the compiler's
+   register / shared-memory report and the number of tensor-core (HMMA)
+   instructions `cuobjdump -sass` finds in each library (0 fails).
 3. Holds each kernel against its plain PyTorch version on the card, fp32,
-   on the shapes the sampler gives it, and compares the autograd gradients
-   once per kernel (K2's with the bias's gradient).
-4. Times each kernel and its plain version at the packed-row shapes (CUDA
-   events, median of alternating runs after warm-up).
+   on the shapes the sampler gives it and on the edges of the kernels'
+   tiling (head sizes not a multiple of 8, T not a multiple of 16, one jet
+   filling a row, rows of 3-particle jets, scattered segment ids,
+   head-major Tq != Tk with an odd Dh), and compares the autograd
+   gradients once per kernel (K2's with the bias's gradient).
+4. Times each kernel and its plain version at the packed-row shapes, C=128
+   and C=256, and K1 in its key-mask form on wide jets (device time by
+   CUDA events with the stream held while the host enqueues, median of
+   alternating runs after warm-up); prints each kernel / plain ratio.
 5. Drives the serving paths through `generate_packed`, each with the
    launch counters set to 0 just before it and read just after:
    - the flagship MMF at full width on 512 jets of AOJ-like multiplicity
@@ -34,8 +41,10 @@ from __future__ import annotations
 
 import concurrent.futures
 import json
+import shutil
 import subprocess
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -45,6 +54,7 @@ from multimodal_flows_tpu_torch.data.packing import build_packed_rows, pack_jets
 from multimodal_flows_tpu_torch.data.state import MultiModal
 from multimodal_flows_tpu_torch.models.blocks import pair_mask_bias
 from multimodal_flows_tpu_torch.ops import btc_attention as k1
+from multimodal_flows_tpu_torch.ops import cuda_build
 from multimodal_flows_tpu_torch.ops import set_attention as k2
 from multimodal_flows_tpu_torch.ops.attention import attention_btc_reference, attention_reference
 from multimodal_flows_tpu_torch.sampling.generator import generate_packed
@@ -69,7 +79,11 @@ KIN = dict(CLI, model="KinFormer", use_pairwise=True)
 LAMBDA_U = 0.5
 
 # (B, T, C, H), form: the flagship packed rows (half- and full-width
-# blocks), wide jets at T=150, the parity-test shapes, the kernel's limits
+# blocks), wide jets at T=150, the parity-test shapes, the kernel's limits;
+# then the edges of the tiling: head size 9 (not a multiple of 8), T=33
+# with segments, one jet filling each row (no key tile skipped), rows of
+# 3-particle jets (most tiles skipped), scattered ids in {-1, 0, 1, 2}
+SEGMENT_FORMS = ("segments", "one_jet", "jets_of_3", "scattered")
 K1_CASES = [
     ((128, 128, 128, 4), "segments"),
     ((128, 128, 256, 4), "segments"),
@@ -79,19 +93,36 @@ K1_CASES = [
     ((8, 12, 32, 4), "segments"),
     ((16, 150, 128, 4), "none"),
     ((4, 256, 512, 4), "segments"),
+    ((16, 128, 36, 4), "segments"),
+    ((16, 150, 36, 4), "key_mask"),
+    ((8, 33, 128, 4), "segments"),
+    ((16, 128, 256, 4), "one_jet"),
+    ((16, 128, 256, 4), "jets_of_3"),
+    ((16, 128, 128, 4), "scattered"),
+    ((4, 256, 256, 4), "scattered"),
 ]
 # token-major (B, T, C, H) and form: the co-occurrence packed rows, the
 # bucketed wide jets (pair mask + bias), the pair mask alone (a broadcast
-# bias), the kernel's limits; then CrossAttention's head-major shapes
+# bias), the kernel's limits, then the tiling's edges as for K1; then
+# CrossAttention's head-major shapes (B, H, Tq, Tk, Dh), and odd Dh with
+# Tq != Tk both ways
 K2_BTC_CASES = [
     ((128, 128, 128, 4), "bias_segments"),
     ((128, 128, 256, 4), "bias_segments"),
     ((16, 150, 256, 4), "pair_mask_bias"),
     ((16, 150, 128, 4), "pair_mask"),
     ((4, 256, 512, 4), "bias_segments"),
+    ((16, 128, 36, 4), "bias_segments"),
+    ((8, 33, 128, 4), "bias_segments"),
+    ((16, 128, 256, 4), "bias_one_jet"),
+    ((16, 128, 256, 4), "bias_jets_of_3"),
+    ((16, 128, 128, 4), "bias_scattered"),
 ]
-K2_HEAD_MAJOR_CASES = [((16, 4, 150, 64, 64), True), ((16, 4, 150, 64, 64), False)]
+K2_HEAD_MAJOR_CASES = [((16, 4, 150, 64, 64), True), ((16, 4, 150, 64, 64), False),
+                       ((16, 4, 150, 64, 33), True), ((8, 3, 20, 150, 9), False)]
 TIMED = [(128, 128, 128, 4), (128, 128, 256, 4)]
+# K1 in its key-mask form on the wide-jet batch: no key tile is skipped
+TIMED_WIDE = (8, 150, 256, 4)
 
 
 def _multiplicities(rng: np.random.Generator, n: int, hi: int) -> np.ndarray:
@@ -114,18 +145,33 @@ def _packed_segments(B: int, T: int, rng: np.random.Generator) -> np.ndarray:
     return seg[:B]
 
 
+def _segments(pattern: str, B: int, T: int, rng: np.random.Generator) -> np.ndarray:
+    """(B, T) segment ids of one of SEGMENT_FORMS (pads -1)."""
+    if pattern == "segments":
+        return _packed_segments(B, T, rng)
+    if pattern == "one_jet":
+        return np.zeros((B, T), np.int32)
+    if pattern == "jets_of_3":
+        pos = np.arange(T)
+        return np.tile(np.where(pos < T - T % 3, pos // 3, -1), (B, 1)).astype(np.int32)
+    return rng.integers(-1, 3, size=(B, T)).astype(np.int32)  # scattered
+
+
 def _case_inputs(shape, form, dev, seed=0):
-    """q, k, v (B, T, C), key mask, segments, bias and the real query rows
-    of one kernel case."""
+    """q, k, v (B, T, C), key mask, segments, bias and the query rows
+    compared of one kernel case: the real ones, or all of them for
+    scattered ids, where a pad query's own key is a pad too."""
     B, T, C, H = shape
     gen = torch.Generator(device=dev).manual_seed(seed)
     q, k, v = (torch.randn((B, T, C), generator=gen, device=dev) for _ in range(3))
     rng = np.random.default_rng(seed)
     km = seg = bias = None
     real = torch.ones((B, T), dtype=torch.bool, device=dev)
-    if form in ("segments", "bias_segments"):
-        seg = torch.from_numpy(_packed_segments(B, T, rng)).to(dev)
-        real = seg >= 0
+    pattern = form.removeprefix("bias_")
+    if pattern in SEGMENT_FORMS:
+        seg = torch.from_numpy(_segments(pattern, B, T, rng)).to(dev)
+        if pattern != "scattered":
+            real = seg >= 0
     elif form in ("key_mask", "pair_mask", "pair_mask_bias"):
         mult = torch.from_numpy(rng.integers(2, T + 1, size=B)).to(dev)
         real = torch.arange(T, device=dev)[None, :] < mult[:, None]
@@ -133,7 +179,7 @@ def _case_inputs(shape, form, dev, seed=0):
             km = torch.where(real, 0.0, -1e9).to(torch.float32)
         else:
             bias = pair_mask_bias(real[..., None].to(torch.int32))
-    if form in ("bias_segments", "pair_mask_bias"):
+    if form.startswith("bias_") or form == "pair_mask_bias":
         pairwise = torch.randn((B, H, T, T), generator=gen, device=dev)
         bias = pairwise if bias is None else bias + pairwise
     return q, k, v, km, seg, bias, real
@@ -223,8 +269,16 @@ def check_k2(dev) -> float:
     return worst
 
 
+# GPU clock cycles (about 1 ms) that a sleep kernel holds the stream
+# before each timed call, so the host has enqueued the call's kernels
+# when the start event runs
+HOLD_CYCLES = 2_000_000
+
+
 def _median_ms(fns, n=40, warmup=5):
-    """Median CUDA-event time of each fn, the fns run in turns."""
+    """Median CUDA-event device time of each fn, the fns run in turns.  The
+    stream is held while the host enqueues fn, so the time is the
+    kernels' own and not the host's launch overhead."""
     for fn in fns:
         for _ in range(warmup):
             fn()
@@ -233,6 +287,7 @@ def _median_ms(fns, n=40, warmup=5):
     for _ in range(n):
         for fn, ts in zip(fns, times):
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(HOLD_CYCLES)
             start.record()
             fn()
             end.record()
@@ -241,9 +296,15 @@ def _median_ms(fns, n=40, warmup=5):
     return [float(np.median(ts)) for ts in times]
 
 
+def _print_time(name, shape, form, ms, plain_ms):
+    print(f"{name} time {shape} {form}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"kernel / plain {ms / plain_ms:.3f} (median of 40, CUDA events, device time)")
+
+
 def time_kernels(dev):
     """{(kernel, shape): (ms, plain_ms)} at the packed-row shapes: K1 in its
-    segment form, K2 in its bias + segments form."""
+    segment form, K2 in its bias + segments form; then K1 in its key-mask
+    form on the wide-jet batch."""
     result = {}
     with torch.no_grad():
         for shape in TIMED:
@@ -258,9 +319,14 @@ def time_kernels(dev):
             for name, fns in pairs.items():
                 ms, plain_ms = _median_ms(list(fns))
                 form = "segments" if name == "K1" else "bias (B,H,T,T) + segments"
-                print(f"{name} time {shape} {form}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-                      f"(median of 40, CUDA events)")
+                _print_time(name, shape, form, ms, plain_ms)
                 result[name, shape] = (ms, plain_ms)
+        q, k, v, km, _, _, _ = _case_inputs(TIMED_WIDE, "key_mask", dev)
+        H = TIMED_WIDE[3]
+        ms, plain_ms = _median_ms([lambda: k1.btc_attention(q, k, v, H, km, None),
+                                   lambda: attention_btc_reference(q, k, v, H, km)])
+        _print_time("K1", TIMED_WIDE, "key_mask", ms, plain_ms)
+        result["K1", TIMED_WIDE] = (ms, plain_ms)
     return result
 
 
@@ -348,8 +414,21 @@ def _system(kind, cfg_kw, dev):
     return system
 
 
+def _cuobjdump() -> str:
+    found = shutil.which("cuobjdump")
+    return found or str(Path(cuda_build._nvcc()).with_name("cuobjdump"))
+
+
+def _hmma_count(so: Path) -> int:
+    """Tensor-core (HMMA) instructions in a library's device code."""
+    sass = subprocess.run([_cuobjdump(), "-sass", str(so)], capture_output=True, text=True,
+                          check=True).stdout
+    return sum("HMMA" in line for line in sass.splitlines())
+
+
 def _build_all():
-    """Build both kernels at once, one nvcc each; print the reports."""
+    """Build both kernels at once, one nvcc each; print the reports and
+    each library's HMMA count, and fail if one has none."""
     def timed(mod):
         t0 = time.perf_counter()
         mod.build()
@@ -362,6 +441,10 @@ def _build_all():
         log = mod.library_path().with_suffix(".log")
         if log.exists():
             print(log.read_text().strip())
+        hmma = _hmma_count(mod.library_path())
+        print(f"{name}: {hmma} HMMA instructions in {mod.library_path().name}")
+        if hmma == 0:
+            raise AssertionError(f"{name} has no tensor-core instruction")
 
 
 def main() -> None:
@@ -406,20 +489,24 @@ def main() -> None:
               lambda l1, l2: "did not run K2" if not sum(l2.values()) else "")
         del system
 
-    (k1_ms, k1_plain), (k2_ms, k2_plain) = times["K1", TIMED[0]], times["K2", TIMED[0]]
+    def timed(name):
+        (ms, plain_ms), (ms256, plain256) = times[name, TIMED[0]], times[name, TIMED[1]]
+        return {"ms": ms, "plain_ms": plain_ms, "ms_c256": ms256, "plain_ms_c256": plain256}
+
     print(json.dumps({"kernels": [
-        {"name": "btc_attention (K1, timed at B=128 T=128 C=128 H=4 segments)",
+        {"name": "btc_attention (K1, timed at B=128 T=128 H=4 segments, C=128 and C=256)",
          "route": "cuda",
          "source": "multimodal_flows_tpu_torch/csrc/btc_attention.cu",
          "replaces": "multimodal_flows_tpu/ops/pallas_attention.py:201",
          "launches": sum(main_launches["K1"].values()),
-         "max_abs_err": err["K1"], "ms": k1_ms, "plain_ms": k1_plain},
-        {"name": "set_attention (K2, timed at B=128 T=128 C=128 H=4 bias + segments)",
+         "max_abs_err": err["K1"], **timed("K1")},
+        {"name": "set_attention (K2, timed at B=128 T=128 H=4 bias + segments, "
+                 "C=128 and C=256)",
          "route": "cuda",
          "source": "multimodal_flows_tpu_torch/csrc/set_attention.cu",
          "replaces": "multimodal_flows_tpu/ops/pallas_attention.py:48",
          "launches": sum(coocc_launches["K2"].values()),
-         "max_abs_err": err["K2"], "ms": k2_ms, "plain_ms": k2_plain},
+         "max_abs_err": err["K2"], **timed("K2")},
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

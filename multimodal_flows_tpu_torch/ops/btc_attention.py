@@ -3,8 +3,9 @@
 Replaces the Pallas TPU kernel `_btc_kernel`
 (`multimodal_flows_tpu/ops/pallas_attention.py:201-257`): token-major
 segment-masked set attention, q/k/v (B, T, C) fp32 with the heads packed
-in C.  The source file says what bounds the kernel on the card and how its
-design answers that.
+in C.  The source file says what bounds the kernel on the card; its design
+is the shared core `csrc/set_attention_core.cuh` (3xTF32 tensor cores at
+fp32 parity, cp.async key/value tiles, cross-jet key tiles skipped).
 
 Build: `ops/cuda_build.py` compiles the source with nvcc for `sm_90a` at
 first use and loads it with ctypes; nothing is compiled at import.

@@ -3,7 +3,8 @@
 Each source in `csrc/` has a plain C interface.  At first use `nvcc`
 compiles it for `sm_90a` into a shared library under
 `build/multimodal_flows_tpu_torch/` of the checkout, named by a hash of
-the source and the flags, and the library is loaded with ctypes.  The
+the source, every header in `csrc/` and the flags (so an edited shared
+header rebuilds every kernel), and the library is loaded with ctypes.  The
 compiler's register and shared-memory report is kept beside the library
 as `<name>.log`.  Nothing is compiled when this module is imported, and
 two sources can build at once (one `nvcc` each, e.g. from two threads).
@@ -28,15 +29,15 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "multimodal_flows_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "--ptxas-options=-v")
+DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
 
 
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
         return found
-    default = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(default):
-        return default
+    if os.path.exists(DEFAULT_NVCC):
+        return DEFAULT_NVCC
     raise RuntimeError("nvcc not found: the kernels build only where the CUDA toolkit is")
 
 
@@ -44,16 +45,20 @@ class CudaLibrary:
     """One `csrc/` source, compiled and loaded at first `load()`.
     `declare(lib)` sets the argtypes of the source's entry points."""
 
-    def __init__(self, source_name: str, declare: Callable[[ctypes.CDLL], None]):
-        self.source = CSRC / source_name
+    def __init__(self, source_name: str, declare: Callable[[ctypes.CDLL], None],
+                 csrc: Path = CSRC, build_dir: Path = BUILD_DIR):
+        self.source = csrc / source_name
         self.stem = self.source.stem
+        self.build_dir = build_dir
         self._declare = declare
         self._lib: Optional[ctypes.CDLL] = None
         self._lock = threading.Lock()
 
     def path(self) -> Path:
         digest = hashlib.sha256(self.source.read_bytes() + " ".join(NVCC_FLAGS).encode())
-        return BUILD_DIR / f"lib{self.stem}_{digest.hexdigest()[:16]}.so"
+        for header in sorted(self.source.parent.glob("*.cuh")):
+            digest.update(header.name.encode() + b"\0" + header.read_bytes())
+        return self.build_dir / f"lib{self.stem}_{digest.hexdigest()[:16]}.so"
 
     def load(self) -> ctypes.CDLL:
         with self._lock:
@@ -61,9 +66,10 @@ class CudaLibrary:
                 return self._lib
             so = self.path()
             if not so.exists():
-                BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                nvcc = _nvcc()
+                self.build_dir.mkdir(parents=True, exist_ok=True)
                 tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-                proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)],
+                proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(self.source)],
                                       capture_output=True, text=True)
                 if proc.returncode != 0:
                     raise RuntimeError(

@@ -15,7 +15,9 @@ The port uses it for two callers:
 
 Both hand the kernel strided views, so neither layout is copied, and a
 broadcast bias (a zero stride) is never expanded.  The source file says
-what bounds the kernel on the card and how its design answers that.
+what bounds the kernel on the card; its design is the core it shares with
+K1, `csrc/set_attention_core.cuh` (3xTF32 tensor cores at fp32 parity,
+cp.async key/value tiles, cross-jet key tiles and their bias skipped).
 Build: `ops/cuda_build.py` (nvcc for `sm_90a` at first use, ctypes).
 
 The wrappers take CUDA tensors only and launch the kernel or raise; the
