@@ -11,15 +11,19 @@
    register / shared-memory report and the number of tensor-core (HMMA)
    instructions `cuobjdump -sass` finds in each library (0 fails).
 3. Holds each kernel against its plain PyTorch version on the card, fp32,
-   on the shapes the sampler gives it and on the edges of the kernels'
-   tiling (head sizes not a multiple of 8, T not a multiple of 16, one jet
-   filling a row, rows of 3-particle jets, scattered segment ids,
-   head-major Tq != Tk with an odd Dh), and compares the autograd
-   gradients once per kernel (K2's with the bias's gradient).
-4. Times each kernel and its plain version at the packed-row shapes, C=128
-   and C=256, and K1 in its key-mask form on wide jets (device time by
-   CUDA events with the stream held while the host enqueues, median of
-   alternating runs after warm-up); prints each kernel / plain ratio.
+   on the shapes the sampler and the trainer give it and on the edges of
+   the kernels' tiling (head sizes not a multiple of 8, T not a multiple of
+   16, one jet filling a row, rows of 3-particle jets, scattered segment
+   ids, head-major Tq != Tk with an odd Dh), and compares the autograd
+   gradients (K1's also at the packed training batch, K2's with the bias's
+   gradient).
+4. Times each kernel, its plain version and one PyTorch call of the same
+   function (`scaled_dot_product_attention` with the equivalent float
+   mask) at the packed-row shapes, C=128 and C=256, and K1 in its key-mask
+   form on wide jets (device time by CUDA events with the stream held
+   while the host enqueues, median of alternating runs after warm-up);
+   works out each kernel's bound (bytes at 3.35 TB/s or same-jet FLOPs at
+   the 3xTF32 rate, whichever is larger).
 5. Drives the serving paths through `generate_packed`, each with the
    launch counters set to 0 just before it and read just after:
    - the flagship MMF at full width on 512 jets of AOJ-like multiplicity
@@ -33,7 +37,24 @@
      lambda_u set nonzero, fewer jets and steps: K2 ran.
    Each path's output must be well formed; both MMF samplers must agree
    with the CPU sampler (plain attention) for 8 steps on shared uniforms.
-6. Prints one JSON line of the kernels, the card line, and the contract
+6. Training, on 2048 synthetic jets of that multiplicity plus 8 of
+   135-150, split 90/10:
+   - the flagship's packed training loss and every parameter gradient on
+     the card against the CPU on one packed batch with shared bridge
+     states, then one optimizer update from the same gradients on both;
+   - 30 steps on one fixed batch with fixed draws: the loss falls;
+   - the main path: `Trainer.fit` of the flagship, packed rows of 128,
+     256 jets a step, EMA, 3 epochs, counts set to 0 just before and read
+     just after: K1 in its segment form (the wide jets as one-jet rows at
+     width 150), K2 never; the logged losses finite, `last` and `best`
+     written, `last` reloaded into a fresh system gives the logged
+     validation loss;
+   - the step's wall time, jets/s, peak memory, its device time split
+     into forward, backward and optimizer, and the share of K1's forward
+     and of its backward (the recompute through the plain version);
+   - 5 steps of the co-occurrence MMF: K2 in its bias + segments form
+     (its backward gives the bias's gradient), K1 never.
+7. Prints one JSON line of the kernels, the card line, and the contract
    line {"ok": true, "device": {...}} last.  Any failure exits non-zero.
 """
 
@@ -41,8 +62,10 @@ from __future__ import annotations
 
 import concurrent.futures
 import json
+import os
 import shutil
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 
@@ -50,8 +73,9 @@ import numpy as np
 import torch
 
 from multimodal_flows_tpu_torch.config import Config
+from multimodal_flows_tpu_torch.data.datasets import ArrayDataset
 from multimodal_flows_tpu_torch.data.packing import build_packed_rows, pack_jets
-from multimodal_flows_tpu_torch.data.state import MultiModal
+from multimodal_flows_tpu_torch.data.state import DataCoupling, MultiModal
 from multimodal_flows_tpu_torch.models.blocks import pair_mask_bias
 from multimodal_flows_tpu_torch.ops import btc_attention as k1
 from multimodal_flows_tpu_torch.ops import cuda_build
@@ -59,6 +83,7 @@ from multimodal_flows_tpu_torch.ops import set_attention as k2
 from multimodal_flows_tpu_torch.ops.attention import attention_btc_reference, attention_reference
 from multimodal_flows_tpu_torch.sampling.generator import generate_packed
 from multimodal_flows_tpu_torch.train.systems import build_system
+from multimodal_flows_tpu_torch.train.trainer import Trainer
 
 # fp32 on both sides, TF32 off; the kernels sum over <= 256 keys in
 # another order than the plain version's matmuls
@@ -77,6 +102,20 @@ CLI = dict(n_embd=256, n_inner=512, n_layer=5, n_head=4, vocab_size=9, dim_conti
 FLAVOR = dict(CLI, model="FlavorFormer", use_pairwise=True, use_pos_emb=True)
 KIN = dict(CLI, model="KinFormer", use_pairwise=True)
 LAMBDA_U = 0.5
+# training: the flagship on packed rows of 128, 256 jets a step (the
+# training CLI's default, scripts/train_mmf.py:41), EMA, lr 5e-4, clip 1.0
+TRAIN = dict(FLAGSHIP, batch_size=256, packed_training=True, pack_width=128,
+             use_ema_weights=True, lr=5e-4, gradient_clip_val=1.0, max_epochs=3)
+TRAIN_COOCC = dict(TRAIN, use_coocurrence=True)
+# card vs CPU on one training batch: fp32 on both sides, TF32 off; the sums
+# run in another order and the card's per-jet sums (index_add_) use
+# atomics, whose order changes from run to run
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_ATOL, TRAIN_GRAD_RTOL = 1e-4, 1e-3
+# one Adam update from the same gradients on both sides
+UPDATE_ATOL = 1e-5
+# the packed training batch at the flagship: about 256 jets in rows of 128
+TRAIN_K1_GRAD_SHAPE = (85, 128, 256, 4)
 
 # (B, T, C, H), form: the flagship packed rows (half- and full-width
 # blocks), wide jets at T=150, the parity-test shapes, the kernel's limits;
@@ -227,6 +266,10 @@ def check_k1(dev) -> float:
     _grads_held("K1", [lambda a, b, c: k1.btc_attention(a, b, c, 4, km, None),
                        lambda a, b, c: attention_btc_reference(a, b, c, 4, km, None)],
                 [q, k, v])
+    q, k, v, _, seg, _, _ = _case_inputs(TRAIN_K1_GRAD_SHAPE, "segments", dev, seed=4)
+    _grads_held(f"K1 at the training batch {TRAIN_K1_GRAD_SHAPE} segments",
+                [lambda a, b, c: k1.btc_attention(a, b, c, 4, None, seg),
+                 lambda a, b, c: attention_btc_reference(a, b, c, 4, None, seg)], [q, k, v])
     return worst
 
 
@@ -269,9 +312,9 @@ def check_k2(dev) -> float:
     return worst
 
 
-# GPU clock cycles (about 1 ms) that a sleep kernel holds the stream
-# before each timed call, so the host has enqueued the call's kernels
-# when the start event runs
+# GPU clock cycles (about 1 ms) that a sleep kernel holds the stream before
+# each timed call, so the host has enqueued the call's kernels when the
+# start event runs
 HOLD_CYCLES = 2_000_000
 
 
@@ -296,37 +339,101 @@ def _median_ms(fns, n=40, warmup=5):
     return [float(np.median(ts)) for ts in times]
 
 
-def _print_time(name, shape, form, ms, plain_ms):
-    print(f"{name} time {shape} {form}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"kernel / plain {ms / plain_ms:.3f} (median of 40, CUDA events, device time)")
+# published H100 SXM rates: HBM 3.35 TB/s; dense TF32 tensor cores 495
+# TFLOP/s, and the kernels' 3xTF32 spends three TF32 products on each fp32
+# product
+HBM_BYTES_PER_S = 3.35e12
+KERNEL_FLOP_PER_S = 495e12 / 3
+
+
+def _bound(q: torch.Tensor, real_pairs: int, extra_bytes: int):
+    """(ms, what bounds it): the least time for the kernel's work on these
+    inputs: q, k, v read and the output written once plus `extra_bytes`
+    (segments or key mask, the bias of the pairs used) at the HBM rate,
+    against QK^T and PV over
+    the (query, key) pairs that this data needs (real tokens of one jet)
+    at the 3xTF32 rate, whichever is longer."""
+    nbytes = 4 * q.numel() * 4 + extra_bytes
+    flops = 4 * q.shape[-1] * real_pairs
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / KERNEL_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _library_call(q, k, v, H, mask, ref, real, name):
+    """One PyTorch call of the same function: scaled_dot_product_attention
+    over head-major views of q/k/v with the equivalent additive float mask
+    (made beforehand); checked against the plain version once."""
+    B, T, C = q.shape
+
+    def heads(t):
+        return t.view(B, T, H, C // H).transpose(1, 2)
+
+    qh, kh, vh = heads(q), heads(k), heads(v)
+
+    def call():
+        return torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+
+    out = call().transpose(1, 2).reshape(B, T, C)
+    err = float((out - ref).abs()[real].max())
+    print(f"{name}: scaled_dot_product_attention vs plain max_abs_err {err:.3e} (atol 1e-4)")
+    if err > 1e-4:
+        raise AssertionError(f"{name}: the library call does not compute the kernel's function")
+    return call
+
+
+def _print_time(name, shape, form, t):
+    print(f"{name} time {shape} {form}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+          f"scaled_dot_product_attention {t['library_ms']:.4f} ms, kernel / plain "
+          f"{t['ms'] / t['plain_ms']:.3f} (median of 40, CUDA events, device time); bound "
+          f"{t['bound_ms']:.4f} ms by {t['bound_by']}, kernel / bound "
+          f"{t['ms'] / t['bound_ms']:.2f}")
 
 
 def time_kernels(dev):
-    """{(kernel, shape): (ms, plain_ms)} at the packed-row shapes: K1 in its
-    segment form, K2 in its bias + segments form; then K1 in its key-mask
-    form on the wide-jet batch."""
+    """{(kernel, shape): times} at the packed-row shapes: K1 in its segment
+    form, K2 in its bias + segments form; then K1 in its key-mask form on
+    the wide-jet batch.  Each with its plain version, the library call and
+    its bound."""
     result = {}
     with torch.no_grad():
         for shape in TIMED:
-            q, k, v, _, seg, bias, _ = _case_inputs(shape, "bias_segments", dev)
-            H = shape[3]
-            pairs = {
-                "K1": (lambda: k1.btc_attention(q, k, v, H, None, seg),
-                       lambda: attention_btc_reference(q, k, v, H, None, seg)),
-                "K2": (lambda: k2.set_attention_btc(q, k, v, H, None, bias, seg),
-                       lambda: attention_btc_reference(q, k, v, H, None, seg, bias)),
+            q, k, v, _, seg, bias, real = _case_inputs(shape, "bias_segments", dev)
+            B, T, C, H = shape
+            same = seg[:, None, :, None] == seg[:, None, None, :]
+            # (query, key) pairs of one jet: the only ones the function
+            # reads a bias entry for and computes a product of
+            pairs = int((same[:, 0] & real[:, :, None]).sum())
+            cross = torch.where(same, 0.0, -1e9)
+            forms = {
+                "K1": ("segments", lambda: k1.btc_attention(q, k, v, H, None, seg),
+                       lambda: attention_btc_reference(q, k, v, H, None, seg),
+                       None, cross, 4 * seg.numel()),
+                "K2": ("bias (B,H,T,T) + segments",
+                       lambda: k2.set_attention_btc(q, k, v, H, None, bias, seg),
+                       lambda: attention_btc_reference(q, k, v, H, None, seg, bias),
+                       bias, (bias + cross).contiguous(), 4 * (seg.numel() + H * pairs)),
             }
-            for name, fns in pairs.items():
-                ms, plain_ms = _median_ms(list(fns))
-                form = "segments" if name == "K1" else "bias (B,H,T,T) + segments"
-                _print_time(name, shape, form, ms, plain_ms)
-                result[name, shape] = (ms, plain_ms)
-        q, k, v, km, _, _, _ = _case_inputs(TIMED_WIDE, "key_mask", dev)
+            for name, (form, kernel, plain, b, mask, extra) in forms.items():
+                library = _library_call(q, k, v, H, mask, plain(), real, f"{name} {shape}")
+                ms, plain_ms, library_ms = _median_ms([kernel, plain, library])
+                bound_ms, bound_by = _bound(q, pairs, extra)
+                t = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                         bound_by=bound_by)
+                _print_time(name, shape, form, t)
+                result[name, shape] = t
+        q, k, v, km, _, _, real = _case_inputs(TIMED_WIDE, "key_mask", dev)
         H = TIMED_WIDE[3]
-        ms, plain_ms = _median_ms([lambda: k1.btc_attention(q, k, v, H, km, None),
-                                   lambda: attention_btc_reference(q, k, v, H, km)])
-        _print_time("K1", TIMED_WIDE, "key_mask", ms, plain_ms)
-        result["K1", TIMED_WIDE] = (ms, plain_ms)
+        plain = lambda: attention_btc_reference(q, k, v, H, km)  # noqa: E731
+        library = _library_call(q, k, v, H, km[:, None, None, :], plain(), real,
+                                f"K1 {TIMED_WIDE} key_mask")
+        ms, plain_ms, library_ms = _median_ms(
+            [lambda: k1.btc_attention(q, k, v, H, km, None), plain, library])
+        n_real = real.sum(dim=1)
+        bound_ms, bound_by = _bound(q, int((n_real * n_real).sum()), 4 * km.numel())
+        t = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                 bound_by=bound_by)
+        _print_time("K1", TIMED_WIDE, "key_mask", t)
+        result["K1", TIMED_WIDE] = t
     return result
 
 
@@ -403,6 +510,277 @@ def sampler_vs_cpu(name, system, cfg_kw, dev, steps=8, rows=8):
           f"max_abs_err {err:.3e} (atol 1e-4), tokens equal on {same:.4f} of real sites (>= 0.99)")
     if err > 1e-4 or same < 0.99:
         raise AssertionError(f"{name}: the sampler on the card disagrees with the CPU sampler")
+
+
+def _train_data(rng, n=2048, n_wide=8, D=150):
+    """(train, val) datasets, 90/10: n jets of AOJ-like multiplicity plus
+    n_wide of 135-150, normal kinematics and tokens 1..8."""
+    mult = _jets(rng, n, n_wide, D)
+    mask = _pad_masks(mult, D).astype(np.int32)
+    x = (rng.normal(size=(len(mult), D, 3)) * mask).astype(np.float32)
+    k = (rng.integers(1, 9, size=(len(mult), D, 1)) * mask).astype(np.int32)
+    ds = ArrayDataset(DataCoupling(source=MultiModal(mask=mask),
+                                   target=MultiModal(continuous=x, discrete=k, mask=mask)))
+    return ds.split(0.9, seed=0)
+
+
+def _first_batch(trainer, train_ds):
+    """The first row batch of the packed unit (host arrays)."""
+    return trainer._pack_units(train_ds)[0].coupling[np.arange(trainer._packed_row_bs)]
+
+
+def train_card_vs_cpu(dev, train_ds):
+    """The flagship's packed training loss and every parameter gradient on
+    the card and on the CPU (plain attention), same weights, one packed
+    batch, shared bridge states; then one optimizer update (clip, Adam,
+    EMA) from the card's gradients on both."""
+    cfg = Config(**TRAIN)
+    sides = {side: (d, build_system(cfg, "MMF", device=d,
+                                    generator=torch.Generator().manual_seed(0)))
+             for side, d in (("card", dev), ("cpu", torch.device("cpu")))}
+    batch = _first_batch(Trainer(sides["card"][1], cfg), train_ds)
+    rng = np.random.default_rng(3)
+    m = batch.mask
+    t_jets = rng.uniform(cfg.time_eps, 1.0, batch.jet_valid.shape).astype(np.float32)
+    states = dict(time=np.take_along_axis(t_jets, np.clip(batch.segments, 0, None), axis=1),
+                  continuous=(rng.normal(size=m.shape[:2] + (3,)) * m).astype(np.float32),
+                  discrete=(rng.integers(1, 9, size=m.shape) * m).astype(np.int32), mask=m)
+    drift = (rng.normal(size=m.shape[:2] + (3,)) * m).astype(np.float32)
+    loss, grads = {}, {}
+    for side, (d, system) in sides.items():
+        b = batch.to(d)
+        state = MultiModal(**{f: torch.from_numpy(a) for f, a in states.items()}).to(d)
+        k1.reset_launch_counts()
+        out = system.module.packed_training_loss(state, torch.from_numpy(drift).to(d),
+                                                 b.discrete, torch.from_numpy(t_jets).to(d),
+                                                 b.segments, b.jet_valid)
+        out[0].backward()
+        loss[side] = out[0].item()
+        grads[side] = {n: p.grad.cpu() for n, p in system.module.named_parameters()}
+        print(f"training loss on the {side}: {loss[side]:.7f} ({len(b)} rows x {b.width}, "
+              f"{b.num_jets} jets; K1 launches {sum(k1.LAUNCHES.values())})")
+    rel = abs(loss["card"] - loss["cpu"]) / abs(loss["cpu"])
+    worst = max(float(((grads["card"][n] - g).abs() / (TRAIN_GRAD_ATOL + TRAIN_GRAD_RTOL
+                                                        * g.abs())).max())
+                for n, g in grads["cpu"].items())
+    print(f"training card vs CPU: loss rel err {rel:.3e} (<= {TRAIN_LOSS_RTOL}); "
+          f"{len(grads['cpu'])} gradients, worst |diff| / (atol {TRAIN_GRAD_ATOL} + rtol "
+          f"{TRAIN_GRAD_RTOL} |g|) = {worst:.3f} (<= 1)")
+    if rel > TRAIN_LOSS_RTOL or worst > 1.0:
+        raise AssertionError("the training loss or its gradients on the card disagree with "
+                             "the CPU")
+
+    after = {}
+    for side, (d, system) in sides.items():
+        trainer = Trainer(system, cfg)
+        state = trainer.init_state(10)
+        for n, p in system.module.named_parameters():
+            p.grad = grads["card"][n].to(d)
+        trainer._update(state)
+        after[side] = [t.detach().cpu() for t in (*system.module.parameters(),
+                                                  *state.ema.parameters())]
+    err = max(float((a - b).abs().max()) for a, b in zip(after["card"], after["cpu"]))
+    print(f"one update (clip, Adam, EMA) from the same gradients, card vs CPU: max_abs_err "
+          f"{err:.3e} (atol {UPDATE_ATOL})")
+    if err > UPDATE_ATOL:
+        raise AssertionError("the optimizer update on the card disagrees with the CPU")
+
+
+def fit_fixed_batch(dev, train_ds, steps=30):
+    """`steps` train steps on one packed batch with the same draws (the
+    generator reseeded) every step: the loss must fall."""
+    cfg = Config(**TRAIN)
+    system = build_system(cfg, "MMF", device=dev, generator=torch.Generator().manual_seed(1))
+    trainer = Trainer(system, cfg)
+    state = trainer.init_state(steps)
+    batch = _first_batch(trainer, train_ds).to(dev)
+    gen = torch.Generator(device=dev)
+    system.module.train()
+    losses = []
+    for _ in range(steps):
+        gen.manual_seed(0)
+        losses.append(trainer._train_step(state, batch, gen)["loss"])
+    losses = torch.stack(losses).cpu().numpy()
+    print(f"fixed batch, {steps} steps: loss {losses[0]:.5f} -> {losses[-1]:.5f} "
+          f"(first 5 mean {losses[:5].mean():.5f}, last 5 mean {losses[-5:].mean():.5f})")
+    if not (np.isfinite(losses).all() and losses[-5:].mean() < losses[:5].mean()):
+        raise AssertionError("the loss on a fixed batch did not fall")
+
+
+def train_flagship(dev, train_ds, val_ds, out_dir):
+    """The training main path: `Trainer.fit` of the flagship, the launch
+    counters set to 0 just before and read just after."""
+    cfg = Config(**TRAIN, dir=out_dir, experiment_id="flagship")
+    system = build_system(cfg, "MMF", device=dev, generator=torch.Generator().manual_seed(0))
+    trainer = Trainer(system, cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    k1.reset_launch_counts()
+    k2.reset_launch_counts()
+    t0 = time.perf_counter()
+    state = trainer.fit(train_ds, val_ds)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"K1": dict(k1.LAUNCHES), "K2": dict(k2.LAUNCHES)}
+    peak = torch.cuda.max_memory_allocated()
+    print(f"flagship training: launches {launches}")
+    if not launches["K1"]["segments"] or sum(launches["K2"].values()):
+        raise AssertionError("flagship training: K1 did not run in its segment form, or K2 ran")
+
+    exp = os.path.join(out_dir, cfg.project, "flagship")
+    records = [json.loads(line) for line in open(os.path.join(exp, "metrics.jsonl"))]
+    losses = [r[k] for r in records for k in r if "loss" in k]
+    slots = set(os.listdir(os.path.join(exp, "checkpoints")))
+    fresh = build_system(cfg, "MMF", device=dev)
+    fresh.module.load_state_dict(trainer.load_for_inference("last"))
+    reloaded = trainer.evaluate(val_ds, fresh.module, epoch=cfg.max_epochs - 1)["val_loss"]
+    logged = records[-1]["val_loss"]
+    checks = {
+        f"{len(records)} epochs logged": len(records) == cfg.max_epochs,
+        "every logged loss finite": bool(np.isfinite(losses).all()),
+        "last and best written": {"last.pt", "best.pt"} <= slots,
+        "last reloaded gives the logged val_loss (rel 1e-5)":
+            abs(reloaded - logged) <= 1e-5 * abs(logged),
+    }
+    for r in records:
+        print(f"  epoch {r['epoch']:.0f}: train_loss {r['train_loss']:.5f} val_loss "
+              f"{r['val_loss']:.5f} lr {r['lr']:.3e} ({r['epoch_time_s']:.2f} s)")
+    print(f"flagship training: {state.step} steps in {wall:.2f} s (3 epochs, validation and "
+          f"checkpoints included); val_loss logged {logged:.7f}, reloaded {reloaded:.7f}; "
+          f"peak max_memory_allocated {peak / 2**20:.1f} MiB; checks {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"flagship training failed {checks}")
+    return launches, trainer, state, peak
+
+
+def _step_phases(trainer, state, batch, gen):
+    """One train step with its phases named for the profiler."""
+    from torch.profiler import record_function
+
+    with record_function("train_forward"):
+        loss, _ = trainer.system.loss_fn(batch, gen, train=True, module=state.module)
+    state.optimizer.zero_grad(set_to_none=True)
+    loss.backward()
+    with record_function("train_optimizer"):
+        trainer._update(state)
+
+
+def _share(part: float, whole: float) -> float:
+    return part / whole if whole else float("nan")
+
+
+def time_training(dev, trainer, state, train_ds, n=20, n_prof=5):
+    """Wall time of a train step (ending in a synchronize) and jets/s; then
+    `torch.profiler` over `n_prof` steps: the kernels' device time split
+    into forward (launched inside the loss), optimizer (inside the update)
+    and backward (the rest: the autograd engine launches it from its own
+    thread), the device's busy share of the wall, and the kernels that
+    take the most time.  A step launches more kernels than the stream's
+    queue holds, so holding the stream while the host enqueues (as
+    `_median_ms` does) cannot time it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    unit = trainer._pack_units(train_ds)[0]
+    rows = trainer._packed_row_bs
+    idx = trainer._epoch_perm(len(unit), rows, shuffle=True, seed=1, epoch=0)
+    batches = list(trainer._batches(trainer._resident(unit), idx))
+    jets = [int(unit.coupling.jet_valid[i].sum()) for i in idx]
+    gen = torch.Generator(device=dev).manual_seed(2)
+    state.module.train()
+    for b in batches[:3]:  # warm-up
+        trainer._train_step(state, b, gen)
+    torch.cuda.synchronize()
+    walls, step_jets = [], []
+    for i in range(n):
+        j = i % len(batches)
+        t0 = time.perf_counter()
+        trainer._train_step(state, batches[j], gen)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        step_jets.append(jets[j])
+    wall_ms = float(np.median(walls)) * 1e3
+    jets_per_s = sum(step_jets) / sum(walls)
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(n_prof):
+            _step_phases(trainer, state, batches[i % len(batches)], gen)
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.perf_counter() - t0) * 1e3 / n_prof
+    state.module.eval()
+    events = prof.events()
+    ranges = {name: sum(e.device_time_total for e in events
+                        if e.name == name and e.device_type.name == "CPU") / n_prof / 1e3
+              for name in ("train_forward", "train_optimizer")}
+    total_ms = sum(e.device_time_total for e in events
+                   if e.device_type.name == "CPU" and e.cpu_parent is None) / n_prof / 1e3
+    split = {"forward": ranges["train_forward"], "optimizer": ranges["train_optimizer"]}
+    split["backward"] = total_ms - split["forward"] - split["optimizer"]
+    averages = prof.key_averages()
+    launches = sum(e.count for e in averages if e.key == "cudaLaunchKernel") / n_prof
+    print(f"train step (flagship, {rows} rows x 128, ~{np.mean(jets):.1f} jets): median wall "
+          f"{wall_ms:.3f} ms over {n} steps (each synchronized), {jets_per_s:.1f} trained "
+          f"jets/s")
+    print(f"train step kernel time (torch.profiler, {n_prof} steps): forward "
+          f"{split['forward']:.3f} ms, backward {split['backward']:.3f} ms, optimizer "
+          f"{split['optimizer']:.3f} ms, total {total_ms:.3f} ms; device busy share "
+          f"{_share(total_ms, wall_ms):.3f} of the unprofiled wall ({_share(total_ms, prof_wall_ms):.3f} of "
+          f"the profiled wall, {prof_wall_ms:.3f} ms a step); {launches:.0f} cudaLaunchKernel "
+          f"a step"
+          + ("" if total_ms else " (the profiler shows no device time)"))
+    annotations = {e.key for e in averages if e.device_type.name == "CPU"}
+    kernels = [e for e in averages if e.device_type.name == "CUDA" and e.key not in annotations]
+    for e in sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:15]:
+        print(f"  {e.self_device_time_total / 1e3 / n_prof:8.3f} ms/step "
+              f"{_share(e.self_device_time_total / 1e3 / n_prof, total_ms):6.3f}  "
+              f"{e.count / n_prof:6.1f}/step  {e.key[:100]}")
+    # in the profiled steps: K1's own kernels, and the device time of the
+    # autograd nodes of its backward (the recompute through the plain version)
+    k1_fwd_ms = sum(e.self_device_time_total for e in kernels
+                    if "attention_kernel" in e.key) / n_prof / 1e3
+    node = "BtcAttentionBackward"
+    k1_bwd = [e for e in events if e.device_type.name == "CPU" and node in e.name
+              and not (e.cpu_parent is not None and node in e.cpu_parent.name)]
+    k1_bwd_ms = sum(e.device_time_total for e in k1_bwd) / n_prof / 1e3
+    print(f"attention in the profiled steps: K1 kernels {k1_fwd_ms:.3f} ms a step "
+          f"({_share(k1_fwd_ms, split['forward']):.3f} of the forward); {len(k1_bwd) / n_prof:.0f} "
+          f"backward nodes a step, {k1_bwd_ms:.3f} ms ({_share(k1_bwd_ms, split['backward']):.3f} "
+          f"of the backward)")
+    return dict(wall_ms=wall_ms, jets_per_s=jets_per_s, device_ms=total_ms,
+                busy_share=_share(total_ms, wall_ms), launches_per_step=launches, **split,
+                attention_forward_ms=k1_fwd_ms, attention_backward_ms=k1_bwd_ms)
+
+
+def train_coocc(dev, train_ds, steps=5):
+    """5 train steps of the co-occurrence MMF: K2 in its bias + segments
+    form, forward and (through the plain version) backward with the bias's
+    gradient; K1 never."""
+    cfg = Config(**TRAIN_COOCC)
+    system = build_system(cfg, "MMF", device=dev, generator=torch.Generator().manual_seed(0))
+    trainer = Trainer(system, cfg)
+    state = trainer.init_state(steps)
+    unit = trainer._pack_units(train_ds)[0]
+    idx = trainer._epoch_perm(len(unit), trainer._packed_row_bs, shuffle=True, seed=0,
+                              epoch=0)[:steps]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    system.module.train()
+    k1.reset_launch_counts()
+    k2.reset_launch_counts()
+    metrics = [trainer._train_step(state, b, gen)
+               for b in trainer._batches(trainer._resident(unit), idx)]
+    torch.cuda.synchronize()
+    launches = {"K1": dict(k1.LAUNCHES), "K2": dict(k2.LAUNCHES)}
+    losses = torch.stack([m["loss"] for m in metrics]).cpu().numpy()
+    wue = system.module.encoder.coocc.wue.weight
+    print(f"co-occurrence training, {steps} steps: losses {np.round(losses, 5).tolist()}; "
+          f"launches {launches}")
+    if not (len(losses) == steps and np.isfinite(losses).all()
+            and launches["K2"]["bias_segments"] and not sum(launches["K1"].values())):
+        raise AssertionError("co-occurrence training: a loss is not finite, K2 did not run "
+                             "as bias + segments, or K1 ran")
+    if wue.grad is None or not torch.isfinite(wue.grad).all() or not wue.grad.abs().sum():
+        raise AssertionError("co-occurrence training: no gradient reached the bias table")
+    return launches
 
 
 def _system(kind, cfg_kw, dev):
@@ -489,9 +867,24 @@ def main() -> None:
               lambda l1, l2: "did not run K2" if not sum(l2.values()) else "")
         del system
 
+    train_ds, val_ds = _train_data(np.random.default_rng(5))
+    train_card_vs_cpu(dev, train_ds)
+    fit_fixed_batch(dev, train_ds)
+    build_dir = Path(__file__).resolve().parent / "build"
+    build_dir.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as out_dir:
+        train_launches, trainer, state, peak = train_flagship(dev, train_ds, val_ds, out_dir)
+    step = time_training(dev, trainer, state, train_ds)
+    print(json.dumps({"training": {"config": "flagship MMF, packed rows of 128, 256 jets/step",
+                                   "card": card, "peak_mib": peak / 2**20, **step}}))
+    del trainer, state
+    coocc_train_launches = train_coocc(dev, train_ds)
+
     def timed(name):
-        (ms, plain_ms), (ms256, plain256) = times[name, TIMED[0]], times[name, TIMED[1]]
-        return {"ms": ms, "plain_ms": plain_ms, "ms_c256": ms256, "plain_ms_c256": plain256}
+        out = {}
+        for shape, suffix in ((TIMED[0], ""), (TIMED[1], "_c256")):
+            out.update({k + suffix: v for k, v in times[name, shape].items()})
+        return out
 
     print(json.dumps({"kernels": [
         {"name": "btc_attention (K1, timed at B=128 T=128 H=4 segments, C=128 and C=256)",
@@ -499,6 +892,7 @@ def main() -> None:
          "source": "multimodal_flows_tpu_torch/csrc/btc_attention.cu",
          "replaces": "multimodal_flows_tpu/ops/pallas_attention.py:201",
          "launches": sum(main_launches["K1"].values()),
+         "launches_training": sum(train_launches["K1"].values()),
          "max_abs_err": err["K1"], **timed("K1")},
         {"name": "set_attention (K2, timed at B=128 T=128 H=4 bias + segments, "
                  "C=128 and C=256)",
@@ -506,6 +900,7 @@ def main() -> None:
          "source": "multimodal_flows_tpu_torch/csrc/set_attention.cu",
          "replaces": "multimodal_flows_tpu/ops/pallas_attention.py:48",
          "launches": sum(coocc_launches["K2"].values()),
+         "launches_training": sum(coocc_train_launches["K2"].values()),
          "max_abs_err": err["K2"], **timed("K2")},
     ]}))
     print(card)

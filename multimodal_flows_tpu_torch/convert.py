@@ -1,9 +1,10 @@
 """Flax -> PyTorch parameter conversion.
 
-`params_from_flax(tree)` takes the flax encoder subtree
-(`params['params']['encoder']`) as nested mappings of numpy arrays and
-returns a state dict for the port's encoder (`MMFModel.encoder`), whose
-module names mirror the flax names:
+`params_from_flax(tree)` takes a flax parameter tree as nested mappings
+of numpy arrays and returns a state dict whose names mirror the flax
+names.  Given the whole MMF tree (`params['params']`: `encoder` +
+`multitask`) it fits `MMFModel`; given the encoder subtree it fits the
+encoder (`MMFModel.encoder`, or a CFM/MJB system's module):
 
 - a Dense `kernel` (in, out) becomes the Linear `weight` (out, in);
 - `bias` carries over unchanged;
@@ -11,12 +12,12 @@ module names mirror the flax names:
 - a LayerNorm's `LayerNorm_0/{scale, bias}` (the project's wrapper) and a
   bare flax `nn.LayerNorm`'s `{scale, bias}` (KinFormer's `wue_ln`)
   become `{weight, bias}`;
-- the 0-d `lambda_u` gate carries over as a 0-d parameter.
+- the 0-d `lambda_u` gate carries over as a 0-d parameter, and the (2,)
+  `loss_weights` of the weighted multitask loss as they are.
 
 Any other leaf name raises.  `load_flax_params` loads the result
 strictly, so a torch parameter left unset, or a flax leaf with no torch
-counterpart, raises too.  The `multitask` loss subtree is training's and
-is not converted.
+counterpart, raises too.
 """
 
 from __future__ import annotations
@@ -52,6 +53,9 @@ def params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
         elif name == "lambda_u":
             if arr.ndim != 0:
                 raise ValueError(f"{'/'.join(path)}: lambda_u must be 0-d, got {arr.shape}")
+        elif name == "loss_weights":
+            if arr.shape != (2,):
+                raise ValueError(f"{'/'.join(path)}: loss_weights must be (2,), got {arr.shape}")
         elif name != "bias":
             raise KeyError(f"no conversion rule for flax leaf {'/'.join(path)}")
         out[".".join([*mods, name])] = torch.from_numpy(arr.copy())
@@ -59,6 +63,7 @@ def params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
 
 
 def load_flax_params(module: nn.Module, tree: Mapping) -> None:
-    """Load a converted flax subtree into `module`, strictly (missing or
-    unexpected names and shape mismatches raise)."""
+    """Load a converted flax tree into `module`, strictly (missing or
+    unexpected names and shape mismatches raise): the whole MMF tree into
+    `MMF.module`, an encoder subtree into an encoder."""
     module.load_state_dict(params_from_flax(tree), strict=True)

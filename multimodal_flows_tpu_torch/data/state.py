@@ -1,7 +1,8 @@
-"""Multimodal particle-cloud state (PyTorch port of
-`multimodal_flows_tpu/data/state.py:MultiModal`).
+"""Multimodal particle-cloud state and the (source, target, context)
+coupling (PyTorch port of `multimodal_flows_tpu/data/state.py`).
 
-A plain dataclass of tensors; every field may be None:
+`MultiModal` is a plain dataclass of tensors (or, in the host-side
+datasets, numpy arrays); every field may be None:
   time:       (B,)        float32 — bridge time per jet
   continuous: (B, D, Fc)  float32 — particle kinematics (pt, eta_rel, phi_rel)
   discrete:   (B, D, 1)   int     — flavor tokens in {0..V-1}, 0 = pad
@@ -61,7 +62,8 @@ class MultiModal:
         return self.map(lambda a: a[index])
 
     def to(self, device) -> "MultiModal":
-        return self.map(lambda a: a.to(device))
+        """Tensors on `device` (numpy fields are converted)."""
+        return self.map(lambda a: torch.as_tensor(a, device=device))
 
     def apply_mask(self, condition: Optional[Tensor] = None) -> "MultiModal":
         """Zero out padded entries; discrete is cast to int32."""
@@ -80,6 +82,14 @@ class MultiModal:
             return torch.cat(parts, dim=dim) if parts else None
 
         return MultiModal(**{m: cat(m) for m in _MODES})
+
+    @staticmethod
+    def stack(states: Sequence["MultiModal"], dim: int = 0) -> "MultiModal":
+        def stack_field(name):
+            parts = [getattr(s, name) for s in states if getattr(s, name) is not None]
+            return torch.stack(parts, dim=dim) if parts else None
+
+        return MultiModal(**{m: stack_field(m) for m in _MODES})
 
     # -------------------------------------------------------------- HDF5 I/O
 
@@ -103,3 +113,27 @@ class MultiModal:
         with h5py.File(path, "r") as f:
             return cls(**{m: torch.from_numpy(np.asarray(f[m])) if m in f else None
                           for m in _MODES})
+
+
+@dataclasses.dataclass
+class DataCoupling:
+    """(source, target, context) triple: the unit training batches are
+    cut from.  An empty `MultiModal` stands for an absent member."""
+
+    source: MultiModal = dataclasses.field(default_factory=MultiModal)
+    target: MultiModal = dataclasses.field(default_factory=MultiModal)
+    context: MultiModal = dataclasses.field(default_factory=MultiModal)
+
+    def __len__(self) -> int:
+        n = len(self.target)
+        return n if n else len(self.source)
+
+    def map(self, fn: Callable) -> "DataCoupling":
+        """Apply `fn` to every field of every member."""
+        return DataCoupling(self.source.map(fn), self.target.map(fn), self.context.map(fn))
+
+    def __getitem__(self, index) -> "DataCoupling":
+        return self.map(lambda a: a[index])
+
+    def to(self, device) -> "DataCoupling":
+        return self.map(lambda a: torch.as_tensor(a, device=device))

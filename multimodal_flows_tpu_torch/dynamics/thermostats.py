@@ -15,7 +15,9 @@ def _as_f32(t, like=None) -> torch.Tensor:
     if isinstance(t, torch.Tensor):
         return t.to(torch.float32)
     device = like.device if isinstance(like, torch.Tensor) else None
-    return torch.tensor(t, dtype=torch.float32, device=device)
+    # a fill on the device: `torch.tensor` would copy from the host and wait
+    # for the stream
+    return torch.full((), float(t), dtype=torch.float32, device=device)
 
 
 class Thermostat:

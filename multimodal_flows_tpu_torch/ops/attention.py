@@ -25,7 +25,7 @@ import torch
 
 Tensor = torch.Tensor
 
-_DROPOUT = "attention dropout comes with training (ROADMAP.md Queue 1 item 14)"
+_DROPOUT = "attention dropout is not ported yet (ROADMAP.md Queue 1 item 14)"
 
 
 def attention_reference(q: Tensor, k: Tensor, v: Tensor,

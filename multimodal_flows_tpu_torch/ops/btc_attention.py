@@ -14,7 +14,7 @@ The wrapper takes CUDA tensors only and launches the kernel or raises;
 the plain version (`ops/attention.py:attention_btc_reference`) serves CPU
 tensors through `multihead_attention_btc`.  The backward recomputes
 through the plain version, as the JAX custom VJP `_btc_vjp_bwd` recomputes
-through XLA; a backward kernel comes with packed training.
+through XLA; a backward kernel is ROADMAP.md Queue 2 item 3.
 """
 
 from __future__ import annotations

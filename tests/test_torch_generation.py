@@ -71,7 +71,7 @@ def test_batch_ladders_match_jax():
 @pytest.fixture(scope="module")
 def generated():
     cfg = Config(**TINY)
-    system = MMF(cfg, generator=torch.Generator().manual_seed(0))
+    system = MMF(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
     rng = np.random.default_rng(1)
     mults = np.concatenate([rng.integers(2, 11, size=30), [15, 20]])  # 2 wider than a row
     pad_masks = _pad_masks(mults, 20)

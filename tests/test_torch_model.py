@@ -101,7 +101,7 @@ def systems():
     jsys = JaxMMF(JaxConfig(**SMALL))
     params = jax.jit(jsys.init_params)(jax.random.PRNGKey(0))["params"]
     params = {"encoder": _randomize(params["encoder"], 3), "multitask": params["multitask"]}
-    tsys = MMF(Config(**SMALL))
+    tsys = MMF(Config(**SMALL), device="cpu")
     load_flax_params(tsys.module.encoder, _to_numpy(params["encoder"]))
     apply = jax.jit(lambda state, segments=None: jsys.module.apply(
         {"params": params}, state, segments=segments))
@@ -156,7 +156,7 @@ def test_particleformer_matches_jax_segments_path(systems):
 def test_packed_forward_equals_unpacked_per_jet():
     """Within the port (mirrors tests/test_packing.py:82-104): the packed
     segment forward equals the per-jet key-mask forward."""
-    tsys = MMF(Config(**SMALL), generator=torch.Generator().manual_seed(0))
+    tsys = MMF(Config(**SMALL), device="cpu", generator=torch.Generator().manual_seed(0))
     mults = [5, 9, 3, 7, 12, 4]
     x, k, mask = _jets(6, 12, mults, seed=1)
     px, pk, row_mask, row_seg, row_of, offset_of = _packed(x, k, mask, 12)

@@ -113,7 +113,7 @@ def _system_pair(kind, cfg_kw, seed=3):
     the port's system holding the same parameters."""
     jsys = jsystems.SYSTEM_REGISTRY[kind](JaxConfig(**cfg_kw))
     params = jax.jit(jsys.init_params)(jax.random.PRNGKey(0))["params"]
-    tsys = systems.build_system(Config(**cfg_kw), kind)
+    tsys = systems.build_system(Config(**cfg_kw), kind, device="cpu")
     if kind == "MMF":
         params = {"encoder": _randomize(params["encoder"], seed),
                   "multitask": params["multitask"]}
@@ -359,7 +359,8 @@ def test_generate_packed_runs_each_system_on_cpu(kind, cfg_kw):
     """Packed rows plus the bucketed tail (MMF, CFM), or bucketed
     throughout (pos-emb FlavorFormer); on the CPU neither kernel runs."""
     cfg = Config(**dict(cfg_kw, max_num_particles=20, pair_chunk=7))
-    system = systems.build_system(cfg, kind, generator=torch.Generator().manual_seed(0))
+    system = systems.build_system(cfg, kind, device="cpu",
+                                    generator=torch.Generator().manual_seed(0))
     if hasattr(system.module, "lambda_u"):
         system.module.lambda_u.data.fill_(LAMBDA_U)
     mults = np.concatenate([np.random.default_rng(1).integers(2, 11, size=20), [15, 20]])

@@ -116,7 +116,7 @@ def test_simulate_matches_jax_on_shared_noise():
     steps, B, D = 8, 6, 12
     jsys = JaxMMF(JaxConfig(**SMALL))
     params = jax.jit(jsys.init_params)(jax.random.PRNGKey(0))
-    tsys = MMF(Config(**SMALL))
+    tsys = MMF(Config(**SMALL), device="cpu")
     load_flax_params(tsys.module.encoder,
                      jax.tree.map(np.asarray, params["params"]["encoder"]))
 
