@@ -44,7 +44,7 @@
      states, then one optimizer update from the same gradients on both;
    - 30 steps on one fixed batch with fixed draws: the loss falls;
    - the main path: `Trainer.fit` of the flagship, packed rows of 128,
-     256 jets a step, EMA, 3 epochs, counts set to 0 just before and read
+     256 jets a step, EMA, 2 epochs, counts set to 0 just before and read
      just after: K1 in its segment form (the wide jets as one-jet rows at
      width 150), K2 never; the logged losses finite, `last` and `best`
      written, `last` reloaded into a fresh system gives the logged
@@ -54,8 +54,35 @@
      and of its backward (the recompute through the plain version);
    - 5 steps of the co-occurrence MMF: K2 in its bias + segments form
      (its backward gives the bias's gradient), K1 never.
-7. Prints one JSON line of the kernels, the card line, and the contract
+7. The rest of the model / solver matrix, each at the full width of its
+   model, counts set to 0 before each phase and read after:
+   - MMF + FusedParticleFormer: `generate_packed` on the flagship's jets
+     (K1 five launches a forward, segment form on packed rows, key-mask
+     form on the wide jets, the exact counts asserted), the sampler
+     against the CPU on shared noise, 5 steps on a fixed packed batch (the
+     loss falls, K1 5 launches a forward), and the step's time;
+   - `Trainer.fit` of the flagship, 2 epochs, with the physics eval every
+     epoch: `val_w1_pt/mass/mult/physics` logged and finite,
+     `best_physics.pt` written, both evals on one generation seed;
+   - flagship steps with `dropout=0.1`: in train mode K1 and K2 launch
+     nothing and the plain-attention counter reads 16 a forward, in eval
+     mode K1 runs again and the loss is deterministic; the step's time,
+     and the plain attention with dropout against K1 at the step's shapes;
+   - one bucketed epoch of the flagship: K1's key-mask form at every
+     bucket width;
+   - CFM + EPiC: `generate_packed`, packed rows against one jet a row on
+     shared noise, the card against the CPU, steps on a fixed packed
+     batch, the step's time; K1 and K2 never run;
+   - every new solver mode on the card against the CPU for 4 steps on
+     shared noise: hybrid `euler` with `class_freqs`, `top_k=3` +
+     `top_p=0.9`, a sigmoid thermostat, `euler_maruyama`,
+     `tauleap-bernouilli`, `euler`, `jump_or_stay`.
+8. Prints one JSON line of the kernels, the card line, and the contract
    line {"ok": true, "device": {...}} last.  Any failure exits non-zero.
+
+Against earlier versions of this script the two MMF sampling paths run 50
+steps instead of 100 and the flagship's `Trainer.fit` 2 epochs instead of
+3, to make room for the phases of 7.
 """
 
 from __future__ import annotations
@@ -76,12 +103,17 @@ from multimodal_flows_tpu_torch.config import Config
 from multimodal_flows_tpu_torch.data.datasets import ArrayDataset
 from multimodal_flows_tpu_torch.data.packing import build_packed_rows, pack_jets
 from multimodal_flows_tpu_torch.data.state import DataCoupling, MultiModal
+from multimodal_flows_tpu_torch.dynamics.bridges import RandomTelegraphBridge
+from multimodal_flows_tpu_torch.dynamics.solvers import REFERENCE_CLASS_FREQS
+from multimodal_flows_tpu_torch.dynamics.thermostats import SigmoidThermostat
 from multimodal_flows_tpu_torch.models.blocks import pair_mask_bias
+from multimodal_flows_tpu_torch.ops import attention
 from multimodal_flows_tpu_torch.ops import btc_attention as k1
 from multimodal_flows_tpu_torch.ops import cuda_build
 from multimodal_flows_tpu_torch.ops import set_attention as k2
 from multimodal_flows_tpu_torch.ops.attention import attention_btc_reference, attention_reference
 from multimodal_flows_tpu_torch.sampling.generator import generate_packed
+from multimodal_flows_tpu_torch.train import physics_eval
 from multimodal_flows_tpu_torch.train.systems import build_system
 from multimodal_flows_tpu_torch.train.trainer import Trainer
 
@@ -105,8 +137,23 @@ LAMBDA_U = 0.5
 # training: the flagship on packed rows of 128, 256 jets a step (the
 # training CLI's default, scripts/train_mmf.py:41), EMA, lr 5e-4, clip 1.0
 TRAIN = dict(FLAGSHIP, batch_size=256, packed_training=True, pack_width=128,
-             use_ema_weights=True, lr=5e-4, gradient_clip_val=1.0, max_epochs=3)
+             use_ema_weights=True, lr=5e-4, gradient_clip_val=1.0, max_epochs=2)
 TRAIN_COOCC = dict(TRAIN, use_coocurrence=True)
+# the rest of the matrix: FusedParticleFormer and EPiC at the CLI's widths
+# (n_embd_glob 16 is the CLI default), the flagship with dropout, with the
+# physics eval (the validation set's ~200 jets at 50 steps) and bucketed
+FUSED = dict(CLI, model="FusedParticleFormer", batch_size=128, multitask_loss="time-weighted")
+TRAIN_FUSED = dict(TRAIN, model="FusedParticleFormer")
+EPIC = dict(model="EPiC", n_embd=256, n_embd_glob=16, n_layer=5, vocab_size=9, dim_continuous=3,
+            max_num_particles=150, batch_size=128)
+TRAIN_EPIC = dict(EPIC, batch_size=256, packed_training=True, pack_width=128,
+                  use_ema_weights=True, lr=5e-4, gradient_clip_val=1.0)
+TRAIN_DROPOUT = dict(TRAIN, dropout=0.1)
+TRAIN_PHYSICS = dict(TRAIN, physics_eval_every_n_epochs=1,
+                     physics_eval_num_jets=300, physics_eval_num_timesteps=50)
+TRAIN_BUCKETED = dict(FLAGSHIP, batch_size=64, bucketed_training=True, bucket_widths=[48, 64, 128],
+                      use_ema_weights=True, lr=5e-4, gradient_clip_val=1.0, max_epochs=1)
+SAMPLING_STEPS = 50
 # card vs CPU on one training batch: fp32 on both sides, TF32 off; the sums
 # run in another order and the card's per-jet sums (index_add_) use
 # atomics, whose order changes from run to run
@@ -116,12 +163,17 @@ TRAIN_GRAD_ATOL, TRAIN_GRAD_RTOL = 1e-4, 1e-3
 UPDATE_ATOL = 1e-5
 # the packed training batch at the flagship: about 256 jets in rows of 128
 TRAIN_K1_GRAD_SHAPE = (85, 128, 256, 4)
+# a bucketed training batch at the narrowest bucket: 64 jets of width 48
+BUCKET_K1_GRAD_SHAPE = (64, 48, 256, 4)
 
 # (B, T, C, H), form: the flagship packed rows (half- and full-width
 # blocks), wide jets at T=150, the parity-test shapes, the kernel's limits;
 # then the edges of the tiling: head size 9 (not a multiple of 8), T=33
 # with segments, one jet filling each row (no key tile skipped), rows of
-# 3-particle jets (most tiles skipped), scattered ids in {-1, 0, 1, 2}
+# 3-particle jets (most tiles skipped), scattered ids in {-1, 0, 1, 2};
+# then the bucketed training batches: 64 jets under a key mask at the
+# bucket widths 48 (less than one 64-query block), 64 and 128, both stream
+# widths (the widest bucket, 150, is the wide-jet shape above)
 SEGMENT_FORMS = ("segments", "one_jet", "jets_of_3", "scattered")
 K1_CASES = [
     ((128, 128, 128, 4), "segments"),
@@ -139,6 +191,12 @@ K1_CASES = [
     ((16, 128, 256, 4), "jets_of_3"),
     ((16, 128, 128, 4), "scattered"),
     ((4, 256, 256, 4), "scattered"),
+    ((64, 48, 128, 4), "key_mask"),
+    ((64, 48, 256, 4), "key_mask"),
+    ((64, 64, 128, 4), "key_mask"),
+    ((64, 64, 256, 4), "key_mask"),
+    ((64, 128, 128, 4), "key_mask"),
+    ((64, 128, 256, 4), "key_mask"),
 ]
 # token-major (B, T, C, H) and form: the co-occurrence packed rows, the
 # bucketed wide jets (pair mask + bias), the pair mask alone (a broadcast
@@ -270,6 +328,10 @@ def check_k1(dev) -> float:
     _grads_held(f"K1 at the training batch {TRAIN_K1_GRAD_SHAPE} segments",
                 [lambda a, b, c: k1.btc_attention(a, b, c, 4, None, seg),
                  lambda a, b, c: attention_btc_reference(a, b, c, 4, None, seg)], [q, k, v])
+    q, k, v, km2, _, _, _ = _case_inputs(BUCKET_K1_GRAD_SHAPE, "key_mask", dev, seed=5)
+    _grads_held(f"K1 at a bucketed batch {BUCKET_K1_GRAD_SHAPE} key_mask",
+                [lambda a, b, c: k1.btc_attention(a, b, c, 4, km2, None),
+                 lambda a, b, c: attention_btc_reference(a, b, c, 4, km2, None)], [q, k, v])
     return worst
 
 
@@ -446,6 +508,23 @@ def _jets(rng, n, n_wide, D=150):
     return np.concatenate([_multiplicities(rng, n, D), rng.integers(135, D + 1, size=n_wide)])
 
 
+def _reset_counts():
+    k1.reset_launch_counts()
+    k2.reset_launch_counts()
+    attention.reset_plain_dropout_calls()
+
+
+def _counts():
+    """The launch counts of both kernels by form, and the attention calls
+    that took the plain version for dropout."""
+    return {"K1": dict(k1.LAUNCHES), "K2": dict(k2.LAUNCHES),
+            "plain_dropout": dict(attention.PLAIN_DROPOUT_CALLS)}
+
+
+def _total(counts) -> int:
+    return sum(counts.values())
+
+
 def drive(name, system, mult, steps, expect):
     """One serving path: counts set to 0, `generate_packed`, counts read.
     `expect(k1_launches, k2_launches)` returns what is wrong, or ''."""
@@ -454,10 +533,9 @@ def drive(name, system, mult, steps, expect):
     kw = dict(pack_width=128, batch_size=128, seed=0)
     generate_packed(system, pad_masks[-40:], num_timesteps=2, **kw)  # warm-up
 
-    k1.reset_launch_counts()
-    k2.reset_launch_counts()
+    _reset_counts()
     res = generate_packed(system, pad_masks, num_timesteps=steps, **kw)
-    launches = {"K1": dict(k1.LAUNCHES), "K2": dict(k2.LAUNCHES)}
+    launches = _counts()
     print(f"{name}: launches {launches}")
     wrong = expect(launches["K1"], launches["K2"])
     if wrong:
@@ -487,7 +565,7 @@ def sampler_vs_cpu(name, system, cfg_kw, dev, steps=8, rows=8):
     """The MMF sampler on the card and on the CPU (plain attention), same
     weights, source, segments and uniforms."""
     cfg = system.config
-    cpu_system = build_system(Config(**cfg_kw), "MMF", device="cpu",
+    cpu_system = build_system(Config(**cfg_kw), system.name, device="cpu",
                               generator=torch.Generator().manual_seed(0))
     rng = np.random.default_rng(1)
     mult = _multiplicities(rng, 4 * rows, 128)
@@ -512,16 +590,20 @@ def sampler_vs_cpu(name, system, cfg_kw, dev, steps=8, rows=8):
         raise AssertionError(f"{name}: the sampler on the card disagrees with the CPU sampler")
 
 
-def _train_data(rng, n=2048, n_wide=8, D=150):
-    """(train, val) datasets, 90/10: n jets of AOJ-like multiplicity plus
-    n_wide of 135-150, normal kinematics and tokens 1..8."""
-    mult = _jets(rng, n, n_wide, D)
+def _split_dataset(rng, mult, D=150):
+    """(train, val) datasets, 90/10, of jets of the multiplicities `mult`:
+    normal kinematics and tokens 1..8."""
     mask = _pad_masks(mult, D).astype(np.int32)
     x = (rng.normal(size=(len(mult), D, 3)) * mask).astype(np.float32)
     k = (rng.integers(1, 9, size=(len(mult), D, 1)) * mask).astype(np.int32)
     ds = ArrayDataset(DataCoupling(source=MultiModal(mask=mask),
                                    target=MultiModal(continuous=x, discrete=k, mask=mask)))
     return ds.split(0.9, seed=0)
+
+
+def _train_data(rng, n=2048, n_wide=8, D=150):
+    """n jets of AOJ-like multiplicity plus n_wide of 135-150."""
+    return _split_dataset(rng, _jets(rng, n, n_wide, D), D)
 
 
 def _first_batch(trainer, train_ds):
@@ -586,25 +668,36 @@ def train_card_vs_cpu(dev, train_ds):
         raise AssertionError("the optimizer update on the card disagrees with the CPU")
 
 
-def fit_fixed_batch(dev, train_ds, steps=30):
+def fit_fixed_batch(dev, train_ds, steps=30, name="flagship", kind="MMF", cfg_kw=TRAIN):
     """`steps` train steps on one packed batch with the same draws (the
-    generator reseeded) every step: the loss must fall."""
-    cfg = Config(**TRAIN)
-    system = build_system(cfg, "MMF", device=dev, generator=torch.Generator().manual_seed(1))
+    generator reseeded) every step: the loss must fall below where it
+    started (the mean of the last steps against the first loss, so that a
+    jump after the first update cannot pass for learning).  Returns the
+    trainer, its state and the launch counts of the steps."""
+    cfg = Config(**cfg_kw)
+    system = build_system(cfg, kind, device=dev, generator=torch.Generator().manual_seed(1))
     trainer = Trainer(system, cfg)
     state = trainer.init_state(steps)
     batch = _first_batch(trainer, train_ds).to(dev)
     gen = torch.Generator(device=dev)
     system.module.train()
     losses = []
+    _reset_counts()
     for _ in range(steps):
         gen.manual_seed(0)
         losses.append(trainer._train_step(state, batch, gen)["loss"])
     losses = torch.stack(losses).cpu().numpy()
-    print(f"fixed batch, {steps} steps: loss {losses[0]:.5f} -> {losses[-1]:.5f} "
-          f"(first 5 mean {losses[:5].mean():.5f}, last 5 mean {losses[-5:].mean():.5f})")
-    if not (np.isfinite(losses).all() and losses[-5:].mean() < losses[:5].mean()):
-        raise AssertionError("the loss on a fixed batch did not fall")
+    launches = _counts()
+    system.module.eval()
+    k = min(5, steps // 2)
+    if steps <= 20:
+        print(f"{name}, fixed batch: losses {np.round(losses, 5).tolist()}")
+    print(f"{name}, fixed batch, {steps} steps: loss {losses[0]:.5f} -> {losses[-1]:.5f} "
+          f"(last {k} mean {losses[-k:].mean():.5f}, highest {losses.max():.5f}); "
+          f"launches {launches}")
+    if not (np.isfinite(losses).all() and losses[-k:].mean() < losses[0]):
+        raise AssertionError(f"{name}: the loss on a fixed batch did not fall")
+    return trainer, state, launches
 
 
 def train_flagship(dev, train_ds, val_ds, out_dir):
@@ -615,13 +708,12 @@ def train_flagship(dev, train_ds, val_ds, out_dir):
     trainer = Trainer(system, cfg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    k1.reset_launch_counts()
-    k2.reset_launch_counts()
+    _reset_counts()
     t0 = time.perf_counter()
     state = trainer.fit(train_ds, val_ds)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"K1": dict(k1.LAUNCHES), "K2": dict(k2.LAUNCHES)}
+    launches = _counts()
     peak = torch.cuda.max_memory_allocated()
     print(f"flagship training: launches {launches}")
     if not launches["K1"]["segments"] or sum(launches["K2"].values()):
@@ -645,9 +737,9 @@ def train_flagship(dev, train_ds, val_ds, out_dir):
     for r in records:
         print(f"  epoch {r['epoch']:.0f}: train_loss {r['train_loss']:.5f} val_loss "
               f"{r['val_loss']:.5f} lr {r['lr']:.3e} ({r['epoch_time_s']:.2f} s)")
-    print(f"flagship training: {state.step} steps in {wall:.2f} s (3 epochs, validation and "
-          f"checkpoints included); val_loss logged {logged:.7f}, reloaded {reloaded:.7f}; "
-          f"peak max_memory_allocated {peak / 2**20:.1f} MiB; checks {checks}")
+    print(f"flagship training: {state.step} steps in {wall:.2f} s ({cfg.max_epochs} epochs, "
+          f"validation and checkpoints included); val_loss logged {logged:.7f}, reloaded "
+          f"{reloaded:.7f}; peak max_memory_allocated {peak / 2**20:.1f} MiB; checks {checks}")
     if not all(checks.values()):
         raise AssertionError(f"flagship training failed {checks}")
     return launches, trainer, state, peak
@@ -669,7 +761,7 @@ def _share(part: float, whole: float) -> float:
     return part / whole if whole else float("nan")
 
 
-def time_training(dev, trainer, state, train_ds, n=20, n_prof=5):
+def time_training(dev, trainer, state, train_ds, n=20, n_prof=5, label="flagship"):
     """Wall time of a train step (ending in a synchronize) and jets/s; then
     `torch.profiler` over `n_prof` steps: the kernels' device time split
     into forward (launched inside the loss), optimizer (inside the update)
@@ -718,7 +810,7 @@ def time_training(dev, trainer, state, train_ds, n=20, n_prof=5):
     split["backward"] = total_ms - split["forward"] - split["optimizer"]
     averages = prof.key_averages()
     launches = sum(e.count for e in averages if e.key == "cudaLaunchKernel") / n_prof
-    print(f"train step (flagship, {rows} rows x 128, ~{np.mean(jets):.1f} jets): median wall "
+    print(f"train step ({label}, {rows} rows x 128, ~{np.mean(jets):.1f} jets): median wall "
           f"{wall_ms:.3f} ms over {n} steps (each synchronized), {jets_per_s:.1f} trained "
           f"jets/s")
     print(f"train step kernel time (torch.profiler, {n_prof} steps): forward "
@@ -746,7 +838,7 @@ def time_training(dev, trainer, state, train_ds, n=20, n_prof=5):
           f"({_share(k1_fwd_ms, split['forward']):.3f} of the forward); {len(k1_bwd) / n_prof:.0f} "
           f"backward nodes a step, {k1_bwd_ms:.3f} ms ({_share(k1_bwd_ms, split['backward']):.3f} "
           f"of the backward)")
-    return dict(wall_ms=wall_ms, jets_per_s=jets_per_s, device_ms=total_ms,
+    return dict(config=label, wall_ms=wall_ms, jets_per_s=jets_per_s, device_ms=total_ms,
                 busy_share=_share(total_ms, wall_ms), launches_per_step=launches, **split,
                 attention_forward_ms=k1_fwd_ms, attention_backward_ms=k1_bwd_ms)
 
@@ -764,12 +856,11 @@ def train_coocc(dev, train_ds, steps=5):
                               epoch=0)[:steps]
     gen = torch.Generator(device=dev).manual_seed(0)
     system.module.train()
-    k1.reset_launch_counts()
-    k2.reset_launch_counts()
+    _reset_counts()
     metrics = [trainer._train_step(state, b, gen)
                for b in trainer._batches(trainer._resident(unit), idx)]
     torch.cuda.synchronize()
-    launches = {"K1": dict(k1.LAUNCHES), "K2": dict(k2.LAUNCHES)}
+    launches = _counts()
     losses = torch.stack([m["loss"] for m in metrics]).cpu().numpy()
     wue = system.module.encoder.coocc.wue.weight
     print(f"co-occurrence training, {steps} steps: losses {np.round(losses, 5).tolist()}; "
@@ -781,6 +872,337 @@ def train_coocc(dev, train_ds, steps=5):
     if wue.grad is None or not torch.isfinite(wue.grad).all() or not wue.grad.abs().sum():
         raise AssertionError("co-occurrence training: no gradient reached the bias table")
     return launches
+
+
+def drive_fused(dev, mult, steps):
+    """`generate_packed` of MMF + FusedParticleFormer: 5 blocks, so K1 runs
+    5 times a forward, in its segment form on each batch of packed rows and
+    in its key-mask form on the one bucketed batch of wide jets."""
+    system = _system("MMF", FUSED, dev)
+    n_layer = system.config.n_layer
+    row_of, _, n_rows = pack_jets(mult, 128)
+    want = {"segments": n_layer * steps * -(-n_rows // 128),        # batches of <= 128 rows
+            "key_mask": n_layer * steps * (1 if (row_of < 0).any() else 0), "none": 0}
+    launches, _ = drive(
+        "FusedParticleFormer MMF", system, mult, steps,
+        lambda l1, l2: (f"K1 launches {l1}, expected {want}" if l1 != want
+                        else "launched K2" if _total(l2) else ""))
+    sampler_vs_cpu("FusedParticleFormer MMF", system, FUSED, dev)
+    return launches
+
+
+def train_physics_eval(dev, train_ds, val_ds, out_dir):
+    """`Trainer.fit` of the flagship with the physics eval after every
+    epoch: the W1 scores logged and finite, `best_physics.pt` written,
+    every eval on the same generation seed.  The trainer swallows a failed
+    eval; the checks here fail the run instead."""
+    cfg = Config(**TRAIN_PHYSICS, dir=out_dir, experiment_id="physics")
+    system = build_system(cfg, "MMF", device=dev, generator=torch.Generator().manual_seed(0))
+    evals = []
+    real = physics_eval.physics_metrics
+
+    def recorded(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(*args, **kw)
+        evals.append((kw["seed"], time.perf_counter() - t0))
+        return out
+
+    physics_eval.physics_metrics = recorded
+    try:
+        _reset_counts()
+        Trainer(system, cfg).fit(train_ds, val_ds)
+        launches = _counts()
+    finally:
+        physics_eval.physics_metrics = real
+    exp = os.path.join(out_dir, cfg.project, "physics")
+    records = [json.loads(line) for line in open(os.path.join(exp, "metrics.jsonl"))]
+    names = ("val_w1_pt", "val_w1_mass", "val_w1_mult", "val_w1_physics")
+    checks = {
+        "an eval every epoch": len(evals) == cfg.max_epochs == len(records),
+        "one generation seed": len({seed for seed, _ in evals}) == 1,
+        "val_w1_* logged and finite": all(np.isfinite(r.get(n, np.nan)) for r in records
+                                          for n in names),
+        "best_physics written": os.path.exists(os.path.join(exp, "checkpoints",
+                                                            "best_physics.pt")),
+        "K1 ran (packed rows), K2 never": bool(launches["K1"]["segments"]
+                                               and not _total(launches["K2"])),
+    }
+    for r in records:
+        print(f"  epoch {r['epoch']:.0f}: val_loss {r['val_loss']:.5f} "
+              + " ".join(f"{n} {r.get(n, float('nan')):.4f}" for n in names))
+    n_jets = min(cfg.physics_eval_num_jets, len(val_ds))
+    seconds = [t for _, t in evals]
+    print(f"physics eval in Trainer.fit: {len(evals)} evals of {n_jets} jets at "
+          f"{cfg.physics_eval_num_timesteps} steps, {np.round(seconds, 3).tolist()} s each, "
+          f"seeds {[seed for seed, _ in evals]}; launches {launches}; checks {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"physics eval failed {checks}")
+    return launches, dict(jets=n_jets, steps=cfg.physics_eval_num_timesteps, seconds=seconds)
+
+
+def train_dropout(dev, train_ds, steps=3):
+    """Flagship steps with dropout 0.1.  In train mode every attention call
+    takes the plain version (16 a forward) and neither kernel is launched;
+    in eval mode the same module launches K1 again and its loss does not
+    depend on the dropout draws."""
+    cfg = Config(**TRAIN_DROPOUT)
+    system = build_system(cfg, "MMF", device=dev, generator=torch.Generator().manual_seed(0))
+    trainer = Trainer(system, cfg)
+    state = trainer.init_state(steps)
+    unit = trainer._pack_units(train_ds)[0]
+    idx = trainer._epoch_perm(len(unit), trainer._packed_row_bs, shuffle=True, seed=0,
+                              epoch=0)[:steps]
+    batches = list(trainer._batches(trainer._resident(unit), idx))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    system.module.train()
+    _reset_counts()
+    losses = torch.stack([trainer._train_step(state, b, gen)["loss"] for b in batches])
+    torch.cuda.synchronize()
+    train_counts = _counts()
+    system.module.eval()
+    _reset_counts()
+    with torch.no_grad():
+        held = [system.loss_fn(batches[0], gen.manual_seed(3), train=False)[0].item()
+                for _ in range(2)]
+    eval_counts = _counts()
+    losses = losses.cpu().numpy()
+    steps = len(batches)
+    print(f"dropout 0.1, {steps} train steps: losses {np.round(losses, 5).tolist()}; launches "
+          f"{train_counts}; eval mode, 2 forwards: losses {held}; launches {eval_counts}")
+    blocks = 2 * cfg.n_layer + cfg.n_layer_fused
+    if not (np.isfinite(losses).all() and not _total(train_counts["K1"])
+            and not _total(train_counts["K2"])
+            and train_counts["plain_dropout"]["token_major"] == blocks * steps):
+        raise AssertionError("dropout training: a loss is not finite, a kernel ran, or the "
+                             f"plain attention did not run {blocks} times a forward")
+    if not (held[0] == held[1] and eval_counts["K1"]["segments"] == 2 * blocks
+            and not _total(eval_counts["plain_dropout"])):
+        raise AssertionError("dropout model in eval mode: the loss moved with the dropout "
+                             "draws, K1 did not run, or the plain dropout path ran")
+    return trainer, state, train_counts
+
+
+def time_dropout_attention(dev, rows=84, rate=0.1):
+    """Device time of one attention call of a dropout train step's forward
+    at the step's shapes: the plain version with dropout, the plain
+    version without, and K1 (which a dropout-free step runs)."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out = {}
+    with torch.no_grad():
+        for C in (128, 256):
+            q, k, v, _, seg, _, _ = _case_inputs((rows, 128, C, 4), "segments", dev)
+            times = _median_ms([
+                lambda: attention_btc_reference(q, k, v, 4, None, seg, None, rate, gen),
+                lambda: attention_btc_reference(q, k, v, 4, None, seg),
+                lambda: k1.btc_attention(q, k, v, 4, None, seg)], n=20)
+            out[C] = dict(zip(("plain_dropout_ms", "plain_ms", "k1_ms"), times))
+            print(f"attention of a dropout step, ({rows}, 128, {C}, 4) segments: plain with "
+                  f"dropout {times[0]:.4f} ms, plain {times[1]:.4f} ms, K1 {times[2]:.4f} ms "
+                  f"(median of 20, CUDA events, device time)")
+    forward = {name: 10 * out[128][name] + 6 * out[256][name] for name in out[128]}
+    print(f"attention of a flagship forward (10 calls at C=128, 6 at C=256): "
+          + ", ".join(f"{name} {ms:.3f}" for name, ms in forward.items()))
+    return forward
+
+
+def _bucket_data(rng, D=150):
+    """(train, val) with jets for every bucket width: 1,024 of AOJ-like
+    multiplicity, 160 of 65-128 and 112 of 129-150."""
+    return _split_dataset(rng, np.concatenate([
+        _multiplicities(rng, 1024, D), rng.integers(65, 129, size=160),
+        rng.integers(129, D + 1, size=112)]), D)
+
+
+def train_bucketed(dev, out_dir):
+    """One bucketed epoch of the flagship: a unit a bucket, each at its own
+    width, so K1 runs in its key-mask form at every width.  The widths K1
+    is launched at are read from the wrapper's calls."""
+    cfg = Config(**TRAIN_BUCKETED, dir=out_dir, experiment_id="bucketed")
+    train_ds, val_ds = _bucket_data(np.random.default_rng(6))
+    system = build_system(cfg, "MMF", device=dev, generator=torch.Generator().manual_seed(0))
+    trainer = Trainer(system, cfg)
+    buckets = [(w, len(b)) for w, b, _ in trainer._bucketize(train_ds, min_size=cfg.batch_size)]
+    widths = set()
+    launch = k1.btc_attention
+
+    def spied(q, *args, **kw):
+        widths.add(int(q.shape[1]))
+        return launch(q, *args, **kw)
+
+    k1.btc_attention = spied
+    try:
+        _reset_counts()
+        state = trainer.fit(train_ds, val_ds)
+        torch.cuda.synchronize()
+        launches = _counts()
+    finally:
+        k1.btc_attention = launch
+    exp = os.path.join(out_dir, cfg.project, "bucketed")
+    record = json.loads(open(os.path.join(exp, "metrics.jsonl")).readline())
+    print(f"bucketed training: buckets (width, jets) {buckets}, {state.step} steps; K1 ran at "
+          f"widths {sorted(widths)}; train_loss {record['train_loss']:.5f} val_loss "
+          f"{record['val_loss']:.5f}; launches {launches}")
+    want = {w for w, _ in buckets}
+    if not (want == {48, 64, 128, 150} == widths and launches["K1"]["key_mask"]
+            and launches["K1"]["key_mask"] == _total(launches["K1"])
+            and not _total(launches["K2"])
+            and np.isfinite([record["train_loss"], record["val_loss"]]).all()):
+        raise AssertionError("bucketed training: not all four widths trained, K1 did not run "
+                             "in its key-mask form at each, or a loss is not finite")
+    return launches
+
+
+def _packed_case(rng, n_jets, W=128):
+    """`n_jets` jets packed into rows of W with per-jet noise, as packed
+    rows and as one jet a row: (mult, row_of, offset_of, rows, jets), each
+    of the last two a dict of numpy arrays (continuous, discrete, mask;
+    rows with segments)."""
+    mult = _multiplicities(rng, n_jets, W)
+    row_of, offset_of, n_rows = pack_jets(mult, W)
+    pad = _pad_masks(mult, W).astype(np.int32)
+    row_mask, seg = build_packed_rows(pad, row_of, offset_of, n_rows, W)
+    x = (rng.normal(size=(n_jets, W, 3)) * pad).astype(np.float32)
+    k = (rng.integers(1, 9, size=(n_jets, W, 1)) * pad).astype(np.int32)
+    rx, rk = np.zeros((n_rows, W, 3), np.float32), np.zeros((n_rows, W, 1), np.int32)
+    for j, m in enumerate(mult):
+        r, o = row_of[j], offset_of[j]
+        rx[r, o:o + m], rk[r, o:o + m] = x[j, :m], k[j, :m]
+    rows = dict(continuous=rx, discrete=rk, mask=row_mask.astype(np.int32), segments=seg)
+    return mult, row_of, offset_of, rows, dict(continuous=x, discrete=k, mask=pad)
+
+
+def _source(arrays, time_eps, d):
+    n = len(arrays["mask"])
+    return MultiModal(time=torch.full((n,), time_eps),
+                      **{f: torch.from_numpy(arrays[f])
+                         for f in ("continuous", "discrete", "mask")}).to(d)
+
+
+def epic_checks(dev, system, steps=10):
+    """CFM + EPiC on shared noise: packed rows (per-jet pooling through the
+    segment ids) against one jet a row (per-row pooling) on the card, per
+    jet; then the packed rows on the card against the CPU."""
+    cfg = system.config
+    mult, row_of, offset_of, rows, jets = _packed_case(np.random.default_rng(7), 48)
+    seg = torch.from_numpy(rows["segments"])
+    J = int(rows["segments"].max()) + 1
+    packed = system.simulate(_source(rows, cfg.time_eps, dev), steps, segments=seg.to(dev),
+                             num_segments=J).continuous.cpu()
+    alone = system.simulate(_source(jets, cfg.time_eps, dev), steps).continuous.cpu()
+    err = max(float((packed[row_of[j], offset_of[j]:offset_of[j] + m] - alone[j, :m]).abs().max())
+              for j, m in enumerate(mult))
+    cpu_system = build_system(Config(**EPIC), "CFM", device="cpu",
+                              generator=torch.Generator().manual_seed(0))
+    on_cpu = cpu_system.simulate(_source(rows, cfg.time_eps, "cpu"), steps, segments=seg,
+                                 num_segments=J).continuous
+    real = seg >= 0
+    cpu_err = float((packed - on_cpu).abs()[real].max())
+    print(f"CFM + EPiC, {steps} steps, {len(mult)} jets in {len(seg)} packed rows (up to {J} a "
+          f"row): packed vs one jet a row max_abs_err {err:.3e} (atol 1e-4); card vs CPU "
+          f"max_abs_err {cpu_err:.3e} (atol 1e-4)")
+    if not (err <= 1e-4 and cpu_err <= 1e-4 and torch.isfinite(packed[real]).all()):
+        raise AssertionError("CFM + EPiC: packed rows disagree with one jet a row, or the card "
+                             "with the CPU")
+
+
+# the new solver modes: (name, system, config, simulate arguments, the
+# noise argument's name, the trailing dims of one step's noise after
+# (rows, 128), whether a sigmoid thermostat replaces the constant one)
+PAIRWISE_FLAVOR = dict(CLI, model="FlavorFormer", use_pairwise=True)
+MODES = [
+    ("hybrid euler + class_freqs", "MMF",
+     dict(FLAGSHIP, hybrid_solver="euler", class_freqs=list(REFERENCE_CLASS_FREQS)),
+     dict(temperature=0.9), "uniforms", (), False),
+    ("hybrid tauleap, top_k=3 top_p=0.9", "MMF", FLAGSHIP, dict(top_k=3, top_p=0.9),
+     "uniforms", (), False),
+    ("hybrid tauleap, sigmoid thermostat", "MMF", FLAGSHIP, {}, "uniforms", (), True),
+    ("CFM euler_maruyama", "CFM", dict(CLI, model="KinFormer"), dict(method="euler_maruyama"),
+     "normals", (3,), False),
+    ("MJB tauleap-bernouilli", "MJB",
+     dict(PAIRWISE_FLAVOR, markov_jump_solver="tauleap-bernouilli"), {}, "uniforms", (9,), False),
+    ("MJB euler", "MJB", dict(PAIRWISE_FLAVOR, markov_jump_solver="euler"), {}, "uniforms", (),
+     False),
+    ("MJB jump_or_stay", "MJB", dict(PAIRWISE_FLAVOR, markov_jump_solver="jump_or_stay"), {},
+     "uniforms", (2,), False),
+]
+
+
+# a step's jump probabilities min(rates * dt, 1), card vs CPU.  Every
+# method draws from them; the rates themselves grow without bound as
+# t -> 1 (w_t / (1 - w_t) cancels in fp32 there) and have no tolerance
+JUMP_PROB_ATOL = 1e-4
+
+
+def _record_rates(system, into):
+    """Have the system's token bridge append every step's rates (on the
+    host) to `into`."""
+    bridge = system.bridge_discrete
+    rate = bridge.rate
+
+    def recorded(t, k, probs):
+        out = rate(t, k, probs)
+        into.append(out.cpu())
+        return out
+
+    bridge.rate = recorded
+
+
+def modes_vs_cpu(dev, steps=8, n_jets=256):
+    """Each new solver mode for `steps` steps on a packed batch of `n_jets`
+    jets (the smoke's 84-88 rows of 128), on the card (the kernels) and on
+    the CPU (plain attention), from the same weights, source and injected
+    noise: the final state, and for the modes with tokens the jump
+    probabilities of every step.  The first step's come from identical
+    inputs and must agree at every real site (on 0.999 of them under
+    top-k / top-p, which drop a class whose probability lies within
+    rounding of the threshold on one side only); a later step's may
+    differ in the jets where a token fell on the other side of a
+    threshold."""
+    _, _, _, packed, _ = _packed_case(np.random.default_rng(8), n_jets)
+    rows = len(packed["mask"])
+    seg = torch.from_numpy(packed["segments"])
+    real = seg >= 0
+    rng = np.random.default_rng(9)
+    for name, kind, cfg_kw, sim_kw, noise_name, tail, sigmoid in MODES:
+        shape = (steps, rows, 128) + tail
+        noise = (rng.normal(size=shape) if noise_name == "normals"
+                 else rng.uniform(size=shape)).astype(np.float32)
+        outs, rates = [], []
+        _reset_counts()
+        for d in (dev, torch.device("cpu")):
+            system = _system(kind, cfg_kw, d)
+            if sigmoid:
+                cfg = system.config
+                system.bridge_discrete = RandomTelegraphBridge(
+                    cfg.beta, cfg.vocab_size, SigmoidThermostat(cfg.beta, cfg.vocab_size))
+            rates.append([])
+            if hasattr(system, "bridge_discrete"):
+                _record_rates(system, rates[-1])
+            outs.append(system.simulate(
+                _source(packed, system.config.time_eps, d), steps, segments=seg.to(d),
+                **{noise_name: torch.from_numpy(noise).to(d)}, **sim_kw).to("cpu"))
+        launches = _counts()
+        err = float((outs[0].continuous - outs[1].continuous).abs()[real].max())
+        same = float((outs[0].discrete == outs[1].discrete)[real].float().mean())
+        first = 0.999 if sim_kw.get("top_k") or sim_kw.get("top_p") else 1.0
+        dt = (1.0 - 2.0 * Config(**cfg_kw).time_eps) / (steps - 1)
+        held = [float((((a * dt).clamp(max=1.0) - (b * dt).clamp(max=1.0)).abs()
+                       <= JUMP_PROB_ATOL).all(dim=-1)[real].float().mean())
+                for a, b in zip(*rates)]
+        print(f"{name}: card vs CPU, {steps} steps x {rows} packed rows ({int(real.sum())} real "
+              f"sites): continuous max_abs_err {err:.3e} (atol 1e-4), tokens equal on "
+              f"{same:.4f} of real sites (>= 0.99); "
+              + (f"jump probabilities within atol {JUMP_PROB_ATOL} on "
+                 f"{[round(h, 4) for h in held]} of real sites by step (the first >= {first}, the "
+                 f"others >= 0.99); " if held else "")
+              + f"launches K1 {_total(launches['K1'])} K2 {_total(launches['K2'])}")
+        if err > 1e-4 or same < 0.99 or not (_total(launches["K1"]) + _total(launches["K2"])):
+            raise AssertionError(f"{name}: the card disagrees with the CPU, or no kernel ran")
+        if kind != "CFM" and not (len(held) == steps == len(rates[1]) and held[0] >= first
+                                  and min(held) >= 0.99):
+            raise AssertionError(f"{name}: the jump probabilities on the card disagree with "
+                                 "the CPU's")
 
 
 def _system(kind, cfg_kw, dev):
@@ -844,7 +1266,7 @@ def main() -> None:
 
     flagship = _system("MMF", FLAGSHIP, dev)
     main_launches, _ = drive(
-        "flagship MMF", flagship, mult, 100,
+        "flagship MMF", flagship, mult, SAMPLING_STEPS,
         lambda l1, l2: ("did not run both K1 forms" if not (l1["segments"] and l1["key_mask"])
                         else "launched K2" if sum(l2.values()) else ""))
     sampler_vs_cpu("flagship MMF", flagship, FLAGSHIP, dev)
@@ -852,7 +1274,7 @@ def main() -> None:
 
     coocc = _system("MMF", COOCC, dev)
     coocc_launches, _ = drive(
-        "co-occurrence MMF", coocc, mult, 100,
+        "co-occurrence MMF", coocc, mult, SAMPLING_STEPS,
         lambda l1, l2: ("did not run K2 as bias + segments and as bias"
                         if not (l2["bias_segments"] and l2["bias"])
                         else "launched K1" if sum(l1.values()) else ""))
@@ -872,13 +1294,55 @@ def main() -> None:
     fit_fixed_batch(dev, train_ds)
     build_dir = Path(__file__).resolve().parent / "build"
     build_dir.mkdir(exist_ok=True)
+    steps_timed = []
     with tempfile.TemporaryDirectory(dir=build_dir) as out_dir:
         train_launches, trainer, state, peak = train_flagship(dev, train_ds, val_ds, out_dir)
-    step = time_training(dev, trainer, state, train_ds)
-    print(json.dumps({"training": {"config": "flagship MMF, packed rows of 128, 256 jets/step",
-                                   "card": card, "peak_mib": peak / 2**20, **step}}))
+        steps_timed.append(dict(time_training(dev, trainer, state, train_ds),
+                                peak_mib=peak / 2**20))
+        del trainer, state
+        coocc_train_launches = train_coocc(dev, train_ds)
+
+        # the rest of the model / solver matrix
+        fused_launches = drive_fused(dev, mult, SAMPLING_STEPS)
+        trainer, state, fused_train_launches = fit_fixed_batch(
+            dev, train_ds, steps=5, name="FusedParticleFormer MMF", cfg_kw=TRAIN_FUSED)
+        if fused_train_launches["K1"] != {"segments": 5 * 5, "key_mask": 0, "none": 0}:
+            raise AssertionError("FusedParticleFormer training: K1 did not run 5 times a forward "
+                                 "in its segment form")
+        steps_timed.append(time_training(dev, trainer, state, train_ds, n=10,
+                                         label="FusedParticleFormer MMF"))
+        del trainer, state
+
+        physics_launches, physics = train_physics_eval(dev, train_ds, val_ds, out_dir)
+
+        trainer, state, dropout_launches = train_dropout(dev, train_ds)
+        steps_timed.append(time_training(dev, trainer, state, train_ds, n=10,
+                                         label="flagship MMF, dropout 0.1"))
+        del trainer, state
+        dropout_attention = time_dropout_attention(dev)
+
+        bucketed_launches = train_bucketed(dev, out_dir)
+
+    epic = _system("CFM", EPIC, dev)
+    epic_launches, _ = drive(
+        "CFM + EPiC", epic, _jets(rng, 256, 2), 20,
+        lambda l1, l2: "launched a kernel (EPiC has no attention)"
+        if _total(l1) + _total(l2) else "")
+    epic_checks(dev, epic)
+    del epic
+    trainer, state, epic_train_launches = fit_fixed_batch(
+        dev, train_ds, steps=20, name="CFM + EPiC", kind="CFM", cfg_kw=TRAIN_EPIC)
+    if _total(epic_train_launches["K1"]) + _total(epic_train_launches["K2"]):
+        raise AssertionError("CFM + EPiC training launched a kernel")
+    steps_timed.append(time_training(dev, trainer, state, train_ds, n=10, label="CFM + EPiC"))
     del trainer, state
-    coocc_train_launches = train_coocc(dev, train_ds)
+
+    modes_vs_cpu(dev)
+
+    print(json.dumps({"training": {"card": card, "shape": "packed rows of 128, 256 jets/step",
+                                   "steps": steps_timed,
+                                   "dropout_forward_attention_ms": dropout_attention,
+                                   "physics_eval": physics}}))
 
     def timed(name):
         out = {}
@@ -891,16 +1355,25 @@ def main() -> None:
          "route": "cuda",
          "source": "multimodal_flows_tpu_torch/csrc/btc_attention.cu",
          "replaces": "multimodal_flows_tpu/ops/pallas_attention.py:201",
-         "launches": sum(main_launches["K1"].values()),
-         "launches_training": sum(train_launches["K1"].values()),
+         "launches": _total(main_launches["K1"]),
+         "launches_training": _total(train_launches["K1"]),
+         "launches_fused_sampling": _total(fused_launches["K1"]),
+         "launches_fused_training": _total(fused_train_launches["K1"]),
+         "launches_physics_eval_fit": _total(physics_launches["K1"]),
+         "launches_dropout_training": _total(dropout_launches["K1"]),
+         "plain_calls_dropout_training": _total(dropout_launches["plain_dropout"]),
+         "launches_bucketed_training": _total(bucketed_launches["K1"]),
+         "launches_epic": _total(epic_launches["K1"]) + _total(epic_train_launches["K1"]),
          "max_abs_err": err["K1"], **timed("K1")},
         {"name": "set_attention (K2, timed at B=128 T=128 H=4 bias + segments, "
                  "C=128 and C=256)",
          "route": "cuda",
          "source": "multimodal_flows_tpu_torch/csrc/set_attention.cu",
          "replaces": "multimodal_flows_tpu/ops/pallas_attention.py:48",
-         "launches": sum(coocc_launches["K2"].values()),
-         "launches_training": sum(coocc_train_launches["K2"].values()),
+         "launches": _total(coocc_launches["K2"]),
+         "launches_training": _total(coocc_train_launches["K2"]),
+         "launches_dropout_training": _total(dropout_launches["K2"]),
+         "launches_epic": _total(epic_launches["K2"]) + _total(epic_train_launches["K2"]),
          "max_abs_err": err["K2"], **timed("K2")},
     ]}))
     print(card)

@@ -13,7 +13,12 @@ encoder (`MMFModel.encoder`, or a CFM/MJB system's module):
   bare flax `nn.LayerNorm`'s `{scale, bias}` (KinFormer's `wue_ln`)
   become `{weight, bias}`;
 - the 0-d `lambda_u` gate carries over as a 0-d parameter, and the (2,)
-  `loss_weights` of the weighted multitask loss as they are.
+  `loss_weights` of the weighted multitask loss as they are;
+- a flax `nn.WeightNorm(nn.Dense)` named `fc` (EPiC) keeps its parts in
+  two places of the parent's tree: the raw kernel and the bias under the
+  wrapped layer's automatic name, `Dense_k/{kernel, bias}`, and the scale
+  under the wrapper, `fc/"Dense_k/kernel/scale"`.  All three go to the
+  `WNLinear` `fc`: `fc.weight` (transposed), `fc.bias`, `fc.scale`.
 
 Any other leaf name raises.  `load_flax_params` loads the result
 strictly, so a torch parameter left unset, or a flax leaf with no torch
@@ -38,13 +43,27 @@ def _walk(tree: Mapping, prefix=()):
             yield path, value
 
 
+_WN_SCALE = "/kernel/scale"
+
+
 def params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    leaves = list(_walk(tree))
+    # WeightNorm: (parent path, "Dense_k") -> the wrapper's name
+    wrapped = {(path[:-2], path[-1][:-len(_WN_SCALE)]): path[-2]
+               for path, _ in leaves if path[-1].endswith(_WN_SCALE)}
     out: Dict[str, torch.Tensor] = {}
-    for path, leaf in _walk(tree):
+    for path, leaf in leaves:
         arr = np.array(leaf, dtype=np.float32)
         *mods, name = path
         mods = [m for m in mods if m != "LayerNorm_0"]
-        if name == "kernel":
+        if (tuple(mods[:-1]), mods[-1] if mods else None) in wrapped:
+            mods[-1] = wrapped[tuple(mods[:-1]), mods[-1]]   # Dense_k -> its WeightNorm
+        if name.endswith(_WN_SCALE):
+            if arr.ndim != 1:
+                raise ValueError(f"{'/'.join(path)}: WeightNorm scale must be 1-D, "
+                                 f"got {arr.shape}")
+            name = "scale"
+        elif name == "kernel":
             if arr.ndim != 2:
                 raise ValueError(f"{'/'.join(path)}: Dense kernel must be 2-D, got {arr.shape}")
             arr, name = arr.T, "weight"

@@ -151,6 +151,15 @@ class PackedJets:
         return self.map(lambda a: torch.as_tensor(a, device=device))
 
 
+def first_n_filled(pad_masks: np.ndarray) -> bool:
+    """Whether every (N, D, 1) pad mask has its real particles before its
+    pads: what truncating a row to its multiplicity, and packing, need."""
+    D = pad_masks.shape[1]
+    mult = pad_masks[..., 0].sum(axis=1)
+    return bool((pad_masks[..., 0].cumsum(axis=1) ==
+                 np.minimum(np.arange(1, D + 1)[None, :], mult[:, None])).all())
+
+
 def pack_multimodal(jets: MultiModal, width: int = 128
                     ) -> Tuple[Optional[PackedJets], np.ndarray]:
     """Pack a padded dataset into `width`-token rows.
@@ -161,11 +170,8 @@ def pack_multimodal(jets: MultiModal, width: int = 128
     their own width (`singleton_rows`).  The masks must be first-n filled
     (real particles before pads); otherwise this raises ValueError."""
     pad_masks = np.asarray(jets.mask)
-    D = pad_masks.shape[1]
     mult = pad_masks[..., 0].sum(axis=1).astype(np.int64)
-    first_n = (pad_masks[..., 0].cumsum(axis=1) ==
-               np.minimum(np.arange(1, D + 1)[None, :], mult[:, None])).all()
-    if not first_n:
+    if not first_n_filled(pad_masks):
         raise ValueError("pack_multimodal requires first-n-filled masks")
 
     row_of, offset_of, n_rows = pack_jets(mult, width)

@@ -5,8 +5,10 @@
   features: source, interpolant sample and conditional drift.
 - `RandomTelegraphBridge` — multivariate random-telegraph Markov jump
   bridge for discrete tokens: source, conditional and posterior
-  (transition) probabilities, posterior sample, and the model-guided jump
-  rate.
+  (transition) probabilities, posterior sample (optionally top-k
+  filtered), and the model-guided jump rate.
+- `top_k_filter`, `top_p_filter` — the probability filters of the bridge
+  and the solvers.
 
 Times are per jet (B,) or, on packed training rows, per token (B, W).
 Randomness comes from explicit `torch.Generator`s.  Bridge math is fp32:
@@ -56,6 +58,9 @@ class UniformFlow:
         """u_t(x | x0, x1) = x1 - x0."""
         return x1 - x0
 
+    def diffusion(self, xt: Tensor) -> float:
+        return 0.0
+
 
 class RandomTelegraphBridge:
     """Multivariate random-telegraph bridge over a vocabulary of size S:
@@ -63,12 +68,10 @@ class RandomTelegraphBridge:
 
     def __init__(self, beta: float, vocab_size: int,
                  thermostat: Optional[Thermostat] = None, top_k: Optional[int] = None):
-        if top_k is not None:
-            raise NotImplementedError("top_k filtering of the bridge posterior is not "
-                                      "ported yet (ROADMAP.md Queue 1 item 19)")
         self.beta = float(beta)
         self.vocab_size = int(vocab_size)
         self.thermostat = thermostat or ConstantThermostat(beta, vocab_size)
+        self.top_k = top_k
 
     def draw_source(self, generator: Optional[torch.Generator], shape: Tuple[int, ...],
                     mask: Tensor) -> Tensor:
@@ -102,14 +105,12 @@ class RandomTelegraphBridge:
 
     def sample(self, generator: Optional[torch.Generator], t: Tensor, k0: Tensor,
                k1: Tensor) -> Tensor:
-        """Draw k_t from the posterior by inverting its CDF at one uniform
-        per site; returns (B, D, 1) int32."""
+        """Draw k_t from the posterior (top-k filtered when the bridge has
+        a `top_k`); returns (B, D, 1) int32."""
         probs = self.transition_probability(t, k0, k1)
-        cdf = probs.cumsum(dim=-1)
-        u = torch.rand(cdf.shape[:-1] + (1,), generator=generator, dtype=cdf.dtype,
-                       device=cdf.device) * cdf[..., -1:]
-        kt = (cdf <= u).sum(dim=-1).clamp(max=self.vocab_size - 1)
-        return kt.to(torch.int32)[..., None]
+        if self.top_k is not None:
+            probs = top_k_filter(probs, self.top_k)
+        return sample_categorical(generator, probs).to(torch.int32)[..., None]
 
     def rate(self, t: Tensor, k: Tensor, probs: Tensor) -> Tensor:
         """Model-guided jump rate at sampling time:
@@ -127,3 +128,41 @@ class RandomTelegraphBridge:
         wt = self.thermostat.w_ts(t.to(torch.float32), 1.0)           # (B,)
         bc = (wt * self.vocab_size) / (1.0 - wt)
         return 1.0 + bc[:, None, None] * qx + wt[:, None, None] * qy
+
+
+def sample_categorical(generator: Optional[torch.Generator], probs: Tensor,
+                       u: Optional[Tensor] = None) -> Tensor:
+    """Draw one class per site from unnormalised `probs` (..., S) by
+    inverting the CDF at one uniform per site: `u` (...,) in [0, 1), drawn
+    from `generator` on the device of `probs` when not given.  Returns
+    (...,) int64.  A class of probability 0 is never drawn."""
+    cdf = probs.cumsum(dim=-1)
+    if u is None:
+        u = torch.rand(cdf.shape[:-1], generator=generator, dtype=cdf.dtype,
+                       device=cdf.device)
+    u = u[..., None] * cdf[..., -1:]
+    return (cdf <= u).sum(dim=-1).clamp(max=probs.shape[-1] - 1)
+
+
+def top_k_filter(probs: Tensor, k: int) -> Tensor:
+    """Keep the top-k entries along the last axis and renormalize.  Every
+    entry >= the k-th largest value is kept, so ties at the threshold keep
+    more than k."""
+    if k >= probs.shape[-1]:
+        return probs
+    thresh = torch.topk(probs, k, dim=-1).values[..., -1:]
+    kept = torch.where(probs >= thresh, probs, 0.0)
+    return kept / (kept.sum(dim=-1, keepdim=True) + 1e-8)
+
+
+def top_p_filter(probs: Tensor, p: float) -> Tensor:
+    """Nucleus filtering: keep the longest prefix of the descending-sorted
+    probs whose cumulative mass is <= p (the argmax always), zero the
+    rest, renormalize."""
+    sorted_probs = torch.sort(probs, dim=-1, descending=True).values
+    keep_sorted = sorted_probs.cumsum(dim=-1) <= p
+    keep_sorted[..., 0] = True
+    num_keep = keep_sorted.sum(dim=-1, keepdim=True)
+    thresh = torch.gather(sorted_probs, -1, num_keep - 1)          # smallest kept value
+    kept = torch.where(probs >= thresh, probs, 0.0)
+    return kept / (kept.sum(dim=-1, keepdim=True) + 1e-8)

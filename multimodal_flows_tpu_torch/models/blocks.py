@@ -1,8 +1,9 @@
 """Shared network blocks (PyTorch port of `multimodal_flows_tpu/models/blocks.py`).
 
-MLP (fc -> exact GELU -> proj), LayerNorm with optional bias and fp32
-statistics, the sinusoidal timestep embedding, the compact additive key
-mask and the additive pair mask.  `init_weights` reproduces the JAX
+MLP (fc -> exact GELU -> proj -> dropout), LayerNorm with optional bias
+and fp32 statistics, `Dropout` with an explicit generator, the sinusoidal
+timestep embedding, the compact additive key mask and the additive pair
+mask.  `init_weights` reproduces the JAX
 initialisation: Linear and Embedding weights N(0, 0.02), biases zero,
 LayerNorm scale 1 and bias 0.
 """
@@ -19,17 +20,48 @@ from torch import nn
 Tensor = torch.Tensor
 
 
+class Dropout(nn.Module):
+    """Dropout whose mask comes from an explicit generator: active in
+    train mode (`module.train()`), the identity in eval mode.  The keep
+    mask is drawn from `dropout_generator` on the input's device (from
+    torch's default generator while it is None) and the kept values are
+    scaled by 1 / (1 - p).  `set_dropout_generator` sets the generator of
+    every dropout site of a module."""
+
+    def __init__(self, p: float = 0.0):
+        super().__init__()
+        self.p = float(p)
+        self.dropout_generator: Optional[torch.Generator] = None
+
+    def forward(self, x: Tensor) -> Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        keep = torch.rand(x.shape, generator=self.dropout_generator, dtype=x.dtype,
+                          device=x.device) >= self.p
+        return x * keep.to(x.dtype) / (1.0 - self.p)
+
+
+def set_dropout_generator(module: nn.Module, generator: Optional[torch.Generator]) -> None:
+    """Give every dropout site of `module` (the `Dropout` layers and the
+    attention-probability dropout of the attention modules) the generator
+    its masks are drawn from; it must live on the module's device."""
+    for m in module.modules():
+        if hasattr(m, "dropout_generator"):
+            m.dropout_generator = generator
+
+
 class MLP(nn.Module):
-    """fc -> exact GELU -> proj (flax names `c_fc`, `c_proj`)."""
+    """fc -> exact GELU -> proj -> dropout (flax names `c_fc`, `c_proj`)."""
 
     def __init__(self, n_embd: int, n_inner: int, n_out: Optional[int] = None,
-                 bias: bool = True):
+                 bias: bool = True, dropout: float = 0.0):
         super().__init__()
         self.c_fc = nn.Linear(n_embd, n_inner, bias=bias)
         self.c_proj = nn.Linear(n_inner, n_out if n_out is not None else n_embd, bias=bias)
+        self.drop = Dropout(dropout)
 
     def forward(self, x: Tensor) -> Tensor:
-        return self.c_proj(F.gelu(self.c_fc(x)))
+        return self.drop(self.c_proj(F.gelu(self.c_fc(x))))
 
 
 class LayerNorm(nn.Module):

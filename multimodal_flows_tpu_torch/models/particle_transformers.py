@@ -1,8 +1,9 @@
 """The set encoders (PyTorch port of
-`multimodal_flows_tpu/models/particle_transformers.py:56-219,267-454`).
+`multimodal_flows_tpu/models/particle_transformers.py`).
 
   ParticleFormer: (vt (B,D,Fc), logits (B,D,V)), optional token
                   co-occurrence bias (`use_coocurrence`)
+  FusedParticleFormer: the same heads from one full-width stream
   FlavorFormer:   logits (B,D,V), optional learned positions and
                   lambda_u-gated co-occurrence bias (`use_pairwise`)
   KinFormer:      vt (B,D,Fc), optional lambda_u-gated Lund bias
@@ -12,8 +13,10 @@ Module names mirror the flax parameter tree (`block_x_0`, `ln1_x`,
 `coocc/wue`, `lambda_u`, ...) so `convert.params_from_flax` is a rename.
 The pad mask enters as a compact key mask, as (B, T) segment ids on
 packed rows, or, with a pairwise bias, folded into that bias as the
-additive pair mask.  The forward is the deterministic (inference)
-forward: dropout and bf16 compute are not ported yet.
+additive pair mask.  `Config.dropout` acts in train mode only
+(`module.train()`): on the embeddings here, and inside the blocks on the
+attention probabilities, the attention output and the MLP output.  bf16
+compute is not ported yet.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from multimodal_flows_tpu_torch.config import Config
 from multimodal_flows_tpu_torch.data.state import MultiModal
 from multimodal_flows_tpu_torch.models.attention import SelfAttnBlock
 from multimodal_flows_tpu_torch.models.blocks import (
+    Dropout,
     LayerNorm,
     key_mask_bias,
     pair_mask_bias,
@@ -126,19 +130,21 @@ class ParticleFormer(nn.Module):
         for s in ("x", "y"):
             for i in range(cfg.n_layer):
                 self.add_module(f"block_{s}_{i}", SelfAttnBlock(
-                    half, cfg.n_head, cfg.n_inner, cfg.bias, cfg.qk_layernorm))
+                    half, cfg.n_head, cfg.n_inner, cfg.bias, cfg.qk_layernorm, cfg.dropout))
         self.ln2_x = LayerNorm(half)
         self.ln2_y = LayerNorm(half)
         self.time_expand = nn.Linear(half, cfg.n_embd)
+        self.drop = Dropout(cfg.dropout)
         for i in range(cfg.n_layer_fused):
             self.add_module(f"block_fuse_{i}", SelfAttnBlock(
-                cfg.n_embd, cfg.n_head, cfg.n_inner, cfg.bias, cfg.qk_layernorm))
+                cfg.n_embd, cfg.n_head, cfg.n_inner, cfg.bias, cfg.qk_layernorm, cfg.dropout))
         self.ln3_x = LayerNorm(half)
         self.ln3_y = LayerNorm(half)
         self.head_x = _Head(half, head_inner, cfg.dim_continuous, cfg.bias)
         self.head_y = _Head(half, head_inner, cfg.vocab_size, cfg.bias)
 
-    def forward(self, state: MultiModal, segments: Optional[Tensor] = None):
+    def forward(self, state: MultiModal, segments: Optional[Tensor] = None,
+                num_segments: Optional[int] = None):  # num_segments: EPiC only
         """`segments` (B, T) int ids of packed multi-jet rows (pads -1)
         replace the pad masks: attention is restricted to same-segment
         pairs, which subsumes pad masking."""
@@ -149,13 +155,13 @@ class ParticleFormer(nn.Module):
 
         time_emb = time_token_embedding(state.time, half)            # (B,1|T,half)
 
-        x = self.ln1_x(self.wxe(state.continuous.to(torch.float32))) + time_emb
+        x = self.drop(self.ln1_x(self.wxe(state.continuous.to(torch.float32))) + time_emb)
         x_skip = x
         for blk in _blocks(self, "block_x", cfg.n_layer):
             x = blk(x, bias, key_mask, segments) + time_emb
         x = self.ln2_x(x + x_skip)
 
-        y = self.ln1_y(self.wye(state.discrete[..., 0])) + time_emb
+        y = self.drop(self.ln1_y(self.wye(state.discrete[..., 0])) + time_emb)
         y_skip = y
         for blk in _blocks(self, "block_y", cfg.n_layer):
             y = blk(y, bias, key_mask, segments) + time_emb
@@ -163,13 +169,55 @@ class ParticleFormer(nn.Module):
 
         z = torch.cat([x, y], dim=-1)
         time_emb2 = self.time_expand(time_emb)
-        z = z + time_emb2
+        z = self.drop(z + time_emb2)
         for blk in _blocks(self, "block_fuse", cfg.n_layer_fused):
             z = blk(z, bias, key_mask, segments) + time_emb2
 
         x, y = z.split(half, dim=-1)
         x = self.ln3_x(x + x_skip)
         y = self.ln3_y(y + y_skip)
+        return self.head_x(x), self.head_y(y)
+
+
+class FusedParticleFormer(nn.Module):
+    """Single-stream variant: both modalities are embedded at half width,
+    concatenated and run through `n_layer` full-width blocks, then split
+    into the two heads.  It has no pairwise bias, so on CUDA every block's
+    attention is K1: its key-mask form on padded jets, its segment form on
+    packed rows."""
+
+    def __init__(self, config: Config):
+        super().__init__()
+        cfg = config
+        if cfg.compute_dtype != "float32":
+            raise NotImplementedError("bf16 compute is not ported yet (ROADMAP.md Queue 2)")
+        self.config = cfg
+        half = cfg.n_embd // 2
+        head_inner = cfg.n_inner or 2 * cfg.n_embd
+        self.wxe = _EmbedMLP(cfg.n_embd, half, n_in=cfg.dim_continuous, bias=cfg.bias)
+        self.ln1_x = LayerNorm(half)
+        self.wye = _EmbedMLP(cfg.n_embd, half, vocab_size=cfg.vocab_size, bias=cfg.bias)
+        self.ln1_y = LayerNorm(half)
+        self.drop = Dropout(cfg.dropout)
+        for i in range(cfg.n_layer):
+            self.add_module(f"block_{i}", SelfAttnBlock(
+                cfg.n_embd, cfg.n_head, cfg.n_inner, cfg.bias, cfg.qk_layernorm, cfg.dropout))
+        self.ln2 = LayerNorm(cfg.n_embd)
+        self.head_x = _Head(half, head_inner, cfg.dim_continuous, cfg.bias)
+        self.head_y = _Head(half, head_inner, cfg.vocab_size, cfg.bias)
+
+    def forward(self, state: MultiModal, segments: Optional[Tensor] = None,
+                num_segments: Optional[int] = None):  # num_segments: EPiC only
+        cfg = self.config
+        _, key_mask, segments = _mask_inputs(state, segments, None)
+        x = self.ln1_x(self.wxe(state.continuous.to(torch.float32)))
+        y = self.ln1_y(self.wye(state.discrete[..., 0]))
+        time_emb = time_token_embedding(state.time, cfg.n_embd)
+        z = self.drop(torch.cat([x, y], dim=-1) + time_emb)
+        z_skip = z
+        for blk in _blocks(self, "block", cfg.n_layer):
+            z = blk(z, None, key_mask, segments) + time_emb
+        x, y = self.ln2(z + z_skip).split(cfg.n_embd // 2, dim=-1)
         return self.head_x(x), self.head_y(y)
 
 
@@ -198,11 +246,13 @@ class FlavorFormer(nn.Module):
             self.wpe = nn.Embedding(cfg.max_num_particles, cfg.n_embd)
         for i in range(cfg.n_layer):
             self.add_module(f"block_{i}", SelfAttnBlock(
-                cfg.n_embd, cfg.n_head, cfg.n_inner, cfg.bias, cfg.qk_layernorm))
+                cfg.n_embd, cfg.n_head, cfg.n_inner, cfg.bias, cfg.qk_layernorm, cfg.dropout))
         self.ln2 = LayerNorm(cfg.n_embd)
+        self.drop = Dropout(cfg.dropout)
         self.head = _Head(cfg.n_embd, cfg.n_inner or 4 * cfg.n_embd, cfg.vocab_size, cfg.bias)
 
-    def forward(self, state: MultiModal, segments: Optional[Tensor] = None) -> Tensor:
+    def forward(self, state: MultiModal, segments: Optional[Tensor] = None,
+                num_segments: Optional[int] = None) -> Tensor:  # num_segments: EPiC only
         cfg = self.config
         if segments is not None and cfg.use_pos_emb:
             raise ValueError("packed rows (segments) are incompatible with "
@@ -215,7 +265,7 @@ class FlavorFormer(nn.Module):
         time_emb = time_token_embedding(state.time, cfg.n_embd)
         if cfg.use_pos_emb:
             tok = tok + _pos_embedding(self.wpe, tok.shape[1])
-        f = tok + time_emb
+        f = self.drop(tok + time_emb)
         for blk in _blocks(self, "block", cfg.n_layer):
             f = blk(f, bias, key_mask, segments) + time_emb
         f = self.ln2(f + tok)
@@ -273,8 +323,9 @@ class KinFormer(nn.Module):
             self.wpe = nn.Embedding(cfg.max_num_particles, cfg.n_embd)
         for i in range(cfg.n_layer):
             self.add_module(f"block_{i}", SelfAttnBlock(
-                cfg.n_embd, cfg.n_head, cfg.n_inner, cfg.bias, cfg.qk_layernorm))
+                cfg.n_embd, cfg.n_head, cfg.n_inner, cfg.bias, cfg.qk_layernorm, cfg.dropout))
         self.ln2 = LayerNorm(cfg.n_embd)
+        self.drop = Dropout(cfg.dropout)
         self.head = _Head(cfg.n_embd, cfg.n_inner or 4 * cfg.n_embd, cfg.dim_continuous,
                           cfg.bias)
 
@@ -297,7 +348,8 @@ class KinFormer(nn.Module):
         u = torch.cat(outs, dim=1)                                     # (B, D, D, H)
         return self.lambda_u * u.permute(0, 3, 1, 2).to(torch.float32).contiguous()
 
-    def forward(self, state: MultiModal, segments: Optional[Tensor] = None) -> Tensor:
+    def forward(self, state: MultiModal, segments: Optional[Tensor] = None,
+                num_segments: Optional[int] = None) -> Tensor:  # num_segments: EPiC only
         cfg = self.config
         if segments is not None and cfg.use_pos_emb:
             raise ValueError("packed rows (segments) are incompatible with "
@@ -309,7 +361,7 @@ class KinFormer(nn.Module):
         time_emb = time_token_embedding(state.time, cfg.n_embd)
         if cfg.use_pos_emb:
             x = x + _pos_embedding(self.wpe, x.shape[1])
-        h = x + time_emb
+        h = self.drop(x + time_emb)
         h_skip = h
         for blk in _blocks(self, "block", cfg.n_layer):
             h = blk(h, bias, key_mask, segments) + time_emb

@@ -1,23 +1,26 @@
 """Network registry (PyTorch port of `multimodal_flows_tpu/models/registry.py`).
-ParticleFormer, FlavorFormer and KinFormer are ported; FusedParticleFormer,
-EPiC and ToyMLP are ROADMAP.md Queue 1 items 17, 18 and 21."""
+ToyMLP is not ported yet (ROADMAP.md Queue 1 item 21)."""
 
 from __future__ import annotations
 
 from multimodal_flows_tpu_torch.config import Config
+from multimodal_flows_tpu_torch.models.epic import EPiC
 from multimodal_flows_tpu_torch.models.particle_transformers import (
     FlavorFormer,
+    FusedParticleFormer,
     KinFormer,
     ParticleFormer,
 )
 
 MODEL_REGISTRY = {
     "ParticleFormer": ParticleFormer,
+    "FusedParticleFormer": FusedParticleFormer,
     "FlavorFormer": FlavorFormer,
     "KinFormer": KinFormer,
+    "EPiC": EPiC,
 }
 
-_NOT_PORTED = {"FusedParticleFormer": 17, "EPiC": 18, "ToyMLP": 21}
+_NOT_PORTED = {"ToyMLP": 21}
 
 
 def build_model(config: Config):

@@ -19,15 +19,21 @@ from __future__ import annotations
 import dataclasses
 import os
 import time
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from multimodal_flows_tpu_torch.config import Config
-from multimodal_flows_tpu_torch.data.packing import build_packed_rows, pack_jets, unpack_rows
+from multimodal_flows_tpu_torch.data.packing import (
+    build_packed_rows,
+    first_n_filled,
+    pack_jets,
+    unpack_rows,
+)
 from multimodal_flows_tpu_torch.data.state import MultiModal
+from multimodal_flows_tpu_torch.utils.logger import SimpleLogger as log
 
 Tensor = torch.Tensor
 
@@ -57,9 +63,9 @@ def make_noise_source(generator: torch.Generator, pad_mask: Tensor,
     return MultiModal(time=t0, continuous=x, discrete=k, mask=mask)
 
 
-#: encoders that take packed multi-jet rows (segment ids); EPiC and
-#: FusedParticleFormer are listed as in the JAX package, and raise in the
-#: registry until they are ported
+#: encoders that take packed multi-jet rows (segment ids): the
+#: transformers through the block-diagonal segment mask of their attention,
+#: EPiC through its per-segment pooling
 _PACKABLE_MODELS = ("ParticleFormer", "FusedParticleFormer", "KinFormer",
                     "FlavorFormer", "EPiC")
 
@@ -76,13 +82,6 @@ def _snap_batch(n: int) -> int:
 def _synchronize(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-
-
-def _first_n_filled(pad_masks: np.ndarray) -> bool:
-    D = pad_masks.shape[1]
-    mult = pad_masks[..., 0].sum(axis=1)
-    return bool((pad_masks[..., 0].cumsum(axis=1) ==
-                 np.minimum(np.arange(1, D + 1)[None, :], mult[:, None])).all())
 
 
 def _finalize(sample: MultiModal, metadata: Optional[Dict]) -> MultiModal:
@@ -155,7 +154,7 @@ def generate_bucketed(system, pad_masks: np.ndarray, *, num_timesteps: int,
     outputs are re-padded and put back in the original order.  Needs
     first-n-filled masks; otherwise every jet runs at the full width."""
     cfg = system.config
-    if cfg.use_pos_emb or not _first_n_filled(pad_masks):
+    if cfg.use_pos_emb or not first_n_filled(pad_masks):
         return generate(system, pad_masks, num_timesteps=num_timesteps, **kw)
     D = pad_masks.shape[1]
     mult = pad_masks[..., 0].sum(axis=1)
@@ -201,7 +200,7 @@ def generate_packed(system, pad_masks: np.ndarray, *, num_timesteps: int,
     kw = dict(num_timesteps=num_timesteps, temperature=temperature, top_k=top_k,
               top_p=top_p, use_final_max_rates=use_final_max_rates)
     if (cfg.model not in _PACKABLE_MODELS or cfg.use_pos_emb
-            or not _first_n_filled(pad_masks)):
+            or not first_n_filled(pad_masks)):
         return generate_bucketed(system, pad_masks, batch_size=batch_size, seed=seed,
                                  metadata=metadata, **kw)
 
@@ -215,7 +214,7 @@ def generate_packed(system, pad_masks: np.ndarray, *, num_timesteps: int,
         # packed rows run at most 128 to a batch (the JAX package's
         # operating point); `batch_size` still governs the bucketed tail
         rows = _run_packed_rows(system, row_mask, row_seg, batch_size=min(batch_size, 128),
-                                seed=seed, **kw)
+                                seed=seed, num_segments=int(row_seg.max()) + 1, **kw)
         sample = unpack_rows(rows, pad_masks, row_of, offset_of, pack_width)
     else:
         sample = MultiModal(
@@ -256,9 +255,11 @@ def _rebalanced_batch(n_rows: int, batch_size: int, gran: int = 8) -> int:
 def _run_packed_rows(system, row_masks: np.ndarray, row_segs: np.ndarray, *,
                      num_timesteps: int, temperature: float, top_k, top_p,
                      use_final_max_rates: bool, batch_size: int,
-                     seed: int) -> MultiModal:
+                     seed: int, num_segments: Optional[int] = None) -> MultiModal:
     """Sample packed rows (R, W): noise per row on the device, the segment
-    ids fixed through each trajectory.  Returns the rows on the CPU."""
+    ids fixed through each trajectory; `num_segments` (the most jets a row
+    holds) sizes EPiC's per-jet global stream.  Returns the rows on the
+    CPU."""
     cfg = system.config
     device = system.device
     n_rows, W = row_masks.shape[0], row_masks.shape[1]
@@ -283,7 +284,8 @@ def _run_packed_rows(system, row_masks: np.ndarray, row_segs: np.ndarray, *,
         finals.append(system.simulate(src, num_timesteps, temperature=temperature,
                                       top_k=top_k, top_p=top_p,
                                       use_final_max_rates=use_final_max_rates,
-                                      segments=segs_dev[sl], generator=gen))
+                                      segments=segs_dev[sl], num_segments=num_segments,
+                                      generator=gen))
     return MultiModal.concat(finals)[:n_rows].to("cpu")
 
 
@@ -297,3 +299,39 @@ def save_generation(result: GenerationResult, config: Config, res_dir: str) -> s
     with open(os.path.join(res_dir, "configs.yaml"), "w") as f:
         yaml.safe_dump(config.to_dict(), f, sort_keys=False)
     return out_path
+
+
+def run_generation_sweep(system, test_masks: np.ndarray, config: Config, *,
+                         temperatures: List[float], timestep_grid: List[int],
+                         num_files: int = 1, save: bool = True) -> List[GenerationResult]:
+    """The generation sweep: num_files x temperatures x timestep_grid runs of
+    `generate_packed` on `test_masks`, file i seeded `config.seed + i`,
+    each result tagged `{_tags}{_i}_steps_{steps}_temp_{temp}`.  With
+    `save` and an experiment id each run is written to
+    `<experiment_dir>/generation_results{tag}` (that needs h5py and yaml;
+    `save=False` does not)."""
+    results = []
+    tags = config.tags or ""
+    if isinstance(tags, (list, tuple)):
+        tags = "_".join(str(t) for t in tags)
+    if tags:
+        tags = f"_{tags}"
+    for i in range(num_files):
+        for temp in temperatures:
+            for steps in timestep_grid:
+                suffix = f"_{i}" if i > 0 else ""
+                tag = f"{tags}{suffix}_steps_{steps}_temp_{temp}"
+                res = generate_packed(
+                    system, test_masks, num_timesteps=steps, temperature=temp,
+                    top_k=config.top_k, top_p=config.top_p,
+                    use_final_max_rates=config.use_final_max_rates,
+                    batch_size=config.batch_size, seed=config.seed + i,
+                    metadata=config.metadata)
+                res.tag = tag
+                log.info(f"generated {len(res.sample)} jets @steps={steps} T={temp}: "
+                         f"{res.jets_per_sec:.1f} jets/s")
+                if save and config.experiment_id:
+                    save_generation(res, config, os.path.join(config.experiment_dir,
+                                                               f"generation_results{tag}"))
+                results.append(res)
+    return results

@@ -14,12 +14,18 @@ and the bridge states from `generator` (on the same device), and returns
 (loss, metrics) of `module` (the system's own, or e.g. its EMA copy).  The
 deterministic cores that follow the draws, `MMFModel.training_loss` /
 `packed_training_loss` and the global CFM / MJB losses, are what the
-tests hold against the JAX package on shared states.  Dropout is not
-ported: a training loss with `dropout > 0` raises.
+tests hold against the JAX package on shared states.
+
+Dropout: with `train` and `Config.dropout > 0` the loss runs its forward
+in train mode (`module.train()`), every dropout mask drawn from
+`generator`; with `train=False`, and at `dropout == 0`, the forward is the
+deterministic one.  The attention of a dropout forward takes the plain
+path by design (`ops/attention.py`).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -36,7 +42,7 @@ from multimodal_flows_tpu_torch.dynamics.solvers import (
     simulate,
 )
 from multimodal_flows_tpu_torch.dynamics.thermostats import ConstantThermostat
-from multimodal_flows_tpu_torch.models.blocks import init_weights
+from multimodal_flows_tpu_torch.models.blocks import init_weights, set_dropout_generator
 from multimodal_flows_tpu_torch.models.registry import build_model
 from multimodal_flows_tpu_torch.train.losses import (
     MultiTaskLoss,
@@ -69,9 +75,23 @@ def _placed(module: nn.Module, device: torch.device,
     return module.to(device).eval()
 
 
-def _no_dropout(config: Config, train: bool) -> None:
-    if train and config.dropout > 0:
-        raise NotImplementedError("dropout is not ported yet (ROADMAP.md Queue 1 item 14)")
+@contextlib.contextmanager
+def _dropout_mode(module: nn.Module, config: Config, train: bool,
+                  generator: Optional[torch.Generator]):
+    """The forward inside runs with dropout when `train and config.dropout
+    > 0` (train mode, the masks from `generator`) and without it otherwise
+    (eval mode); the module's mode is restored after.  At `dropout == 0`
+    the mode makes no difference and is left alone."""
+    if config.dropout <= 0:
+        yield
+        return
+    was_training = module.training
+    set_dropout_generator(module, generator)
+    module.train(train)
+    try:
+        yield
+    finally:
+        module.train(was_training)
 
 
 def _sample_time(generator: Optional[torch.Generator], shape, eps: float,
@@ -104,8 +124,9 @@ class MMFModel(nn.Module):
         self.encoder = build_model(config)
         self.multitask = MultiTaskLoss(config.multitask_loss, config.n_embd)
 
-    def forward(self, state: MultiModal, segments: Optional[Tensor] = None):
-        return self.encoder(state, segments)
+    def forward(self, state: MultiModal, segments: Optional[Tensor] = None,
+                num_segments: Optional[int] = None):
+        return self.encoder(state, segments, num_segments)
 
     def training_loss(self, state: MultiModal, drift_target: Tensor, target_tokens: Tensor):
         """(loss, loss_mse, loss_ce, weight_mse, weight_ce) of padded jets
@@ -121,7 +142,7 @@ class MMFModel(nn.Module):
         per-jet times `t_jets` (B, J), the per-jet normalisation recovered
         through the segment ids, empty slots weighted out by `jet_valid`."""
         J = jet_valid.shape[1]
-        vt, logits = self.encoder(state, segments)
+        vt, logits = self.encoder(state, segments, J)
         loss_mse = packed_masked_mse(vt, drift_target, state.mask, segments, J).reshape(-1)
         loss_ce = packed_masked_ce(logits, target_tokens, state.mask, segments, J).reshape(-1)
         return self.multitask(loss_mse, loss_ce, t_jets.reshape(-1),
@@ -149,7 +170,7 @@ class MMF:
                 module: Optional[nn.Module] = None) -> Tuple[Tensor, Dict[str, Tensor]]:
         if isinstance(batch, PackedJets):
             return self.packed_loss_fn(batch, generator, train, module)
-        _no_dropout(self.config, train)
+        module = module or self.module
         target, mask = batch.target, batch.target.mask
         t = _sample_time(generator, (len(target),), self.config.time_eps, mask.device)
         x0 = batch.source.continuous
@@ -162,15 +183,15 @@ class MMF:
         kt = self.bridge_discrete.sample(generator, t, k0, target.discrete)
         state = MultiModal(time=t, continuous=xt, discrete=kt, mask=mask)
         drift = self.bridge_continuous.conditional_drift(xt, x0, target.continuous)
-        return _mmf_metrics((module or self.module).training_loss(state, drift,
-                                                                  target.discrete))
+        with _dropout_mode(module, self.config, train, generator):
+            return _mmf_metrics(module.training_loss(state, drift, target.discrete))
 
     def packed_loss_fn(self, batch: PackedJets, generator: Optional[torch.Generator] = None,
                        train: bool = True, module: Optional[nn.Module] = None
                        ) -> Tuple[Tensor, Dict[str, Tensor]]:
         """The loss over packed rows: each jet draws its own t, the bridges
         take per-token time."""
-        _no_dropout(self.config, train)
+        module = module or self.module
         mask = batch.mask
         t_jets = _sample_time(generator, batch.jet_valid.shape, self.config.time_eps,
                               mask.device)
@@ -182,30 +203,35 @@ class MMF:
         kt = self.bridge_discrete.sample(generator, t_tok, k0, k1)
         state = MultiModal(time=t_tok, continuous=xt, discrete=kt, mask=mask)
         drift = self.bridge_continuous.conditional_drift(xt, x0, x1)
-        return _mmf_metrics((module or self.module).packed_training_loss(
-            state, drift, k1, t_jets, batch.segments, batch.jet_valid))
+        with _dropout_mode(module, self.config, train, generator):
+            return _mmf_metrics(module.packed_training_loss(
+                state, drift, k1, t_jets, batch.segments, batch.jet_valid))
 
     def make_solver(self, temperature: Optional[float] = None, top_k=None, top_p=None,
-                    segments: Optional[Tensor] = None) -> HybridSolver:
+                    segments: Optional[Tensor] = None,
+                    num_segments: Optional[int] = None) -> HybridSolver:
         """Hybrid solver over the encoder; `segments` (fixed for the whole
-        trajectory) selects block-diagonal attention over packed rows."""
+        trajectory) selects block-diagonal attention over packed rows, and
+        `num_segments` (the most jets a row holds) sizes EPiC's per-jet
+        global stream."""
         cfg = self.config
         return HybridSolver(
-            lambda s: self.module(s, segments),
+            lambda s: self.module(s, segments, num_segments),
             self.bridge_discrete,
             cfg.vocab_size,
             temperature=cfg.temperature if temperature is None else temperature,
             top_k=cfg.top_k if top_k is None else top_k,
             top_p=cfg.top_p if top_p is None else top_p,
             method=cfg.hybrid_solver,
+            class_freqs=cfg.class_freqs,
         )
 
     def simulate(self, source: MultiModal, num_timesteps: int, temperature: float = 1.0,
                  top_k=None, top_p=None, use_final_max_rates: bool = False,
-                 segments: Optional[Tensor] = None,
+                 segments: Optional[Tensor] = None, num_segments: Optional[int] = None,
                  generator: Optional[torch.Generator] = None,
                  uniforms: Optional[Tensor] = None) -> MultiModal:
-        solver = self.make_solver(temperature, top_k, top_p, segments)
+        solver = self.make_solver(temperature, top_k, top_p, segments, num_segments)
         return simulate(solver, source, num_timesteps, self.config.time_eps,
                         generator=generator, uniforms=uniforms,
                         use_final_max_rates=use_final_max_rates)
@@ -229,10 +255,11 @@ class CFM:
         """Masked MSE over the whole batch; on packed rows each jet draws
         its own t.  The normalisation counts the same real tokens packed
         or not."""
-        _no_dropout(self.config, train)
-        segments = None
+        module = module or self.module
+        segments = num_segments = None
         if isinstance(batch, PackedJets):
             mask, x1, x0, segments = batch.mask, batch.continuous, None, batch.segments
+            num_segments = batch.jet_valid.shape[1]
             t = _token_time(_sample_time(generator, batch.jet_valid.shape,
                                          self.config.time_eps, mask.device), segments)
         else:
@@ -242,17 +269,25 @@ class CFM:
         if x0 is None:
             x0 = self.bridge_continuous.draw_source(generator, x1, mask)
         xt = self.bridge_continuous.sample(generator, t, x0, x1)
-        vt = (module or self.module)(MultiModal(time=t, continuous=xt, mask=mask), segments)
+        with _dropout_mode(module, self.config, train, generator):
+            vt = module(MultiModal(time=t, continuous=xt, mask=mask), segments, num_segments)
         loss = global_masked_mse(vt, self.bridge_continuous.conditional_drift(xt, x0, x1), mask)
         return loss, {"loss": loss, "loss_mse": loss}
 
     def simulate(self, source: MultiModal, num_timesteps: int, method: str = "euler",
-                 segments: Optional[Tensor] = None, **_ignored) -> MultiModal:
-        """Euler integration.  The hybrid-only keyword arguments
-        (temperature, top_k, generator, ...) are accepted and ignored, so
-        the generation drivers run any system."""
-        solver = ContinuousSolver(lambda s: self.module(s, segments), method=method)
-        return simulate(solver, source, num_timesteps, self.config.time_eps)
+                 segments: Optional[Tensor] = None, num_segments: Optional[int] = None,
+                 generator: Optional[torch.Generator] = None,
+                 normals: Optional[Tensor] = None, **_ignored) -> MultiModal:
+        """Euler or Euler-Maruyama integration (the latter draws its
+        normals from `generator`, or takes `normals` (steps, B, D, Fc)).
+        The hybrid-only keyword arguments (temperature, top_k, ...) are
+        accepted and ignored, so `generate_packed` runs any system."""
+        solver = ContinuousSolver(
+            lambda s: self.module(s, segments, num_segments),
+            diffusion_fn=lambda s: self.bridge_continuous.diffusion(s.continuous),
+            method=method)
+        return simulate(solver, source, num_timesteps, self.config.time_eps,
+                        generator=generator, uniforms=normals)
 
 
 class MJB:
@@ -273,10 +308,11 @@ class MJB:
                 module: Optional[nn.Module] = None) -> Tuple[Tensor, Dict[str, Tensor]]:
         """Masked CE over the whole batch; on packed rows each jet draws its
         own t."""
-        _no_dropout(self.config, train)
-        segments = None
+        module = module or self.module
+        segments = num_segments = None
         if isinstance(batch, PackedJets):
             mask, k1, k0, segments = batch.mask, batch.discrete, None, batch.segments
+            num_segments = batch.jet_valid.shape[1]
             t = _token_time(_sample_time(generator, batch.jet_valid.shape,
                                          self.config.time_eps, mask.device), segments)
         else:
@@ -286,17 +322,21 @@ class MJB:
         if k0 is None:
             k0 = self.bridge_discrete.draw_source(generator, k1.shape, mask)
         kt = self.bridge_discrete.sample(generator, t, k0, k1)
-        logits = (module or self.module)(MultiModal(time=t, discrete=kt, mask=mask), segments)
+        with _dropout_mode(module, self.config, train, generator):
+            logits = module(MultiModal(time=t, discrete=kt, mask=mask), segments, num_segments)
         loss = global_masked_ce(logits, k1, mask)
         return loss, {"loss": loss, "loss_ce": loss}
 
     def simulate(self, source: MultiModal, num_timesteps: int, temperature: float = 1.0,
                  top_k=None, top_p=None, segments: Optional[Tensor] = None,
+                 num_segments: Optional[int] = None,
                  generator: Optional[torch.Generator] = None,
                  uniforms: Optional[Tensor] = None, **_ignored) -> MultiModal:
-        """Tau-leap over the tokens; `use_final_max_rates` is accepted and
-        ignored, as in the JAX package."""
-        solver = DiscreteSolver(lambda s: self.module(s, segments), self.bridge_discrete,
+        """The token steps of `Config.markov_jump_solver`;
+        `use_final_max_rates` is accepted and ignored, as in the JAX
+        package."""
+        solver = DiscreteSolver(lambda s: self.module(s, segments, num_segments),
+                                self.bridge_discrete,
                                 self.config.vocab_size, temperature=temperature,
                                 top_k=top_k, top_p=top_p,
                                 method=self.config.markov_jump_solver)

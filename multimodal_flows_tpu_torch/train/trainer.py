@@ -19,9 +19,18 @@ step makes no host sync.
 In packed training (`packed_training`) `batch_size` counts jets per step:
 the row batch is round(batch_size / jets per row), at most batch_size,
 computed once from the training set's packing and kept for validation.
+In bucketed training (`bucketed_training`) jets are grouped by
+multiplicity into the static widths `bucket_widths` + the full width, a
+bucket is a unit, and batches are cut within a bucket, so the pad columns
+beyond a bucket's width are never computed.  The two are mutually
+exclusive.
 
-Not ported, each raising with a pointer to ROADMAP.md: bucketed training,
-the in-training physics evaluation, dropout, and meshes (FSDP, tensor
+With `physics_eval_every_n_epochs > 0` the trainer samples
+`physics_eval_num_jets` jets on every such epoch and the last, scores W1
+against the validation set (`train/physics_eval.py`), logs `val_w1_*` and
+saves a checkpoint, which fills the `best_physics` slot.
+
+Not ported, raising with a pointer to ROADMAP.md: meshes (FSDP, tensor
 parallelism).
 """
 
@@ -42,10 +51,12 @@ from multimodal_flows_tpu_torch.config import Config
 from multimodal_flows_tpu_torch.data.datasets import ArrayDataset, num_batches
 from multimodal_flows_tpu_torch.data.packing import (
     PackedDataset,
+    first_n_filled,
     pack_multimodal,
     pad_rows,
     singleton_rows,
 )
+from multimodal_flows_tpu_torch.data.state import DataCoupling
 from multimodal_flows_tpu_torch.train.checkpoints import CheckpointManager
 from multimodal_flows_tpu_torch.train.ema import ema_update
 from multimodal_flows_tpu_torch.train.lr_schedules import warmup_cosine_epoch_schedule
@@ -64,16 +75,9 @@ class TrainState:
 
 
 def _check_supported(cfg: Config) -> None:
-    unported = [
-        (cfg.bucketed_training, "bucketed training", 14),
-        (cfg.physics_eval_every_n_epochs > 0, "the in-training physics evaluation", 15),
-        (cfg.dropout > 0, "dropout", 14),
-        (cfg.fsdp or cfg.tensor_parallel > 1 or cfg.mesh_shape, "meshes, FSDP and TP", 22),
-    ]
-    for on, what, item in unported:
-        if on:
-            raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md Queue 1 "
-                                      f"item {item})")
+    if cfg.fsdp or cfg.tensor_parallel > 1 or cfg.mesh_shape:
+        raise NotImplementedError("meshes, FSDP and TP are not ported yet (ROADMAP.md "
+                                  "Queue 1 item 22)")
 
 
 def _seed(*parts: int) -> int:
@@ -89,6 +93,7 @@ class Trainer:
         self.config = config
         self.device = system.device
         self._packed_row_bs = None  # rows per step in packed training (_pack_units)
+        self._physics_ref = None    # (reference observables, masks) of the physics eval
 
     # ------------------------------------------------------------ building
 
@@ -171,6 +176,63 @@ class Trainer:
             out = np.concatenate([out, tail[None]], axis=0)
         return out.astype(np.int32)
 
+    # ------------------------------------------------- multiplicity buckets
+
+    @staticmethod
+    def _truncate_width(coupling: DataCoupling, w: int) -> DataCoupling:
+        """Drop the pad columns beyond width w (valid for first-n masks
+        only); per-jet fields (time) are kept whole."""
+        def trunc(a):
+            return a[:, :w] if a.ndim >= 2 else a
+
+        return DataCoupling(coupling.source.map(trunc), coupling.target.map(trunc),
+                            coupling.context)
+
+    def _bucketize(self, ds: ArrayDataset, min_size: int = 1):
+        """Split a dataset into multiplicity buckets of static widths
+        (`config.bucket_widths` + the full width).  Returns
+        [(width, ArrayDataset, indices)], or None when the masks are not
+        first-n filled (truncating would drop real particles).
+
+        A bucket smaller than `min_size` (the batch size) is merged into
+        the next wider one; that loses nothing, since truncation keeps
+        every particle at any width >= the multiplicity.  When the widest
+        buckets are undersized, the widest surviving bucket is folded into
+        them at the wider width.  So the partition excludes no jet from
+        training."""
+        mask = np.asarray(ds.coupling.target.mask)
+        D = mask.shape[1]
+        mult = mask[..., 0].sum(axis=1)
+        if not first_n_filled(mask):
+            return None
+        widths = sorted(w for w in self.config.bucket_widths if w < D) + [D]
+        raw, lo = [], -1
+        for w in widths:
+            sel = np.where((mult <= w) & (mult > lo))[0]
+            lo = w
+            if len(sel):
+                raw.append((w, sel))
+
+        merged = []
+        carry_sel, carry_w = None, None
+        for w, sel in raw:
+            if carry_sel is not None:
+                sel = np.concatenate([carry_sel, sel])
+                carry_sel = None
+            if len(sel) < min_size:
+                carry_sel, carry_w = sel, w
+            else:
+                merged.append((w, sel))
+        if carry_sel is not None:
+            if merged:
+                w_prev, sel_prev = merged.pop()
+                merged.append((max(w_prev, carry_w), np.concatenate([sel_prev, carry_sel])))
+            else:
+                merged.append((carry_w, carry_sel))
+
+        return [(w, ArrayDataset(self._truncate_width(ds.coupling[sel], w)), sel)
+                for w, sel in merged]
+
     # --------------------------------------------------- packed training
 
     def _pack_units(self, ds: ArrayDataset) -> Optional[List[PackedDataset]]:
@@ -214,15 +276,26 @@ class Trainer:
         return units or None
 
     def _units(self, train_ds: ArrayDataset, val_ds: ArrayDataset):
-        """(train units, val units, batch rows): packed when configured and
-        possible for both sets, else the datasets themselves."""
+        """(train units, val units, batch rows, bucket widths): packed rows
+        or multiplicity buckets when configured and possible for both
+        sets, else the datasets themselves.  The widths are those of the
+        train buckets, None when training is not bucketed."""
         cfg = self.config
         if cfg.packed_training:
+            if cfg.bucketed_training:
+                raise ValueError("packed_training and bucketed_training are mutually exclusive")
             train_units = self._pack_units(train_ds)
             val_units = self._pack_units(val_ds) if train_units else None
             if val_units is not None:
-                return train_units, val_units, self._packed_row_bs
-        return [train_ds], [val_ds], cfg.batch_size
+                return train_units, val_units, self._packed_row_bs, None
+        if cfg.bucketed_training:
+            train_buckets = self._bucketize(train_ds, min_size=cfg.batch_size)
+            val_buckets = self._bucketize(val_ds)
+            if train_buckets is not None and val_buckets is not None:
+                return ([b for _, b, _ in train_buckets], [b for _, b, _ in val_buckets],
+                        cfg.batch_size, [w for w, _, _ in train_buckets])
+            log.warn("bucketed_training disabled: masks are not first-n filled")
+        return [train_ds], [val_ds], cfg.batch_size, None
 
     def _resident(self, ds):
         """A unit's arrays as tensors: on the device when they fit
@@ -265,8 +338,13 @@ class Trainer:
     def evaluate(self, val_ds: ArrayDataset, module: nn.Module, epoch: int) -> Dict[str, float]:
         """The validation metrics `fit` logs at `epoch`, of `module`."""
         cfg = self.config
-        units = self._pack_units(val_ds) if cfg.packed_training else None
-        bs = self._packed_row_bs if units is not None else cfg.batch_size
+        units, bs = None, cfg.batch_size
+        if cfg.packed_training:
+            units = self._pack_units(val_ds)
+            bs = self._packed_row_bs if units is not None else bs
+        elif cfg.bucketed_training:
+            buckets = self._bucketize(val_ds)
+            units = None if buckets is None else [b for _, b, _ in buckets]
         return self._validate(module, self._val_sets(units or [val_ds], bs), epoch)
 
     def _experiment_dir(self) -> str:
@@ -278,8 +356,11 @@ class Trainer:
     def fit(self, train_ds: ArrayDataset, val_ds: ArrayDataset,
             resume: Optional[str] = None) -> TrainState:
         cfg = self.config
-        train_units, val_units, bs = self._units(train_ds, val_ds)
-        spe = max(sum(num_batches(len(u), bs) for u in train_units), 1)
+        train_units, val_units, bs, bucket_widths = self._units(train_ds, val_ds)
+        # the schedule's steps per epoch: the units' batches, or for buckets
+        # (as in the JAX trainer) those of the whole set at the batch size
+        spe = max(sum(num_batches(len(u), bs) for u in train_units)
+                  if bucket_widths is None else num_batches(len(train_ds), bs), 1)
         state = self.init_state(spe)
 
         exp_dir = self._experiment_dir()
@@ -309,6 +390,12 @@ class Trainer:
             accum, weights = [], []
             state.module.train()
             for ui in order:
+                if bucket_widths is not None and len(train_units[ui]) < bs:
+                    # only when the whole dataset is smaller than a batch:
+                    # buckets merge upward to the batch size
+                    log.warn(f"bucket width {bucket_widths[ui]}: {len(train_units[ui])} jets "
+                             f"< batch_size {bs}; skipped")
+                    continue
                 idx = self._epoch_perm(len(train_units[ui]), bs, shuffle=True, seed=cfg.seed,
                                        epoch=epoch)
                 if len(idx):
@@ -321,11 +408,22 @@ class Trainer:
 
             val_metrics = self._validate(state.ema if state.ema is not None else state.module,
                                          val_sets, epoch)
+
+            # the periodic physics eval: the validation losses rank sample
+            # quality badly, W1 of generated jets against the val set does not
+            did_physics = False
+            if cfg.physics_eval_every_n_epochs > 0 and (
+                    (epoch + 1) % cfg.physics_eval_every_n_epochs == 0
+                    or epoch == cfg.max_epochs - 1):
+                val_metrics.update(self._run_physics_eval(state, val_ds, epoch))
+                did_physics = "val_w1_physics" in val_metrics
+
             epoch_metrics = {**train_metrics, **val_metrics, "epoch": epoch,
                              "lr": self.lr_schedule(state.step),
                              "epoch_time_s": time.time() - t0}
             logger.log(state.step, epoch_metrics)
-            if (epoch + 1) % cfg.checkpoint_every_n_epochs == 0 or epoch == cfg.max_epochs - 1:
+            if ((epoch + 1) % cfg.checkpoint_every_n_epochs == 0 or epoch == cfg.max_epochs - 1
+                    or did_physics):
                 ckpt.save(self._to_ckpt(state, epoch + 1), val_metrics, epoch + 1)
             log.info(f"epoch {epoch}: train_loss={train_metrics.get('train_loss', math.nan):.4f} "
                      f"val_loss={val_metrics.get('val_loss', math.nan):.4f} "
@@ -333,6 +431,45 @@ class Trainer:
 
         logger.close()
         return state
+
+    # -------------------------------------------------------- physics eval
+
+    def _run_physics_eval(self, state: TrainState, val_ds: ArrayDataset,
+                          epoch: int) -> Dict[str, float]:
+        """Sample with the current (EMA) weights and score W1 against the
+        validation set (`train/physics_eval.py`).  The reference
+        observables and masks are computed once per fit and cached."""
+        from multimodal_flows_tpu_torch.train import physics_eval
+
+        cfg = self.config
+        target = val_ds.coupling.target
+        if target.mask is None:
+            return {}
+        n = min(cfg.physics_eval_num_jets, len(target))
+        if self._physics_ref is None:
+            self._physics_ref = (physics_eval.reference_observables(target, cfg.metadata, n),
+                                 np.asarray(target.mask)[:n])
+        ref_obs, masks = self._physics_ref
+        module = state.ema if state.ema is not None else state.module
+        t0 = time.time()
+        try:
+            # common random numbers: one fixed generation seed for every
+            # eval of the run, so successive scores differ only through the
+            # weights and the shared sampling noise cancels in the ranking;
+            # reseeding per eval lets the argmin pick a noise dip
+            out = physics_eval.physics_metrics(
+                self.system, module, ref_obs, masks,
+                num_timesteps=cfg.physics_eval_num_timesteps, metadata=cfg.metadata,
+                batch_size=cfg.batch_size, seed=cfg.seed + 104729, pack_width=cfg.pack_width)
+        except Exception as e:  # a metric never kills a long run
+            log.warn(f"physics eval failed at epoch {epoch}: {e!r}")
+            return {}
+        if "val_w1_physics" in out:
+            log.info(f"physics eval: w1={out['val_w1_physics']:.4f} "
+                     + " ".join(f"{k.removeprefix('val_w1_')}={v:.3f}"
+                                for k, v in out.items() if k != "val_w1_physics")
+                     + f" ({time.time() - t0:.1f}s)")
+        return out
 
     # ----------------------------------------------------------- inference
 

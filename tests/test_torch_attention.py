@@ -12,6 +12,7 @@ import torch
 
 from multimodal_flows_tpu.ops.attention import _xla_attention_btc
 from multimodal_flows_tpu.ops.pallas_attention import pallas_btc_attention
+from multimodal_flows_tpu_torch.ops import attention
 from multimodal_flows_tpu_torch.ops import btc_attention as k1
 from multimodal_flows_tpu_torch.ops.attention import (
     attention_btc_reference,
@@ -108,10 +109,15 @@ def test_kernel_wrapper_refuses_cpu_tensors_and_unported_forms():
     q, k, v = map(_torch, _qkv(2, 6, 32))
     with pytest.raises(ValueError, match="CUDA"):
         k1.btc_attention(q, k, v, 4)
-    with pytest.raises(NotImplementedError, match="dropout"):
-        multihead_attention_btc(q, k, v, 4, dropout_rate=0.1)
-    with pytest.raises(NotImplementedError, match="dropout"):
-        multihead_attention_btc(q, k, v, 4, bias=torch.zeros(2, 1, 6, 6), dropout_rate=0.1)
+    # probability dropout is ported: it takes the plain version, by name,
+    # with or without a bias, and never a kernel
+    attention.reset_plain_dropout_calls()
+    gen = torch.Generator().manual_seed(0)
+    out = multihead_attention_btc(q, k, v, 4, dropout_rate=0.1, generator=gen)
+    biased = multihead_attention_btc(q, k, v, 4, bias=torch.zeros(2, 1, 6, 6),
+                                     dropout_rate=0.1, generator=gen.manual_seed(0))
+    torch.testing.assert_close(out, biased, rtol=0, atol=0)
+    assert attention.PLAIN_DROPOUT_CALLS == {"head_major": 0, "token_major": 2}
     assert k1.LAUNCHES == {"segments": 0, "key_mask": 0, "none": 0}
 
 

@@ -74,9 +74,53 @@ def test_config_yaml_round_trips_between_packages(tmp_path):
 
 
 def test_unported_model_raises_with_roadmap_pointer():
-    with pytest.raises(KeyError, match="ROADMAP.md Queue 1 item 17"):
-        build_model(Config(model="FusedParticleFormer"))
-    with pytest.raises(KeyError, match="ROADMAP.md Queue 1 item 18"):
-        build_model(Config(model="EPiC"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(Config(compute_dtype="bfloat16"))
+    """FusedParticleFormer and EPiC build; ToyMLP and bf16 compute still
+    raise with their ROADMAP pointers, an unknown name without one."""
+    small = dict(n_embd=16, n_inner=32, n_layer=1, n_head=2, max_num_particles=6)
+    assert type(build_model(Config(model="FusedParticleFormer", **small))).__name__ == \
+        "FusedParticleFormer"
+    assert type(build_model(Config(model="EPiC", **small))).__name__ == "EPiC"
+    with pytest.raises(KeyError, match="ROADMAP.md Queue 1 item 21"):
+        build_model(Config(model="ToyMLP"))
+    with pytest.raises(KeyError, match="unknown model"):
+        build_model(Config(model="NoSuchFormer"))
+    for model in ("ParticleFormer", "FusedParticleFormer"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            build_model(Config(model=model, compute_dtype="bfloat16"))
+
+
+def _shape_tree(system):
+    """A system's flax tree with random values (`eval_shape` initialises
+    nothing)."""
+    shapes = jax.eval_shape(system.init_params, jax.random.PRNGKey(0))["params"]
+    rng = np.random.default_rng(1)
+    return jax.tree.map(lambda s: rng.normal(size=s.shape).astype(np.float32), shapes)
+
+
+@pytest.mark.parametrize("kind,cfg_kw,leaves,numel", [
+    # the training CLI's widths: n_embd 256, n_inner 512, n_layer 5, 4 heads
+    ("MMF", dict(FLAGSHIP, model="FusedParticleFormer"), 101 + 4, 2_845_196 + 66_306),
+    # n_embd 256, n_embd_glob 16, n_layer 5; 24 WeightNorm layers with a
+    # kernel, a bias and a separate scale, `wxe` and `head`
+    ("CFM", dict(model="EPiC", n_embd=256, n_embd_glob=16, n_layer=5, dim_continuous=3,
+                 max_num_particles=150), 24 * 3 + 4, 2_109_171)],
+    ids=["fused_mmf", "epic_cfm"])
+def test_fused_and_epic_trees_convert_leaf_for_leaf(kind, cfg_kw, leaves, numel):
+    """Every leaf of the FusedParticleFormer MMF tree and of the CFM + EPiC
+    tree is consumed by exactly one torch parameter, the strict load
+    passes, and the parameter counts agree with flax's."""
+    from multimodal_flows_tpu.train.systems import SYSTEM_REGISTRY as JAX_SYSTEMS
+    from multimodal_flows_tpu_torch.train.systems import build_system
+
+    tree = _shape_tree(JAX_SYSTEMS[kind](JaxConfig(**cfg_kw)))
+    flat = jax.tree.leaves(tree)
+    converted = params_from_flax(tree)
+    system = build_system(Config(**cfg_kw), kind, device="cpu")
+    load_flax_params(system.module, tree)
+    named = dict(system.module.named_parameters())
+    assert len(flat) == len(converted) == len(named) == leaves
+    total = sum(a.size for a in flat)
+    assert total == sum(p.numel() for p in named.values())
+    assert total == numel
+    for name, p in named.items():       # every value arrived where its name says
+        assert torch.equal(p.detach(), converted[name]), name

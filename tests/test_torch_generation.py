@@ -122,3 +122,41 @@ def test_multimodal_helpers():
     both = MultiModal.concat([a, a[1:]])
     assert len(both) == 3 and both.time.shape == (3,)
     assert both.to("cpu").mask.shape == (3, 3, 1)
+
+
+@pytest.mark.parametrize("tags,prefix", [(None, ""), (["a", "b"], "_a_b")])
+def test_run_generation_sweep_tags_and_count(tags, prefix):
+    """files x temperatures x steps results in the JAX package's order with
+    its tag format; file i is seeded `seed + i` (so the files differ, and
+    a file is reproducible); `save=False` writes nothing and needs neither
+    h5py nor yaml."""
+    from multimodal_flows_tpu_torch.sampling.generator import run_generation_sweep
+
+    cfg = Config(**TINY, batch_size=8, seed=3, tags=tags, experiment_id=None)
+    system = MMF(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    masks = _pad_masks([3, 7, 5, 9, 2, 6], 20)
+    results = run_generation_sweep(system, masks, cfg, temperatures=[1.0, 0.7],
+                                   timestep_grid=[2, 3], num_files=2, save=False)
+    expected = [f"{prefix}{suffix}_steps_{steps}_temp_{temp}"
+                for suffix in ("", "_1") for temp in (1.0, 0.7) for steps in (2, 3)]
+    assert [r.tag for r in results] == expected
+    assert [(r.num_timesteps, r.temperature) for r in results] == [
+        (steps, temp) for _ in range(2) for temp in (1.0, 0.7) for steps in (2, 3)]
+    assert all(len(r.sample) == 6 and torch.isfinite(r.sample.continuous).all() for r in results)
+    assert not torch.equal(results[0].sample.continuous, results[4].sample.continuous)
+    again = run_generation_sweep(system, masks, cfg, temperatures=[1.0], timestep_grid=[2],
+                                 save=False)
+    assert torch.equal(again[0].sample.continuous, results[0].sample.continuous)
+
+
+def test_run_generation_sweep_saves_under_the_experiment(tmp_path):
+    from multimodal_flows_tpu_torch.sampling.generator import run_generation_sweep
+
+    cfg = Config(**TINY, batch_size=8, dir=str(tmp_path), experiment_id="sweep")
+    system = MMF(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    results = run_generation_sweep(system, _pad_masks([3, 7, 5], 20), cfg, temperatures=[0.9],
+                                   timestep_grid=[2])
+    res_dir = tmp_path / cfg.project / "sweep" / "generation_results_steps_2_temp_0.9"
+    loaded = JaxMultiModal.load_from(str(res_dir / "generated_sample.h5"))
+    np.testing.assert_array_equal(np.asarray(loaded.discrete), results[0].sample.discrete.numpy())
+    assert yaml.safe_load(open(res_dir / "configs.yaml"))["experiment_id"] == "sweep"

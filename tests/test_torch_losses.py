@@ -274,8 +274,19 @@ def test_uniform_flow_matches_jax():
 
 
 def test_bridge_top_k_raises_with_roadmap_pointer():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 19"):
-        bridges.RandomTelegraphBridge(0.075, 9, top_k=3)
+    """The bridge's `top_k` is ported and no longer raises: the posterior
+    sample is drawn from the top-k filtered posterior, so only the k most
+    probable classes of a site are ever drawn."""
+    bridge = bridges.RandomTelegraphBridge(0.075, 9, top_k=2)
+    rng = np.random.default_rng(0)
+    k0 = torch.from_numpy(rng.integers(1, 9, size=(64, 16, 1)).astype(np.int32))
+    k1 = torch.from_numpy(rng.integers(1, 9, size=(64, 16, 1)).astype(np.int32))
+    t = torch.full((64,), 0.5)
+    kt = bridge.sample(torch.Generator().manual_seed(0), t, k0, k1)
+    probs = bridge.transition_probability(t, k0, k1)
+    allowed = probs >= probs.topk(2, dim=-1).values[..., -1:]
+    assert kt.shape == (64, 16, 1) and kt.dtype == torch.int32
+    assert torch.gather(allowed, -1, kt.long()).all()
 
 
 @pytest.mark.parametrize("warmup,max_epochs,spe", [(0, 7, 3), (2, 12, 10), (3, 3, 1)])

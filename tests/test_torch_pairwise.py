@@ -43,6 +43,7 @@ from multimodal_flows_tpu_torch.ops import btc_attention as k1
 from multimodal_flows_tpu_torch.ops import set_attention as k2
 from multimodal_flows_tpu_torch.sampling.generator import generate_packed
 from multimodal_flows_tpu_torch.train import systems
+from multimodal_flows_tpu_torch.utils.jet_features import JetFeatures
 
 torch.set_num_threads(2)
 
@@ -379,14 +380,20 @@ def test_generate_packed_runs_each_system_on_cpu(kind, cfg_kw):
 
 
 def test_unported_modes_raise_with_roadmap_pointer():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        solvers.ContinuousSolver(None, method="euler_maruyama")
+    """The solver modes are all ported: each builds, and an unknown method
+    raises ValueError as in JAX.  What still raises names its ROADMAP item:
+    the GPT baseline, the toy model, jet substructure."""
+    solvers.ContinuousSolver(None, method="euler_maruyama")
     for method in ("tauleap-bernouilli", "euler", "jump_or_stay"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            solvers.DiscreteSolver(None, None, 9, method=method)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        solvers.DiscreteSolver(None, None, 9, top_p=0.9)
-    with pytest.raises(KeyError, match="ROADMAP"):
+        solvers.DiscreteSolver(None, None, 9, method=method, top_p=0.9)
+    with pytest.raises(ValueError, match="unknown continuous method"):
+        solvers.ContinuousSolver(None, method="heun")
+    with pytest.raises(ValueError, match="unknown discrete method"):
+        solvers.DiscreteSolver(None, None, 9, method="tauleap-bernoulli")
+    with pytest.raises(KeyError, match="ROADMAP.md Queue 1 item 20"):
         systems.build_system(Config(), "GPT")
     with pytest.raises(KeyError, match="ROADMAP.md Queue 1 item 21"):
         build_model(Config(model="ToyMLP"))
+    jets = MultiModal(continuous=torch.zeros(2, 4, 3), mask=torch.ones(2, 4, 1))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 16"):
+        JetFeatures(jets, compute_substructure=True)

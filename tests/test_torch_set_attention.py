@@ -26,6 +26,7 @@ import torch
 
 from multimodal_flows_tpu.ops.attention import _xla_attention, _xla_attention_btc
 from multimodal_flows_tpu.ops.pallas_attention import _xla_reference
+from multimodal_flows_tpu_torch.ops import attention
 from multimodal_flows_tpu_torch.ops import btc_attention as k1
 from multimodal_flows_tpu_torch.ops import set_attention as k2
 from multimodal_flows_tpu_torch.ops.attention import (
@@ -240,6 +241,14 @@ def test_k2_wrappers_refuse_cpu_tensors():
     x = torch.zeros(2, 6, 8)
     with pytest.raises(ValueError, match="CUDA"):
         k2.set_attention_btc(x, x, x, 2, bias=torch.zeros(2, 1, 6, 6))
-    with pytest.raises(NotImplementedError, match="dropout"):
-        multihead_attention(q, k, v, bias, dropout_rate=0.1)
+    # probability dropout is ported: the head-major call takes the plain
+    # version and never K2; at rate 0 the generator is not touched
+    attention.reset_plain_dropout_calls()
+    gen = torch.Generator().manual_seed(0)
+    dropped = multihead_attention(q, k, v, bias, km, dropout_rate=0.5, generator=gen)
+    assert attention.PLAIN_DROPOUT_CALLS == {"head_major": 1, "token_major": 0}
+    assert not torch.equal(dropped, attention_reference(q, k, v, km, bias))
+    torch.testing.assert_close(multihead_attention(q, k, v, bias, km, dropout_rate=0.0,
+                                                   generator=gen),
+                               attention_reference(q, k, v, km, bias), rtol=0, atol=0)
     assert k2.LAUNCHES == ZERO_K2

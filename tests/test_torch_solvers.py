@@ -103,10 +103,13 @@ def test_draw_sources_are_masked():
 
 
 def test_unported_solver_options_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        solvers.HybridSolver(None, None, 9, method="euler")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        solvers.HybridSolver(None, None, 9, top_k=3)
+    """Every solver mode of the JAX package is ported; an unknown method
+    raises ValueError, as in JAX (there at the first step, here when the
+    solver is built)."""
+    solvers.HybridSolver(None, None, 9, method="euler", top_k=3, top_p=0.9,
+                         class_freqs=solvers.REFERENCE_CLASS_FREQS)
+    with pytest.raises(ValueError, match="unknown hybrid method"):
+        solvers.HybridSolver(None, None, 9, method="midpoint")
 
 
 def test_simulate_matches_jax_on_shared_noise():

@@ -269,13 +269,16 @@ def test_entry_points_run_on_cuda_unless_asked_for_the_cpu(kind):
     assert systems.build_system(cfg, kind, device="cpu").device.type == "cpu"
 
 
-@pytest.mark.parametrize("option,item", [
-    (dict(bucketed_training=True), 14), (dict(physics_eval_every_n_epochs=2), 15),
-    (dict(dropout=0.1), 14), (dict(fsdp=True), 22), (dict(tensor_parallel=2), 22)])
+@pytest.mark.parametrize("option,item", [(dict(fsdp=True), 22), (dict(tensor_parallel=2), 22)])
 def test_trainer_raises_on_unported_options(option, item):
+    """Meshes still raise; bucketed training, the physics eval and dropout
+    no longer do."""
     cfg = Config(**SMALL, **option)
+    system = systems.build_system(Config(**SMALL), "MMF", device="cpu")
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 item {item}"):
-        Trainer(systems.build_system(Config(**SMALL), "MMF", device="cpu"), cfg)
+        Trainer(system, cfg)
+    Trainer(system, Config(**SMALL, bucketed_training=True, physics_eval_every_n_epochs=2,
+                           dropout=0.1))
 
 
 def test_three_optimizer_updates_match_optax(mmf_pair):
@@ -523,3 +526,140 @@ def test_fit_two_epochs_checkpoints_and_resume(tmp_path):
     assert state3.step == state.step + state.step // 2
     records = [json.loads(line) for line in open(os.path.join(exp, "metrics.jsonl"))]
     assert [r["epoch"] for r in records] == [0, 1, 2]
+
+
+# ---------------------------------------------------------- bucketed training
+
+
+def _bucket_trainers(cfg_kw):
+    jtrainer = JaxTrainer(jsystems.MMF(JaxConfig(**cfg_kw)), JaxConfig(**cfg_kw), mesh=None)
+    trainer = Trainer(systems.build_system(Config(**cfg_kw), "MMF", device="cpu"),
+                      Config(**cfg_kw))
+    return jtrainer, trainer
+
+
+def _assert_same_buckets(out, ref):
+    assert [w for w, _, _ in out] == [w for w, _, _ in ref]
+    for (w, tds, tsel), (_, jds, jsel) in zip(out, ref):
+        np.testing.assert_array_equal(tsel, jsel)
+        for side in ("source", "target"):
+            for f in ("continuous", "discrete", "mask"):
+                a = getattr(getattr(tds.coupling, side), f)
+                b = getattr(getattr(jds.coupling, side), f)
+                assert (a is None) == (b is None)
+                if a is not None:
+                    np.testing.assert_array_equal(a, np.asarray(b), err_msg=f"{w} {side}.{f}")
+                    assert a.shape[1] == w
+
+
+@pytest.mark.parametrize("case", ["plain", "merge_upward", "undersized_widest", "all_small"])
+def test_bucketize_matches_jax(case):
+    """The same widths, index sets and truncated arrays as the JAX trainer
+    on one dataset: every bucket filled; undersized buckets merged upward
+    into the next wider one; an undersized widest bucket folded with the
+    widest surviving one at the wider width; a dataset smaller than
+    `min_size` as one bucket."""
+    rng = np.random.default_rng(20)
+    if case == "plain":
+        mults, min_size = rng.integers(1, 25, size=80), 1
+    elif case == "merge_upward":      # 3 jets <= 8, many in (8, 16], some wider
+        mults, min_size = np.concatenate([[2, 5, 8], rng.integers(9, 17, size=30),
+                                          rng.integers(17, 25, size=12)]), 8
+    elif case == "undersized_widest":  # only 2 jets wider than 16
+        mults, min_size = np.concatenate([rng.integers(1, 9, size=20),
+                                          rng.integers(9, 17, size=20), [20, 24]]), 8
+    else:
+        mults, min_size = np.array([3, 12, 20]), 8
+    jds, tds = _datasets(mults, seed=21)
+    jtrainer, trainer = _bucket_trainers(dict(SMALL, bucket_widths=[16, 8, 64]))
+    ref, out = jtrainer._bucketize(jds, min_size=min_size), trainer._bucketize(tds, min_size)
+    _assert_same_buckets(out, ref)
+    assert sorted(np.concatenate([sel for _, _, sel in out])) == list(range(len(mults)))
+    expected = {"plain": [8, 16, 24], "merge_upward": [16, 24], "undersized_widest": [8, 24],
+                "all_small": [24]}[case]
+    assert [w for w, _, _ in out] == expected
+
+
+def test_bucketize_refuses_masks_that_are_not_first_n_filled():
+    x, k, mask = _jets([5, 9, 3], seed=22)
+    mask[0, 7] = 1     # a hole
+    ds = ArrayDataset(DataCoupling(source=MultiModal(mask=mask),
+                                   target=MultiModal(continuous=x, discrete=k, mask=mask)))
+    jds = JaxArrayDataset(JaxCoupling(source=JaxMultiModal(mask=mask),
+                                      target=JaxMultiModal(continuous=x, discrete=k, mask=mask)))
+    jtrainer, trainer = _bucket_trainers(dict(SMALL, bucket_widths=[8, 16]))
+    assert trainer._bucketize(ds) is None and jtrainer._bucketize(jds) is None
+
+
+def test_truncate_width_matches_jax():
+    x, k, mask = _jets([5, 3, 7], seed=23)
+    t = np.array([0.1, 0.5, 0.9], np.float32)
+    tc = DataCoupling(source=MultiModal(time=t, mask=mask),
+                      target=MultiModal(continuous=x, discrete=k, mask=mask))
+    jc = JaxCoupling(source=JaxMultiModal(time=t, mask=mask),
+                     target=JaxMultiModal(continuous=x, discrete=k, mask=mask))
+    out, ref = Trainer._truncate_width(tc, 8), JaxTrainer._truncate_width(jc, 8)
+    assert out.target.continuous.shape == (3, 8, 3) and out.source.time.shape == (3,)
+    for side in ("source", "target"):
+        for f in ("time", "continuous", "discrete", "mask"):
+            a, b = getattr(getattr(out, side), f), getattr(getattr(ref, side), f)
+            assert (a is None) == (b is None)
+            if a is not None:
+                np.testing.assert_array_equal(a, np.asarray(b))
+
+
+def test_bucketed_fit_trains_every_bucket_at_its_width(tmp_path, monkeypatch):
+    """A port-only bucketed fit: one unit a bucket, each forward at its
+    bucket's width (never the full 24), validation over the val buckets
+    with inner weights, the logged names those of the JAX trainer;
+    `evaluate` reproduces the logged validation loss; bucketed and packed
+    training together raise as in JAX."""
+    rng = np.random.default_rng(24)
+    mults = np.clip(rng.poisson(8, 96), 1, 24)
+    mults[:16] = rng.integers(13, 25, size=16)
+    _, ds = _datasets(mults, seed=25)
+    train_ds, val_ds = ds.split(0.75, seed=0)
+    cfg = Config(**dict(SMALL, batch_size=8, max_epochs=2, lr=3e-3, lr_final=1e-3,
+                        bucketed_training=True, bucket_widths=[8, 12], use_ema_weights=True,
+                        dir=str(tmp_path), experiment_id="buckets"))
+    system = systems.build_system(cfg, "MMF", device="cpu",
+                                  generator=torch.Generator().manual_seed(0))
+    widths = []
+    forward = system.module.encoder.forward
+
+    def spy(state, *a, **kw):
+        widths.append(int(state.mask.shape[1]))
+        return forward(state, *a, **kw)
+
+    monkeypatch.setattr(system.module.encoder, "forward", spy)
+    trainer = Trainer(system, cfg)
+    buckets = trainer._bucketize(train_ds, min_size=8)
+    assert [w for w, _, _ in buckets] == [8, 12, 24]
+    state = trainer.fit(train_ds, val_ds)
+    steps_per_epoch = sum(len(b) // 8 for _, b, _ in buckets)
+    assert state.step == 2 * steps_per_epoch
+    assert set(widths) == {8, 12, 24}
+    assert widths.count(24) < len(widths) // 3      # most steps skip the pad columns
+
+    exp = os.path.join(str(tmp_path), cfg.project, "buckets")
+    records = [json.loads(line) for line in open(os.path.join(exp, "metrics.jsonl"))]
+    assert len(records) == 2 and set(records[-1]) == JAX_EPOCH_KEYS | {"step", "time"}
+    assert all(np.isfinite(r["train_loss"]) and np.isfinite(r["val_loss"]) for r in records)
+    assert trainer.evaluate(val_ds, state.ema, epoch=1)["val_loss"] == pytest.approx(
+        records[-1]["val_loss"], rel=1e-6)
+
+    both = cfg.replace(packed_training=True)
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        Trainer(systems.build_system(both, "MMF", device="cpu"), both).fit(train_ds, val_ds)
+
+
+def test_bucket_smaller_than_a_batch_is_skipped_with_a_warning(tmp_path, capsys):
+    """Only possible when the whole dataset is smaller than a batch: the
+    one bucket is skipped with a warning and the epoch still validates."""
+    _, ds = _datasets([3, 5, 7, 9, 11, 4], seed=26)
+    cfg = Config(**dict(SMALL, batch_size=8, max_epochs=1, bucketed_training=True,
+                        bucket_widths=[8], dir=str(tmp_path)))
+    trainer = Trainer(systems.build_system(cfg, "MMF", device="cpu"), cfg)
+    state = trainer.fit(ds, ds)
+    assert state.step == 0
+    assert "jets < batch_size 8; skipped" in capsys.readouterr().out
