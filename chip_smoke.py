@@ -77,7 +77,22 @@
      shared noise: hybrid `euler` with `class_freqs`, `top_k=3` +
      `top_p=0.9`, a sigmoid thermostat, `euler_maruyama`,
      `tauleap-bernouilli`, `euler`, `jump_or_stay`.
-8. Prints one JSON line of the kernels, the card line, and the contract
+8. The entry points, each phase failing the run when it fails:
+   - the compute halves of `cli.train_mmf` and `cli.sample_mmf` at the
+     flagship's full width on in-memory synthetic jets (the machine has no
+     h5py or yaml): two packed epochs, then `load_for_inference`, the
+     empirical masks, `run_generation_sweep` over two sweep points and the
+     W1 metrics; K1 must have moved by 16 a forward in both halves, K2 not
+     at all, and `tb/events.out.tfevents.*` must exist and decode to the
+     logged records;
+   - `cli.toy_tutorial`'s compute at the tutorial's widths and points,
+     epochs cut (10 of 20): W1(x), W1(y) and the label frequencies, the
+     train step's wall time and launches, and the card's 200-step
+     trajectory against the CPU's on shared uniforms (no kernel: the toy
+     has no attention);
+   - jet substructure (host code) once on the sampled jets, with the
+     native library if the host compiler builds it, else the numpy version.
+9. Prints one JSON line of the kernels, the card line, and the contract
    line {"ok": true, "device": {...}} last.  Any failure exits non-zero.
 
 Against earlier versions of this script the two MMF sampling paths run 50
@@ -88,9 +103,11 @@ steps instead of 100 and the flagship's `Trainer.fit` 2 epochs instead of
 from __future__ import annotations
 
 import concurrent.futures
+import glob
 import json
 import os
 import shutil
+import struct
 import subprocess
 import tempfile
 import time
@@ -99,13 +116,16 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from multimodal_flows_tpu_torch.cli import sample_mmf, toy_tutorial, train_mmf
 from multimodal_flows_tpu_torch.config import Config
+from multimodal_flows_tpu_torch.data.aoj import extract_metadata
 from multimodal_flows_tpu_torch.data.datasets import ArrayDataset
 from multimodal_flows_tpu_torch.data.packing import build_packed_rows, pack_jets
 from multimodal_flows_tpu_torch.data.state import DataCoupling, MultiModal
 from multimodal_flows_tpu_torch.dynamics.bridges import RandomTelegraphBridge
 from multimodal_flows_tpu_torch.dynamics.solvers import REFERENCE_CLASS_FREQS
 from multimodal_flows_tpu_torch.dynamics.thermostats import SigmoidThermostat
+from multimodal_flows_tpu_torch.models import particle_transformers
 from multimodal_flows_tpu_torch.models.blocks import pair_mask_bias
 from multimodal_flows_tpu_torch.ops import attention
 from multimodal_flows_tpu_torch.ops import btc_attention as k1
@@ -116,6 +136,9 @@ from multimodal_flows_tpu_torch.sampling.generator import generate_packed
 from multimodal_flows_tpu_torch.train import physics_eval
 from multimodal_flows_tpu_torch.train.systems import build_system
 from multimodal_flows_tpu_torch.train.trainer import Trainer
+from multimodal_flows_tpu_torch.utils import jet_substructure
+from multimodal_flows_tpu_torch.utils.jet_features import JetFeatures
+from multimodal_flows_tpu_torch.utils.logger import _masked_crc
 
 # fp32 on both sides, TF32 off; the kernels sum over <= 256 keys in
 # another order than the plain version's matmuls
@@ -154,6 +177,13 @@ TRAIN_PHYSICS = dict(TRAIN, physics_eval_every_n_epochs=1,
 TRAIN_BUCKETED = dict(FLAGSHIP, batch_size=64, bucketed_training=True, bucket_widths=[48, 64, 128],
                       use_ema_weights=True, lr=5e-4, gradient_clip_val=1.0, max_epochs=1)
 SAMPLING_STEPS = 50
+# the entry points: the training CLI's defaults at the flagship's width
+# (packed rows of 128, 256 jets a step, train_frac 0.8), 2 epochs on 1,024
+# jets + 4 wide ones; then 512 jets at two sweep points
+CLI_TRAIN = dict(TRAIN, max_epochs=2, train_frac=0.8, tags=["system:MMF"])
+CLI_SWEEP_STEPS, CLI_SAMPLED_JETS = [20, 50], 512
+# the toy tutorial at its own widths and points, epochs cut from 20
+TOY_POINTS, TOY_EPOCHS, TOY_STEPS = 80_000, 10, 200
 # card vs CPU on one training batch: fp32 on both sides, TF32 off; the sums
 # run in another order and the card's per-jet sums (index_add_) use
 # atomics, whose order changes from run to run
@@ -1205,6 +1235,323 @@ def modes_vs_cpu(dev, steps=8, n_jets=256):
                                  "the CPU's")
 
 
+def _physical_jets(rng, mult, D=150):
+    """AOJ-like jets in physical units, pT-ordered, as the AOJ reader gives
+    them: pt = 1 + Exp(20) GeV, eta_rel and phi_rel ~ N(0, 0.15), tokens
+    1..8; (continuous, discrete, mask) with an int64 mask."""
+    mask = _pad_masks(mult, D)
+    n = len(mult)
+    pt = -np.sort(-(1.0 + rng.exponential(20.0, size=(n, D))) * mask[..., 0], axis=1)
+    x = np.stack([pt, rng.normal(0, 0.15, size=(n, D)), rng.normal(0, 0.15, size=(n, D))], -1)
+    k = rng.integers(1, 9, size=(n, D, 1))
+    return (x * mask).astype(np.float32), (k * mask).astype(np.int32), mask
+
+
+def _read_events(path):
+    """[(step, {tag: value})] of a TensorBoard event file: the TFRecord
+    framing with both masked CRC-32Cs of every record checked, then the
+    Event protos' step (field 2) and scalar Summary values (field 5: tag 1,
+    simple_value 2) decoded.  The first record (the file version) is
+    skipped."""
+    def varint(buf, i):
+        shift = val = 0
+        while True:
+            b = buf[i]
+            i += 1
+            val |= (b & 0x7F) << shift
+            if not b & 0x80:
+                return val, i
+            shift += 7
+
+    def fields(buf):
+        i = 0
+        while i < len(buf):
+            key, i = varint(buf, i)
+            wire = key & 7
+            if wire == 0:
+                val, i = varint(buf, i)
+            elif wire in (1, 5):
+                size = 8 if wire == 1 else 4
+                val, i = buf[i:i + size], i + size
+            elif wire == 2:
+                size, i = varint(buf, i)
+                val, i = buf[i:i + size], i + size
+            else:
+                raise AssertionError(f"{path}: unexpected wire type {wire}")
+            yield key >> 3, val
+
+    records = []
+    with open(path, "rb") as f:
+        while header := f.read(8):
+            (length,) = struct.unpack("<Q", header)
+            crcs = [struct.unpack("<I", f.read(4))[0]]
+            data = f.read(length)
+            crcs.append(struct.unpack("<I", f.read(4))[0])
+            if crcs != [_masked_crc(header), _masked_crc(data)]:
+                raise AssertionError(f"{path}: a record's CRC does not match")
+            records.append(data)
+    events = []
+    for data in records[1:]:
+        step, scalars = None, {}
+        for field, val in fields(data):
+            if field == 2:
+                step = val
+            elif field == 5:
+                for _, value in fields(val):
+                    parts = dict(fields(value))
+                    scalars[parts[1].decode()] = struct.unpack("<f", parts[2])[0]
+        events.append((step, scalars))
+    return events
+
+
+class _EncoderForwards:
+    """Counts the forwards of every ParticleFormer while it is active."""
+
+    def __enter__(self):
+        self.count = 0
+        self._forward = forward = particle_transformers.ParticleFormer.forward
+
+        def counted(module, *args, **kw):
+            self.count += 1
+            return forward(module, *args, **kw)
+
+        particle_transformers.ParticleFormer.forward = counted
+        return self
+
+    def __exit__(self, *exc):
+        particle_transformers.ParticleFormer.forward = self._forward
+
+
+def cli_entry_points(dev, out_dir):
+    """The compute halves of the training and the sampling entry point at
+    the flagship's full width, on in-memory synthetic jets: train two
+    packed epochs, then sample from the checkpoint it left.  Returns the
+    launch counts of both halves, the phase's numbers and the last sweep
+    point's sample (physical units)."""
+    blocks = 2 * CLI_TRAIN["n_layer"] + CLI_TRAIN["n_layer_fused"]      # 16 attention calls
+    rng = np.random.default_rng(11)
+    x, k, mask = _physical_jets(rng, _jets(rng, 1024, 4))
+    metadata = extract_metadata(x, mask)
+    mean, std = (np.asarray(metadata[m], np.float32) for m in ("mean", "std"))
+    jets = MultiModal(continuous=((x - mean) / std * mask).astype(np.float32), discrete=k,
+                      mask=mask)
+    cfg = Config(**CLI_TRAIN, dir=out_dir, metadata=metadata)
+    cfg.mint_experiment_id()
+    train_ds, val_ds = train_mmf.split_jets(jets, cfg)
+
+    t0 = time.perf_counter()
+    _reset_counts()
+    with _EncoderForwards() as forwards:
+        _, state = train_mmf.train(cfg, "MMF", train_ds, val_ds, device=dev)
+        torch.cuda.synchronize()
+    train_launches, train_forwards = _counts(), forwards.count
+    train_s = time.perf_counter() - t0
+
+    exp = cfg.experiment_dir
+    records = [json.loads(line) for line in open(os.path.join(exp, "metrics.jsonl"))]
+    event_files = glob.glob(os.path.join(exp, "tb", "events.out.tfevents.*"))
+    events = _read_events(event_files[0]) if len(event_files) == 1 else []
+    checks = {
+        f"{cfg.max_epochs} epochs logged, losses finite": len(records) == cfg.max_epochs and all(
+            np.isfinite(r["train_loss"]) and np.isfinite(r["val_loss"]) for r in records),
+        "last and best written": {"last.pt", "best.pt"} <= set(
+            os.listdir(os.path.join(exp, "checkpoints"))),
+        "metrics.csv written": os.path.getsize(os.path.join(exp, "metrics.csv")) > 0,
+        "one tb event file, an event an epoch at the logged steps":
+            [step for step, _ in events] == [r["step"] for r in records],
+        "tb val_loss is the logged one (fp32)": bool(events) and all(
+            abs(sc["val_loss"] - r["val_loss"]) <= 1e-6 * abs(r["val_loss"])
+            for (_, sc), r in zip(events, records)),
+        f"K1 {blocks} launches a forward, segment form on packed rows":
+            _total(train_launches["K1"]) == blocks * train_forwards
+            and train_launches["K1"]["segments"] > 0,
+        "K2 never": not _total(train_launches["K2"]),
+    }
+    print(f"entry point cli.train_mmf.train: {state.step} steps, {train_forwards} encoder "
+          f"forwards (train + validation) in {train_s:.2f} s; launches {train_launches}; tb "
+          f"events {[(step, round(sc['val_loss'], 5)) for step, sc in events]}; checks {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"training entry point failed {checks}")
+
+    # the sampling entry point's overrides, then its compute half; the test
+    # jets are a fresh draw of the same law in physical units
+    cfg.num_jets, cfg.temperature, cfg.num_timesteps = CLI_SAMPLED_JETS, [1.0], CLI_SWEEP_STEPS
+    tx, tk, tmask = _physical_jets(rng, _jets(rng, 1024, 32))
+    test = MultiModal(continuous=tx, discrete=tk, mask=tmask)
+    t0 = time.perf_counter()
+    _reset_counts()
+    with _EncoderForwards() as forwards:
+        results = sample_mmf.sample(cfg, "MMF", tmask, dev, checkpoint="best",
+                                    temperatures=cfg.temperature,
+                                    timestep_grid=cfg.num_timesteps, save=False)
+    sample_launches, sample_forwards = _counts(), forwards.count
+    sample_s = time.perf_counter() - t0
+    points = [sample_mmf.point_metrics(r.sample, test, cfg, {
+        "jets_per_sec": r.jets_per_sec, "num_timesteps": r.num_timesteps,
+        "temperature": r.temperature}, tag=r.tag) for r in results]
+    N, D = CLI_SAMPLED_JETS, cfg.max_num_particles
+    checks = {
+        "two sweep points, tagged": [r.tag for r in results] == [
+            f"_system:MMF_steps_{steps}_temp_1.0" for steps in CLI_SWEEP_STEPS],
+        "shapes": all(r.sample.continuous.shape == (N, D, 3)
+                      and r.sample.discrete.shape == (N, D, 1) for r in results),
+        "finite, tokens in [0, V), pads zero": all(
+            bool(torch.isfinite(r.sample.continuous).all()
+                 and ((r.sample.discrete >= 0) & (r.sample.discrete < cfg.vocab_size)).all()
+                 and (r.sample.continuous[r.sample.mask[..., 0] == 0] == 0).all())
+            for r in results),
+        "physical units (destandardized pt)": all(
+            float(r.sample.continuous[..., 0].abs().max()) > 3.0 for r in results),
+        "W1 metrics finite": all(
+            np.isfinite(list(p["w1_flavor"].values()) + list(p["w1_kinematics"].values())).all()
+            for p in points),
+        f"K1 {blocks} launches a forward, both forms":
+            _total(sample_launches["K1"]) == blocks * sample_forwards
+            and sample_launches["K1"]["segments"] > 0 and sample_launches["K1"]["key_mask"] > 0,
+        "K2 never": not _total(sample_launches["K2"]),
+    }
+    for p in points:
+        print(f"  steps {p['num_timesteps']}: {p['jets_per_sec']:.1f} jets/s, W1 multiplicity "
+              f"{p['w1_flavor']['multiplicity']:.3f}, W1 kinematics "
+              f"{ {n: round(v, 4) for n, v in p['w1_kinematics'].items()} }")
+    print(f"entry point cli.sample_mmf.sample: {N} jets x steps {CLI_SWEEP_STEPS}, "
+          f"{sample_forwards} encoder forwards in {sample_s:.2f} s; launches {sample_launches}; "
+          f"checks {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"sampling entry point failed {checks}")
+    numbers = dict(train_s=train_s, train_steps=state.step, train_forwards=train_forwards,
+                   sample_s=sample_s, sample_forwards=sample_forwards,
+                   jets_per_s=[p["jets_per_sec"] for p in points])
+    return train_launches, sample_launches, numbers, results[-1].sample
+
+
+def toy_phase(dev, out_dir):
+    """`cli.toy_tutorial.run` on the card at the tutorial's widths: the
+    closure numbers; the train step's wall time and launches; then the
+    trained model's 200-step trajectory on the card against the CPU's, from
+    one source and one set of uniforms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = toy_tutorial.toy_config(TOY_EPOCHS, out_dir)
+    t0 = time.perf_counter()
+    _reset_counts()
+    out = toy_tutorial.run(cfg, num_points=TOY_POINTS, num_timesteps=TOY_STEPS, device=dev)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = _counts()
+    freq = out["label_freq"]
+    print(f"toy tutorial on the card: {TOY_POINTS} points, {TOY_EPOCHS} epochs "
+          f"({out['state'].step} steps), {TOY_STEPS}-step trajectories of 2000 points in "
+          f"{run_s:.2f} s: W1(x) {out['w1_x']:.4f}, W1(y) {out['w1_y']:.4f} (< 0.3), label "
+          f"frequencies {np.round(freq, 3).tolist()}")
+    traj = out["trajectory"]
+    if not (out["w1_x"] < 0.3 and out["w1_y"] < 0.3 and freq[1] + freq[2] > 0.8
+            and traj.continuous.shape == (TOY_STEPS, 2000, 1, 2)
+            and traj.time.shape == (TOY_STEPS, 2000) and torch.isfinite(traj.continuous).all()):
+        raise AssertionError("toy tutorial: the flow did not close, or the trajectory is "
+                             "malformed")
+    if _total(launches["K1"]) + _total(launches["K2"]):
+        raise AssertionError("toy tutorial launched an attention kernel")
+
+    # the train step: wall (each step synchronized) and launches
+    system = out["system"]
+    trainer = Trainer(system, cfg)
+    state = trainer.init_state(100)
+    coupling = toy_tutorial.toy_coupling(cfg.batch_size * 8)
+    batches = [coupling[np.arange(i * cfg.batch_size, (i + 1) * cfg.batch_size)].to(dev)
+               for i in range(8)]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    system.module.train()
+    weights = {n: p.detach().clone() for n, p in system.module.named_parameters()}
+    for b in batches[:3]:
+        trainer._train_step(state, b, gen)
+    torch.cuda.synchronize()
+    walls = []
+    for i in range(40):
+        t0 = time.perf_counter()
+        trainer._train_step(state, batches[i % 8], gen)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(5):
+            trainer._train_step(state, batches[i], gen)
+        torch.cuda.synchronize()
+    averages = prof.key_averages()
+    step_launches = sum(e.count for e in averages if e.key == "cudaLaunchKernel") / 5
+    annotations = {e.key for e in averages if e.device_type.name == "CPU"}
+    device_ms = sum(e.self_device_time_total for e in averages
+                    if e.device_type.name == "CUDA" and e.key not in annotations) / 5 / 1e3
+    with torch.no_grad():  # the timing steps trained on: put the run's weights back
+        for n, p in system.module.named_parameters():
+            p.copy_(weights[n])
+    system.module.eval()
+    step_ms = float(np.median(walls)) * 1e3
+    print(f"toy train step (batch {cfg.batch_size}): median wall {step_ms:.3f} ms over 40 "
+          f"synchronized steps, device {device_ms:.3f} ms and {step_launches:.0f} "
+          f"cudaLaunchKernel a step (torch.profiler, 5 steps)")
+
+    # card vs CPU: the same trained weights, source and uniforms
+    n = 512
+    cpu = build_system(cfg, "MMF", device="cpu")
+    cpu.module.load_state_dict({k: v.cpu() for k, v in system.module.state_dict().items()})
+    us = torch.from_numpy(np.random.default_rng(12).uniform(size=(TOY_STEPS, n, 1))
+                          .astype(np.float32))
+    trajs = []
+    for sys_, d in ((system, dev), (cpu, "cpu")):
+        src = toy_tutorial.generation_source(cfg, n, d)
+        trajs.append(sys_.simulate(src, TOY_STEPS, uniforms=us.to(d),
+                                   return_trajectory=True)[1].to("cpu"))
+    same = trajs[0].discrete == trajs[1].discrete
+    agree = same.all(dim=0)[:, 0, 0]      # points whose labels agree along the whole path
+    err = float((trajs[0].continuous - trajs[1].continuous)[:, agree].abs().max())
+    time_err = float((trajs[0].time - trajs[1].time).abs().max())
+    print(f"toy trajectory card vs CPU, {TOY_STEPS} steps x {n} points, every entry: tokens "
+          f"equal on {float(same.float().mean()):.4f} of sites (>= 0.99), {int(agree.sum())} "
+          f"points agree along the whole path (>= 0.99 of {n}); their positions max_abs_err "
+          f"{err:.3e} (atol 1e-4); times max_abs_err {time_err:.1e}")
+    if not (float(same.float().mean()) >= 0.99 and float(agree.float().mean()) >= 0.99
+            and err <= 1e-4 and time_err <= 1e-6):
+        raise AssertionError("toy trajectory: the card disagrees with the CPU")
+    return dict(run_s=run_s, steps=out["state"].step, w1_x=out["w1_x"], w1_y=out["w1_y"],
+                label_freq=np.round(freq, 4).tolist(), step_wall_ms=step_ms,
+                step_device_ms=device_ms, step_launches=step_launches)
+
+
+def substructure_phase(sample: MultiModal):
+    """Jet substructure of the sampled jets, once: host code, with the
+    native library when the host compiler builds it, else the numpy version
+    (on a few small jets: its loops are cubic in the multiplicity)."""
+    lib = jet_substructure.load_library()
+    version = "native library" if lib is not None else "numpy version"
+    mult = sample.mask[..., 0].sum(dim=1)
+    small = torch.nonzero((mult >= 3) & (mult <= 24))[:4, 0]
+    chosen = sample if lib is not None else sample[small]
+    t0 = time.perf_counter()
+    feats = JetFeatures(chosen, compute_substructure=True)
+    seconds = time.perf_counter() - t0
+    names = ("tau1", "tau2", "tau3", "tau21", "tau32", "c1", "d2")
+    finite = {n: float(np.isfinite(getattr(feats, n)).mean()) for n in names}
+    print(f"substructure ({version}): {int(feats.substructure_mask.sum())} of {len(chosen)} "
+          f"sampled jets with >= 3 particles in {seconds:.3f} s; median tau21 "
+          f"{np.nanmedian(feats.tau21):.4f}, tau32 {np.nanmedian(feats.tau32):.4f}, c1 "
+          f"{np.nanmedian(feats.c1):.4f}; finite share {finite}")
+    ok = (feats.substructure_mask.sum() > 0 and min(finite[n] for n in names[:3]) == 1.0
+          and (feats.tau1 >= 0).all() and np.nanmax(feats.tau21) <= 1.0 + 1e-5)
+    if lib is not None and len(small):
+        # the library against the numpy version on a few small jets
+        c = JetFeatures(sample[small], compute_substructure=False).constituents
+        a = jet_substructure.substructure(c.pt, c.eta_rel, c.phi_rel)
+        b = jet_substructure.substructure(c.pt, c.eta_rel, c.phi_rel, force_numpy=True)
+        err = max(float(np.nanmax(np.abs(a[n] - b[n]) / (1e-5 + 1e-4 * np.abs(b[n]))))
+                  for n in a)
+        print(f"substructure library vs numpy on {len(small)} small jets: worst |diff| / "
+              f"(atol 1e-5 + rtol 1e-4 |ref|) = {err:.3f} (<= 1)")
+        ok = ok and err <= 1.0
+    if not ok:
+        raise AssertionError("substructure of the sampled jets is malformed")
+    return version
+
+
 def _system(kind, cfg_kw, dev):
     system = build_system(Config(**cfg_kw), kind, device=dev,
                           generator=torch.Generator().manual_seed(0))
@@ -1339,6 +1686,14 @@ def main() -> None:
 
     modes_vs_cpu(dev)
 
+    with tempfile.TemporaryDirectory(dir=build_dir) as out_dir:
+        cli_train_launches, cli_sample_launches, cli_numbers, cli_sample = cli_entry_points(
+            dev, out_dir)
+        toy = toy_phase(dev, out_dir)
+    substructure = substructure_phase(cli_sample)
+    print(json.dumps({"entry_points": {"card": card, "cli": cli_numbers, "toy": toy,
+                                       "substructure": substructure}}))
+
     print(json.dumps({"training": {"card": card, "shape": "packed rows of 128, 256 jets/step",
                                    "steps": steps_timed,
                                    "dropout_forward_attention_ms": dropout_attention,
@@ -1364,6 +1719,8 @@ def main() -> None:
          "plain_calls_dropout_training": _total(dropout_launches["plain_dropout"]),
          "launches_bucketed_training": _total(bucketed_launches["K1"]),
          "launches_epic": _total(epic_launches["K1"]) + _total(epic_train_launches["K1"]),
+         "launches_cli_training": _total(cli_train_launches["K1"]),
+         "launches_cli_sampling": _total(cli_sample_launches["K1"]),
          "max_abs_err": err["K1"], **timed("K1")},
         {"name": "set_attention (K2, timed at B=128 T=128 H=4 bias + segments, "
                  "C=128 and C=256)",
@@ -1374,6 +1731,7 @@ def main() -> None:
          "launches_training": _total(coocc_train_launches["K2"]),
          "launches_dropout_training": _total(dropout_launches["K2"]),
          "launches_epic": _total(epic_launches["K2"]) + _total(epic_train_launches["K2"]),
+         "launches_cli": _total(cli_train_launches["K2"]) + _total(cli_sample_launches["K2"]),
          "max_abs_err": err["K2"], **timed("K2")},
     ]}))
     print(card)

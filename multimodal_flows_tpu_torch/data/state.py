@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Callable, Optional, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -42,6 +42,20 @@ class MultiModal:
         return 0
 
     @property
+    def ndim(self) -> int:
+        """Dimensions of the last available mode (mask excluded), 0 when
+        there is none."""
+        modes = self.available_modes()
+        return getattr(self, modes[-1]).ndim if modes else 0
+
+    @property
+    def shape(self):
+        """Shape of the last available mode (mask excluded) without its
+        feature axis: (B, D) of a particle cloud; None when there is none."""
+        modes = self.available_modes()
+        return tuple(getattr(self, modes[-1]).shape[:-1]) if modes else None
+
+    @property
     def num_particles(self) -> Optional[int]:
         """Max number of particles D (None for per-point states)."""
         for m in ("continuous", "discrete", "mask"):
@@ -49,6 +63,20 @@ class MultiModal:
             if v is not None and v.ndim >= 2:
                 return int(v.shape[1])
         return None
+
+    def available_modes(self, include_mask: bool = False) -> List[str]:
+        modes = [m for m in ("time", "continuous", "discrete") if getattr(self, m) is not None]
+        if include_mask and self.mask is not None:
+            modes.append("mask")
+        return modes
+
+    @property
+    def has_continuous(self) -> bool:
+        return self.continuous is not None
+
+    @property
+    def has_discrete(self) -> bool:
+        return self.discrete is not None
 
     def map(self, fn: Callable[[Tensor], Tensor]) -> "MultiModal":
         """Apply `fn` to every non-None field."""
@@ -106,13 +134,24 @@ class MultiModal:
         os.replace(tmp, path)
 
     @classmethod
-    def load_from(cls, path: str) -> "MultiModal":
-        """Load the fields of an HDF5 file as CPU tensors."""
+    def load_from(cls, path: str, transform=None) -> "MultiModal":
+        """Load the fields of an HDF5 file as CPU tensors.
+
+        `transform` is applied to the numpy arrays before they become
+        tensors: a callable goes over every field, a dict of per-field
+        callables over the fields it names."""
         import h5py
 
         with h5py.File(path, "r") as f:
-            return cls(**{m: torch.from_numpy(np.asarray(f[m])) if m in f else None
-                          for m in _MODES})
+            arrays = {m: np.asarray(f[m]) if m in f else None for m in _MODES}
+        if callable(transform):
+            arrays = {m: None if a is None else transform(a) for m, a in arrays.items()}
+        elif isinstance(transform, dict):
+            for m, fn in transform.items():
+                if arrays.get(m) is not None and callable(fn):
+                    arrays[m] = fn(arrays[m])
+        return cls(**{m: None if a is None else torch.as_tensor(np.asarray(a))
+                      for m, a in arrays.items()})
 
 
 @dataclasses.dataclass
@@ -127,6 +166,22 @@ class DataCoupling:
     def __len__(self) -> int:
         n = len(self.target)
         return n if n else len(self.source)
+
+    @property
+    def shape(self):
+        return self.target.shape
+
+    @property
+    def has_source(self) -> bool:
+        return bool(self.source.available_modes(include_mask=True))
+
+    @property
+    def has_target(self) -> bool:
+        return bool(self.target.available_modes(include_mask=True))
+
+    @property
+    def has_context(self) -> bool:
+        return bool(self.context.available_modes(include_mask=True))
 
     def map(self, fn: Callable) -> "DataCoupling":
         """Apply `fn` to every field of every member."""

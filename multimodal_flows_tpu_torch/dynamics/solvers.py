@@ -301,7 +301,8 @@ def time_grid(time_eps: float, num_timesteps: int, device=None):
 def simulate(solver, source: MultiModal, num_timesteps: int,
              time_eps: float, *, generator: Optional[torch.Generator] = None,
              uniforms: Optional[Tensor] = None,
-             use_final_max_rates: bool = False) -> MultiModal:
+             return_trajectory: bool = False,
+             use_final_max_rates: bool = False):
     """Roll a solver (hybrid, continuous or discrete) over the time grid.
 
     For the tau-leap solvers (one uniform per site) the whole trajectory's
@@ -311,6 +312,12 @@ def simulate(solver, source: MultiModal, num_timesteps: int,
     kind with given noise (the normals, for euler_maruyama): tests inject
     the same noise into two samplers.  `use_final_max_rates` replaces the
     final tokens by the argmax of the last step's rates.
+
+    Returns the final state, or with `return_trajectory` the pair (final,
+    trajectory): the trajectory is a `MultiModal` stacked on a leading
+    steps axis, entry i the state after step i with the `time` of that
+    step (the `use_final_max_rates` override is applied to the final state
+    only).
     """
     B, D = len(source), source.num_particles
     device = source.mask.device
@@ -318,14 +325,18 @@ def simulate(solver, source: MultiModal, num_timesteps: int,
     if solver.uses_single_uniform and uniforms is None:
         uniforms = torch.rand((num_timesteps, B, D), generator=generator,
                               dtype=torch.float32, device=device)
-    state, rates = source, None
+    state, rates, trajectory = source, None, []
     for i in range(num_timesteps):
         state = state.replace(time=ts[i].expand(B))
         noise = uniforms[i] if uniforms is not None else solver.step_noise(generator, state)
         out = solver.fwd_step_u(noise, state, dt)
         state, rates = out if isinstance(out, tuple) else (out, None)
+        if return_trajectory:
+            trajectory.append(state)
     if use_final_max_rates:
         if rates is None:
             raise ValueError("use_final_max_rates needs a solver with token rates")
         state = state.replace(discrete=rates.argmax(dim=2).to(torch.int32)[..., None])
+    if return_trajectory:
+        return state, MultiModal.stack(trajectory)
     return state

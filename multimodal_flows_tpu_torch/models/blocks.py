@@ -2,8 +2,8 @@
 
 MLP (fc -> exact GELU -> proj -> dropout), LayerNorm with optional bias
 and fp32 statistics, `Dropout` with an explicit generator, the sinusoidal
-timestep embedding, the compact additive key mask and the additive pair
-mask.  `init_weights` reproduces the JAX
+timestep embedding, the toy model's log-spaced Fourier time features, the
+compact additive key mask and the additive pair mask.  `init_weights` reproduces the JAX
 initialisation: Linear and Embedding weights N(0, 0.02), biases zero,
 LayerNorm scale 1 and bias 0.
 """
@@ -111,6 +111,26 @@ def time_token_embedding(time: Tensor, embedding_dim: int) -> Tensor:
     """Per-jet (B,) time -> (B, 1, E); per-token (B, T) time -> (B, T, E)."""
     emb = timestep_embedding(time, embedding_dim)
     return emb[:, None, :] if time.ndim == 1 else emb
+
+
+class TimeFourierEmbedding(nn.Module):
+    """Log-spaced Fourier features of scalar t: (B,) or (B, 1) -> (B, dim),
+    [sin(t f_i), cos(t f_i)] with f_i = max_freq^(-i / (dim/2 - 1)).  No
+    parameters (the toy tutorial's model uses it)."""
+
+    def __init__(self, dim: int, max_freq: float = 10.0):
+        super().__init__()
+        self.dim = int(dim)
+        self.max_freq = float(max_freq)
+
+    def forward(self, t: Tensor) -> Tensor:
+        half = self.dim // 2
+        inv_freq = 1.0 / (self.max_freq ** (torch.arange(half, dtype=torch.float32,
+                                                         device=t.device) / (half - 1)))
+        if t.ndim == 1:
+            t = t[:, None]
+        x = t.to(torch.float32) * inv_freq[None, :]
+        return torch.cat([torch.sin(x), torch.cos(x)], dim=-1)
 
 
 def key_mask_bias(mask: Tensor, neg: float = -1e9) -> Tensor:

@@ -1,5 +1,4 @@
-"""Network registry (PyTorch port of `multimodal_flows_tpu/models/registry.py`).
-ToyMLP is not ported yet (ROADMAP.md Queue 1 item 21)."""
+"""Network registry (PyTorch port of `multimodal_flows_tpu/models/registry.py`)."""
 
 from __future__ import annotations
 
@@ -11,6 +10,7 @@ from multimodal_flows_tpu_torch.models.particle_transformers import (
     KinFormer,
     ParticleFormer,
 )
+from multimodal_flows_tpu_torch.models.toy import ToyMLP
 
 MODEL_REGISTRY = {
     "ParticleFormer": ParticleFormer,
@@ -18,9 +18,8 @@ MODEL_REGISTRY = {
     "FlavorFormer": FlavorFormer,
     "KinFormer": KinFormer,
     "EPiC": EPiC,
+    "ToyMLP": ToyMLP,
 }
-
-_NOT_PORTED = {"ToyMLP": 21}
 
 
 def build_model(config: Config):
@@ -28,10 +27,6 @@ def build_model(config: Config):
     try:
         cls = MODEL_REGISTRY[config.model]
     except KeyError:
-        if config.model in _NOT_PORTED:
-            raise KeyError(f"model {config.model!r} is not ported yet (ROADMAP.md Queue 1 "
-                           f"item {_NOT_PORTED[config.model]}); available: "
-                           f"{sorted(MODEL_REGISTRY)}") from None
         raise KeyError(f"unknown model {config.model!r}; available: "
                        f"{sorted(MODEL_REGISTRY)}") from None
     return cls(config)

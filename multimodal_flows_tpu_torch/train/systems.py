@@ -228,12 +228,16 @@ class MMF:
 
     def simulate(self, source: MultiModal, num_timesteps: int, temperature: float = 1.0,
                  top_k=None, top_p=None, use_final_max_rates: bool = False,
+                 return_trajectory: bool = False,
                  segments: Optional[Tensor] = None, num_segments: Optional[int] = None,
                  generator: Optional[torch.Generator] = None,
-                 uniforms: Optional[Tensor] = None) -> MultiModal:
+                 uniforms: Optional[Tensor] = None):
+        """The final state, or (final, trajectory) with `return_trajectory`
+        (`dynamics.solvers.simulate`)."""
         solver = self.make_solver(temperature, top_k, top_p, segments, num_segments)
         return simulate(solver, source, num_timesteps, self.config.time_eps,
                         generator=generator, uniforms=uniforms,
+                        return_trajectory=return_trajectory,
                         use_final_max_rates=use_final_max_rates)
 
 
@@ -275,19 +279,24 @@ class CFM:
         return loss, {"loss": loss, "loss_mse": loss}
 
     def simulate(self, source: MultiModal, num_timesteps: int, method: str = "euler",
+                 return_trajectory: bool = False,
                  segments: Optional[Tensor] = None, num_segments: Optional[int] = None,
                  generator: Optional[torch.Generator] = None,
-                 normals: Optional[Tensor] = None, **_ignored) -> MultiModal:
+                 normals: Optional[Tensor] = None, temperature: float = 1.0,
+                 top_k=None, top_p=None, use_final_max_rates: bool = False):
         """Euler or Euler-Maruyama integration (the latter draws its
         normals from `generator`, or takes `normals` (steps, B, D, Fc)).
-        The hybrid-only keyword arguments (temperature, top_k, ...) are
-        accepted and ignored, so `generate_packed` runs any system."""
+        The token arguments that `generate_packed` passes (`temperature`,
+        `top_k`, `top_p`, `use_final_max_rates`) are named so that it runs
+        any system; they have no effect without tokens.  Any other keyword
+        raises."""
         solver = ContinuousSolver(
             lambda s: self.module(s, segments, num_segments),
             diffusion_fn=lambda s: self.bridge_continuous.diffusion(s.continuous),
             method=method)
         return simulate(solver, source, num_timesteps, self.config.time_eps,
-                        generator=generator, uniforms=normals)
+                        generator=generator, uniforms=normals,
+                        return_trajectory=return_trajectory)
 
 
 class MJB:
@@ -328,20 +337,21 @@ class MJB:
         return loss, {"loss": loss, "loss_ce": loss}
 
     def simulate(self, source: MultiModal, num_timesteps: int, temperature: float = 1.0,
-                 top_k=None, top_p=None, segments: Optional[Tensor] = None,
-                 num_segments: Optional[int] = None,
+                 top_k=None, top_p=None, return_trajectory: bool = False,
+                 segments: Optional[Tensor] = None, num_segments: Optional[int] = None,
                  generator: Optional[torch.Generator] = None,
-                 uniforms: Optional[Tensor] = None, **_ignored) -> MultiModal:
-        """The token steps of `Config.markov_jump_solver`;
-        `use_final_max_rates` is accepted and ignored, as in the JAX
-        package."""
+                 uniforms: Optional[Tensor] = None, use_final_max_rates: bool = False):
+        """The token steps of `Config.markov_jump_solver`.  The
+        `use_final_max_rates` that `generate_packed` passes is named and
+        has no effect, as in the JAX package; any other keyword raises."""
         solver = DiscreteSolver(lambda s: self.module(s, segments, num_segments),
                                 self.bridge_discrete,
                                 self.config.vocab_size, temperature=temperature,
                                 top_k=top_k, top_p=top_p,
                                 method=self.config.markov_jump_solver)
         return simulate(solver, source, num_timesteps, self.config.time_eps,
-                        generator=generator, uniforms=uniforms)
+                        generator=generator, uniforms=uniforms,
+                        return_trajectory=return_trajectory)
 
 
 SYSTEM_REGISTRY = {"MMF": MMF, "CFM": CFM, "MJB": MJB}

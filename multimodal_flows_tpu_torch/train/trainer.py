@@ -366,7 +366,11 @@ class Trainer:
         exp_dir = self._experiment_dir()
         ckpt = CheckpointManager(os.path.join(exp_dir, "checkpoints"), top_k=cfg.save_top_k,
                                  physics_margin=cfg.physics_eval_margin)
-        logger = MetricsLogger(exp_dir)
+        logger = MetricsLogger(
+            exp_dir,
+            wandb_project=cfg.project if cfg.use_wandb else None,
+            wandb_name=cfg.experiment_id,
+            wandb_config=cfg.to_dict() if cfg.use_wandb else None)
 
         start_epoch = 0
         if resume and ckpt.has(resume):

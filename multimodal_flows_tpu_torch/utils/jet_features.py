@@ -1,22 +1,23 @@
 """Particle-cloud and jet-level physics observables (PyTorch port's copy of
 `multimodal_flows_tpu/utils/jet_features.py`), host-side numpy:
-`ParticleClouds` (derived per-particle views, flavor selections, charges)
-and `JetFeatures` (jet 4-momentum, mass, jet charge).  Both take a
-`MultiModal` of tensors (on any device) or of numpy arrays.
-
-The substructure observables (tau1/2/3, c1, d2) need the native jetkit
-library (`utils/jet_substructure.py` + `native/jetkit.cpp`), which is not
-ported yet: `JetFeatures(..., compute_substructure=True)` raises, and so
-do `EnergyCorrelationFunctions` and `JetChargeDipole`, which wait with it
-(ROADMAP.md Queue 1 item 16).
+`ParticleClouds` (derived per-particle views, flavor selections, charges),
+`JetFeatures` (jet 4-momentum, mass, jet charge, and the substructure
+observables tau1/2/3, tau21, tau32, c1, d2, d0 from the native jetkit
+library or its numpy version, `utils/jet_substructure.py`),
+`EnergyCorrelationFunctions` and `JetChargeDipole` (flavor-masked
+correlators).  All take a `MultiModal` of tensors (on any device) or of
+numpy arrays, and never touch the device path.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
 
 from multimodal_flows_tpu_torch.data.state import MultiModal
+from multimodal_flows_tpu_torch.utils import jet_substructure as jk
 from multimodal_flows_tpu_torch.utils.metrics import wasserstein1d
 
 FLAVOR_SELECTIONS = {
@@ -94,8 +95,10 @@ class ParticleClouds:
 
 
 class JetFeatures:
-    """Jet-level observables: 4-momentum, pt, mass, eta, phi and the jet
-    charge.  Substructure is not ported yet (the module docstring)."""
+    """Jet-level observables: 4-momentum, pt, mass, eta, phi, the jet
+    charge, and with `compute_substructure` tau1/2/3, tau21, tau32, c1, d2
+    and d0 of the jets with >= 3 particles (`substructure_mask` marks
+    them; the others are dropped from the substructure arrays)."""
 
     def __init__(self, data: MultiModal, R: float = 0.8, beta: float = 1.0,
                  compute_substructure: bool = True):
@@ -122,9 +125,12 @@ class JetFeatures:
             self.jet_charge = self._jet_charge(kappa=1.0)
 
     def _substructure(self, R: float, beta: float) -> None:
-        raise NotImplementedError(
-            "jet substructure (utils/jet_substructure.py and the native jetkit library) is "
-            "not ported yet (ROADMAP.md Queue 1 item 16); pass compute_substructure=False")
+        c = self.constituents
+        sub = jk.substructure(c.pt, c.eta_rel, c.phi_rel, R=R, beta=beta)
+        keep = self.numParticles >= 3
+        for key, vals in sub.items():
+            setattr(self, key, vals[keep])
+        self.substructure_mask = keep
 
     def _jet_charge(self, kappa: float) -> np.ndarray:
         """Q_kappa = sum_i Q_i (pT_i / pT_jet)^kappa."""
@@ -151,3 +157,71 @@ class JetFeatures:
         return wasserstein1d(x, y)
 
     wasserstein1d = Wassertein1D
+
+
+# flavor key -> token selection, on the canonical token map 1 = photon ..
+# 8 = antimuon
+ECF_FLAVOR_GROUPS = {
+    "photon": lambda d: d == 1,
+    "h0": lambda d: d == 2,
+    "h-": lambda d: d == 3,
+    "h+": lambda d: d == 4,
+    "e-": lambda d: d == 5,
+    "e+": lambda d: d == 6,
+    "mu-": lambda d: d == 7,
+    "mu+": lambda d: d == 8,
+    "hadron": lambda d: (d >= 2) & (d <= 4),
+    "lepton": lambda d: d > 4,
+    "negative": lambda d: (d == 3) | (d == 5) | (d == 7),
+    "positive": lambda d: (d == 4) | (d == 6) | (d == 8),
+    "charged": lambda d: d > 2,
+    "neutral": lambda d: (d == 1) | (d == 2),
+    "h+/-": lambda d: (d == 3) | (d == 4),
+    "e+/-": lambda d: (d == 5) | (d == 6),
+    "mu+/-": lambda d: (d == 7) | (d == 8),
+}
+
+
+class EnergyCorrelationFunctions:
+    """Flavor-masked auto / cross 2-point energy correlators of the jets
+    with >= 3 particles (jetkit's `ecf2`)."""
+
+    def __init__(self, data: MultiModal):
+        self.data = astype_numpy(data)
+        disc = self.data.discrete
+        self.discrete = disc[..., 0] if disc.ndim == 3 else disc
+        self.mask_bool = self.data.mask[..., 0] > 0
+        self.mask_3_parts = self.mask_bool.sum(axis=1) >= 3
+
+    def _flavor_kin(self, key: str):
+        sel = ECF_FLAVOR_GROUPS[key](self.discrete) & self.mask_bool
+        x = self.data.continuous
+        pt = np.where(sel, x[..., 0], 0.0)
+        return pt, x[..., 1], x[..., 2]
+
+    def compute_ecf(self, flavor_i: str, flavor_j: Optional[str] = None,
+                    beta: float = 1.0):
+        pt1, eta1, phi1 = self._flavor_kin(flavor_i)
+        if flavor_j is None:
+            ecf, pt2 = jk.ecf2(pt1, eta1, phi1, beta=beta)
+        else:
+            ptb, etab, phib = self._flavor_kin(flavor_j)
+            ecf, pt2 = jk.ecf2(pt1, eta1, phi1, ptb, etab, phib, beta=beta)
+        return ecf[self.mask_3_parts], pt2[self.mask_3_parts]
+
+
+class JetChargeDipole:
+    """pT-weighted jet charge Q_kappa and electric dipole d2 of the jets
+    with >= 2 particles (jetkit's `charge_dipole`)."""
+
+    def __init__(self, data: JetFeatures):
+        c = data.constituents
+        self.pt, self.eta, self.phi = c.pt, c.eta_rel, c.phi_rel
+        self.charge = c.charge
+        self.mask_2_parts = c.mask_bool.sum(axis=1) >= 2
+
+    def charge_and_dipole(self, kappa: float = 1.0, beta: float = 1.0):
+        q0, qk, d2 = jk.charge_dipole(self.pt, self.eta, self.phi, self.charge,
+                                      kappa=kappa, beta=beta)
+        keep = self.mask_2_parts
+        return q0[keep], qk[keep], d2[keep]

@@ -74,16 +74,21 @@ def test_config_yaml_round_trips_between_packages(tmp_path):
 
 
 def test_unported_model_raises_with_roadmap_pointer():
-    """FusedParticleFormer and EPiC build; ToyMLP and bf16 compute still
-    raise with their ROADMAP pointers, an unknown name without one."""
+    """Every model of the JAX registry builds, ToyMLP included; bf16
+    compute still raises with its ROADMAP pointer, an unknown name without
+    one."""
     small = dict(n_embd=16, n_inner=32, n_layer=1, n_head=2, max_num_particles=6)
     assert type(build_model(Config(model="FusedParticleFormer", **small))).__name__ == \
         "FusedParticleFormer"
     assert type(build_model(Config(model="EPiC", **small))).__name__ == "EPiC"
-    with pytest.raises(KeyError, match="ROADMAP.md Queue 1 item 21"):
-        build_model(Config(model="ToyMLP"))
-    with pytest.raises(KeyError, match="unknown model"):
+    from multimodal_flows_tpu.models.registry import MODEL_REGISTRY as JAX_MODELS
+    from multimodal_flows_tpu_torch.models.registry import MODEL_REGISTRY
+
+    assert set(MODEL_REGISTRY) == set(JAX_MODELS)
+    assert type(build_model(Config(model="ToyMLP", **small))).__name__ == "ToyMLP"
+    with pytest.raises(KeyError, match="unknown model 'NoSuchFormer'") as raised:
         build_model(Config(model="NoSuchFormer"))
+    assert "ROADMAP" not in str(raised.value)
     for model in ("ParticleFormer", "FusedParticleFormer"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_model(Config(model=model, compute_dtype="bfloat16"))

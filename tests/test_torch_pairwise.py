@@ -43,6 +43,7 @@ from multimodal_flows_tpu_torch.ops import btc_attention as k1
 from multimodal_flows_tpu_torch.ops import set_attention as k2
 from multimodal_flows_tpu_torch.sampling.generator import generate_packed
 from multimodal_flows_tpu_torch.train import systems
+from multimodal_flows_tpu_torch.train.trainer import Trainer
 from multimodal_flows_tpu_torch.utils.jet_features import JetFeatures
 
 torch.set_num_threads(2)
@@ -381,8 +382,9 @@ def test_generate_packed_runs_each_system_on_cpu(kind, cfg_kw):
 
 def test_unported_modes_raise_with_roadmap_pointer():
     """The solver modes are all ported: each builds, and an unknown method
-    raises ValueError as in JAX.  What still raises names its ROADMAP item:
-    the GPT baseline, the toy model, jet substructure."""
+    raises ValueError as in JAX.  The toy model builds and jet substructure
+    computes.  What still raises names its ROADMAP item: the GPT baseline,
+    meshes, bf16 compute."""
     solvers.ContinuousSolver(None, method="euler_maruyama")
     for method in ("tauleap-bernouilli", "euler", "jump_or_stay"):
         solvers.DiscreteSolver(None, None, 9, method=method, top_p=0.9)
@@ -392,8 +394,13 @@ def test_unported_modes_raise_with_roadmap_pointer():
         solvers.DiscreteSolver(None, None, 9, method="tauleap-bernoulli")
     with pytest.raises(KeyError, match="ROADMAP.md Queue 1 item 20"):
         systems.build_system(Config(), "GPT")
-    with pytest.raises(KeyError, match="ROADMAP.md Queue 1 item 21"):
-        build_model(Config(model="ToyMLP"))
-    jets = MultiModal(continuous=torch.zeros(2, 4, 3), mask=torch.ones(2, 4, 1))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 16"):
-        JetFeatures(jets, compute_substructure=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 22"):
+        Trainer(None, Config(mesh_shape={"data": 2}))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 2"):
+        build_model(Config(model="KinFormer", compute_dtype="bfloat16"))
+    assert type(build_model(Config(model="ToyMLP", dim_continuous=2))).__name__ == "ToyMLP"
+    rng = np.random.default_rng(0)
+    jets = MultiModal(continuous=torch.from_numpy(rng.uniform(0.1, 1, (2, 4, 3))).float(),
+                      mask=torch.ones(2, 4, 1))
+    feats = JetFeatures(jets, compute_substructure=True)
+    assert feats.tau21.shape == (2,) and np.isfinite(feats.tau21).all()
