@@ -92,7 +92,24 @@
      has no attention);
    - jet substructure (host code) once on the sampled jets, with the
      native library if the host compiler builds it, else the numpy version.
-9. Prints one JSON line of the kernels, the card line, and the contract
+9. The GPT baseline at the training CLI's defaults with `--system GPT`
+   (n_embd 256, 5 layers, 4 heads, sequences of 152, batch 256):
+   - K2 at its two GPT shapes against the plain version (held in 3): the
+     full forward's causal bias form (1, 1, 152, 152) with the q/k/v
+     gradients, and the decode's key-mask form (one query against 152
+     cached keys) at positions 0, 75 and 151; both timed as in 4, the
+     library call with `is_causal` and with the float key mask;
+   - the KV-cached decode against the full forward at every position, and
+     the card against the CPU on shared weights (logits, loss, greedy and
+     Gumbel-injected generation);
+   - `cli.train_mmf.train` with `--system GPT`, 2 epochs: K2's bias form
+     exactly 5 launches a forward, K1 and every other form 0, `last`
+     reloads to the logged val loss; 30 steps on a fixed batch (the loss
+     falls) and the step's time (`utils/profiling.py`);
+   - `cli.sample_mmf.sample_gpt` on that checkpoint, 512 jets at batch 256:
+     K2's key-mask form exactly 5 x 151 launches a batch, BOS first, PAD
+     after EOS; jets/s, and the decode step under the profiler.
+10. Prints one JSON line of the kernels, the card line, and the contract
    line {"ok": true, "device": {...}} last.  Any failure exits non-zero.
 
 Against earlier versions of this script the two MMF sampling paths run 50
@@ -136,9 +153,10 @@ from multimodal_flows_tpu_torch.sampling.generator import generate_packed
 from multimodal_flows_tpu_torch.train import physics_eval
 from multimodal_flows_tpu_torch.train.systems import build_system
 from multimodal_flows_tpu_torch.train.trainer import Trainer
-from multimodal_flows_tpu_torch.utils import jet_substructure
+from multimodal_flows_tpu_torch.utils import jet_substructure, profiling
 from multimodal_flows_tpu_torch.utils.jet_features import JetFeatures
 from multimodal_flows_tpu_torch.utils.logger import _masked_crc
+from multimodal_flows_tpu_torch.utils.profiling import median_device_ms
 
 # fp32 on both sides, TF32 off; the kernels sum over <= 256 keys in
 # another order than the plain version's matmuls
@@ -250,6 +268,23 @@ K2_HEAD_MAJOR_CASES = [((16, 4, 150, 64, 64), True), ((16, 4, 150, 64, 64), Fals
 TIMED = [(128, 128, 128, 4), (128, 128, 256, 4)]
 # K1 in its key-mask form on the wide-jet batch: no key tile is skipped
 TIMED_WIDE = (8, 150, 256, 4)
+# the GPT baseline at the training CLI's defaults with `--system GPT`
+# (scripts/train_mmf.py: n_embd 256, n_inner 512, 5 layers, 4 heads, batch
+# 256; Config: gelu_new, dropouts 0): max_seq_length = max_num_particles =
+# 150, so sequences of 152 and 13 logits.  2 epochs (cut from 1,500) on
+# 1,024 + 4 wide synthetic jets, 30 steps on a fixed batch, then 512 jets
+# sampled at batch 256.  K2 carries its attention: the full forward's
+# causal bias form at GPT_SHAPE, the decode's key-mask form (one query
+# against the 152 cached keys) at three positions.
+GPT_ARGV = ["--system", "GPT", "--max_epochs", "2"]
+GPT_JETS, GPT_SAMPLED_JETS, GPT_VS_CPU_ROWS = 1024, 512, 32
+GPT_SHAPE = (256, 152, 256, 4)
+GPT_DECODE_POS = (0, 75, 151)
+# the decode against the teacher-forced forward, as tests/test_gpt.py holds
+# JAX; the card against the CPU on shared weights (fp32, TF32 off, sums in
+# another order); the tokens drawn from equal noise may part where two
+# logits tie within the rounding
+GPT_DECODE_ATOL, GPT_LOGITS_ATOL, GPT_LOSS_RTOL, GPT_TOKENS_EQUAL = 2e-4, 1e-4, 1e-5, 0.99
 
 
 def _multiplicities(rng: np.random.Generator, n: int, hi: int) -> np.ndarray:
@@ -404,38 +439,18 @@ def check_k2(dev) -> float:
     return worst
 
 
-# GPU clock cycles (about 1 ms) that a sleep kernel holds the stream before
-# each timed call, so the host has enqueued the call's kernels when the
-# start event runs
-HOLD_CYCLES = 2_000_000
-
-
-def _median_ms(fns, n=40, warmup=5):
-    """Median CUDA-event device time of each fn, the fns run in turns.  The
-    stream is held while the host enqueues fn, so the time is the
-    kernels' own and not the host's launch overhead."""
-    for fn in fns:
-        for _ in range(warmup):
-            fn()
-    torch.cuda.synchronize()
-    times = [[] for _ in fns]
-    for _ in range(n):
-        for fn, ts in zip(fns, times):
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            torch.cuda._sleep(HOLD_CYCLES)
-            start.record()
-            fn()
-            end.record()
-            end.synchronize()
-            ts.append(start.elapsed_time(end))
-    return [float(np.median(ts)) for ts in times]
-
-
 # published H100 SXM rates: HBM 3.35 TB/s; dense TF32 tensor cores 495
 # TFLOP/s, and the kernels' 3xTF32 spends three TF32 products on each fp32
 # product
 HBM_BYTES_PER_S = 3.35e12
 KERNEL_FLOP_PER_S = 495e12 / 3
+
+
+def _roofline(nbytes: int, flops: int):
+    """(ms, what bounds it): `nbytes` at the HBM rate against `flops` at the
+    3xTF32 rate, whichever is longer."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / KERNEL_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def _bound(q: torch.Tensor, real_pairs: int, extra_bytes: int):
@@ -445,25 +460,23 @@ def _bound(q: torch.Tensor, real_pairs: int, extra_bytes: int):
     against QK^T and PV over
     the (query, key) pairs that this data needs (real tokens of one jet)
     at the 3xTF32 rate, whichever is longer."""
-    nbytes = 4 * q.numel() * 4 + extra_bytes
-    flops = 4 * q.shape[-1] * real_pairs
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / KERNEL_FLOP_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    return _roofline(4 * q.numel() * 4 + extra_bytes, 4 * q.shape[-1] * real_pairs)
 
 
-def _library_call(q, k, v, H, mask, ref, real, name):
+def _library_call(q, k, v, H, ref, real, name, **sdpa_kw):
     """One PyTorch call of the same function: scaled_dot_product_attention
-    over head-major views of q/k/v with the equivalent additive float mask
-    (made beforehand); checked against the plain version once."""
+    over head-major views of q (B, Tq, C) and k/v (B, Tk, C) with the
+    equivalent additive float mask (`attn_mask`, made beforehand) or
+    `is_causal`; checked against the plain version once."""
     B, T, C = q.shape
 
     def heads(t):
-        return t.view(B, T, H, C // H).transpose(1, 2)
+        return t.view(B, t.shape[1], H, C // H).transpose(1, 2)
 
     qh, kh, vh = heads(q), heads(k), heads(v)
 
     def call():
-        return torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+        return torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, **sdpa_kw)
 
     out = call().transpose(1, 2).reshape(B, T, C)
     err = float((out - ref).abs()[real].max())
@@ -506,8 +519,9 @@ def time_kernels(dev):
                        bias, (bias + cross).contiguous(), 4 * (seg.numel() + H * pairs)),
             }
             for name, (form, kernel, plain, b, mask, extra) in forms.items():
-                library = _library_call(q, k, v, H, mask, plain(), real, f"{name} {shape}")
-                ms, plain_ms, library_ms = _median_ms([kernel, plain, library])
+                library = _library_call(q, k, v, H, plain(), real, f"{name} {shape}",
+                                        attn_mask=mask)
+                ms, plain_ms, library_ms = median_device_ms([kernel, plain, library])
                 bound_ms, bound_by = _bound(q, pairs, extra)
                 t = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
                          bound_by=bound_by)
@@ -516,9 +530,9 @@ def time_kernels(dev):
         q, k, v, km, _, _, real = _case_inputs(TIMED_WIDE, "key_mask", dev)
         H = TIMED_WIDE[3]
         plain = lambda: attention_btc_reference(q, k, v, H, km)  # noqa: E731
-        library = _library_call(q, k, v, H, km[:, None, None, :], plain(), real,
-                                f"K1 {TIMED_WIDE} key_mask")
-        ms, plain_ms, library_ms = _median_ms(
+        library = _library_call(q, k, v, H, plain(), real, f"K1 {TIMED_WIDE} key_mask",
+                                attn_mask=km[:, None, None, :])
+        ms, plain_ms, library_ms = median_device_ms(
             [lambda: k1.btc_attention(q, k, v, H, km, None), plain, library])
         n_real = real.sum(dim=1)
         bound_ms, bound_by = _bound(q, int((n_real * n_real).sum()), 4 * km.numel())
@@ -526,6 +540,89 @@ def time_kernels(dev):
                  bound_by=bound_by)
         _print_time("K1", TIMED_WIDE, "key_mask", t)
         result["K1", TIMED_WIDE] = t
+    return result
+
+
+def _causal_bias(T, dev):
+    """The (1, 1, T, T) additive causal bias of `FlavorSeqGPT.forward`."""
+    causal = torch.tril(torch.ones((T, T), dtype=torch.bool, device=dev))
+    return torch.where(causal, 0.0, -1e9)[None, None]
+
+
+def _gpt_forward_inputs(dev, seed=5):
+    B, T, C, _ = GPT_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn((B, T, C), generator=gen, device=dev) for _ in range(3))
+    return q, k, v, _causal_bias(T, dev)
+
+
+def _gpt_decode_inputs(pos, dev, seed=6):
+    """One decode call: q (B, 1, C) against (B, 152, C) caches, the key
+    mask 0 on the cached positions <= pos and -1e9 after."""
+    B, T, C, _ = GPT_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((B, 1, C), generator=gen, device=dev)
+    k, v = (torch.randn((B, T, C), generator=gen, device=dev) for _ in range(2))
+    km = torch.where(torch.arange(T, device=dev) <= pos, 0.0, -1e9).expand(B, T).contiguous()
+    return q, k, v, km
+
+
+def check_k2_gpt(dev) -> float:
+    """K2 at the GPT baseline's two shapes against its plain version: the
+    full forward's causal bias (broadcast by zero strides), with the q/k/v
+    gradients, and the decode's key-mask form at three positions."""
+    B, T, C, H = GPT_SHAPE
+    q, k, v, bias = _gpt_forward_inputs(dev)
+    real = torch.ones((B, T), dtype=torch.bool, device=dev)
+    worst = _held(f"K2 vs plain GPT forward {GPT_SHAPE} causal bias (1,1,T,T)",
+                  k2.set_attention_btc(q, k, v, H, None, bias),
+                  attention_btc_reference(q, k, v, H, None, None, bias), real)
+    _grads_held(f"K2 at the GPT forward {GPT_SHAPE} causal bias",
+                [lambda a, b, c: k2.set_attention_btc(a, b, c, H, None, bias),
+                 lambda a, b, c: attention_btc_reference(a, b, c, H, None, None, bias)],
+                [q, k, v])
+    for pos in GPT_DECODE_POS:
+        q1, kc, vc, km = _gpt_decode_inputs(pos, dev)
+        worst = max(worst, _held(f"K2 vs plain GPT decode ({B}, 1 of {T}, {C}, {H}) key_mask "
+                                 f"pos {pos}", k2.set_attention_btc(q1, kc, vc, H, km),
+                                 attention_btc_reference(q1, kc, vc, H, km), real[:, :1]))
+    return worst
+
+
+def time_gpt_attention(dev):
+    """{"full", "decode", "decode_pos75"}: K2, its plain version and
+    scaled_dot_product_attention (is_causal for the full forward, the float
+    key mask for a decode call) at the GPT shapes, with their bounds: the
+    full forward's q, k, v, out and bias once against the causal pairs'
+    FLOPs; a decode call's q, out, key mask and the cache rows <= pos (the
+    keys this data needs) against their FLOPs."""
+    B, T, C, H = GPT_SHAPE
+    result = {}
+    with torch.no_grad():
+        q, k, v, bias = _gpt_forward_inputs(dev)
+        real = torch.ones((B, T), dtype=torch.bool, device=dev)
+        plain = lambda: attention_btc_reference(q, k, v, H, None, None, bias)  # noqa: E731
+        library = _library_call(q, k, v, H, plain(), real, "K2 GPT forward", is_causal=True)
+        ms, plain_ms, library_ms = median_device_ms(
+            [lambda: k2.set_attention_btc(q, k, v, H, None, bias), plain, library])
+        bound_ms, bound_by = _roofline(4 * (4 * q.numel() + bias.numel()),
+                                       4 * C * B * T * (T + 1) // 2)
+        result["full"] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                              bound_ms=bound_ms, bound_by=bound_by)
+        _print_time("K2", GPT_SHAPE, "GPT forward, causal bias", result["full"])
+        for pos, key in ((T - 1, "decode"), (75, "decode_pos75")):
+            q1, kc, vc, km = _gpt_decode_inputs(pos, dev)
+            plain = lambda: attention_btc_reference(q1, kc, vc, H, km)  # noqa: E731
+            library = _library_call(q1, kc, vc, H, plain(), real[:, :1], f"K2 GPT decode {pos}",
+                                    attn_mask=km[:, None, None, :])
+            ms, plain_ms, library_ms = median_device_ms(
+                [lambda: k2.set_attention_btc(q1, kc, vc, H, km), plain, library])
+            keys = B * (pos + 1)
+            bound_ms, bound_by = _roofline(4 * (2 * q1.numel() + km.numel() + 2 * keys * C),
+                                           4 * C * keys)
+            result[key] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                               bound_ms=bound_ms, bound_by=bound_by)
+            _print_time("K2", (B, 1, T, C, H), f"GPT decode, key_mask pos {pos}", result[key])
     return result
 
 
@@ -553,6 +650,11 @@ def _counts():
 
 def _total(counts) -> int:
     return sum(counts.values())
+
+
+def _only(form, n) -> dict:
+    """K2's counts when only `form` launched, n times."""
+    return {f: n if f == form else 0 for f in k2.LAUNCHES}
 
 
 def drive(name, system, mult, steps, expect):
@@ -775,38 +877,34 @@ def train_flagship(dev, train_ds, val_ds, out_dir):
     return launches, trainer, state, peak
 
 
-def _step_phases(trainer, state, batch, gen):
-    """One train step with its phases named for the profiler."""
-    from torch.profiler import record_function
-
-    with record_function("train_forward"):
-        loss, _ = trainer.system.loss_fn(batch, gen, train=True, module=state.module)
-    state.optimizer.zero_grad(set_to_none=True)
-    loss.backward()
-    with record_function("train_optimizer"):
-        trainer._update(state)
-
-
 def _share(part: float, whole: float) -> float:
     return part / whole if whole else float("nan")
 
 
-def time_training(dev, trainer, state, train_ds, n=20, n_prof=5, label="flagship"):
+def time_training(dev, trainer, state, train_ds, n=20, n_prof=5, label="flagship",
+                  kernel="K1", backward_node="BtcAttentionBackward"):
     """Wall time of a train step (ending in a synchronize) and jets/s; then
-    `torch.profiler` over `n_prof` steps: the kernels' device time split
-    into forward (launched inside the loss), optimizer (inside the update)
-    and backward (the rest: the autograd engine launches it from its own
-    thread), the device's busy share of the wall, and the kernels that
-    take the most time.  A step launches more kernels than the stream's
+    `torch.profiler` over `n_prof` steps (`utils/profiling.py`): the
+    kernels' device time split into forward (launched inside the loss),
+    optimizer (inside the update) and backward (the rest: the autograd
+    engine launches it from its own thread), the device's busy share of the
+    wall, the kernels that take the most time, and the attention kernel's
+    forward and its backward nodes (`backward_node`, the recompute through
+    the plain version).  A step launches more kernels than the stream's
     queue holds, so holding the stream while the host enqueues (as
-    `_median_ms` does) cannot time it."""
-    from torch.profiler import ProfilerActivity, profile
-
-    unit = trainer._pack_units(train_ds)[0]
-    rows = trainer._packed_row_bs
+    `median_device_ms` does) cannot time it.  Packed training times its
+    packed rows (a row holds several jets), other training its batches of
+    `batch_size` jets."""
+    cfg = trainer.config
+    if cfg.packed_training:
+        unit, rows, width = trainer._pack_units(train_ds)[0], trainer._packed_row_bs, cfg.pack_width
+    else:
+        unit, rows = train_ds, cfg.batch_size
+        width = unit.coupling.target.discrete.shape[1]
     idx = trainer._epoch_perm(len(unit), rows, shuffle=True, seed=1, epoch=0)
     batches = list(trainer._batches(trainer._resident(unit), idx))
-    jets = [int(unit.coupling.jet_valid[i].sum()) for i in idx]
+    jets = ([int(unit.coupling.jet_valid[i].sum()) for i in idx] if cfg.packed_training
+            else [rows] * len(idx))
     gen = torch.Generator(device=dev).manual_seed(2)
     state.module.train()
     for b in batches[:3]:  # warm-up
@@ -823,54 +921,33 @@ def time_training(dev, trainer, state, train_ds, n=20, n_prof=5, label="flagship
     wall_ms = float(np.median(walls)) * 1e3
     jets_per_s = sum(step_jets) / sum(walls)
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for i in range(n_prof):
-            _step_phases(trainer, state, batches[i % len(batches)], gen)
-        torch.cuda.synchronize()
-        prof_wall_ms = (time.perf_counter() - t0) * 1e3 / n_prof
+    prof = profiling.profile_steps(
+        lambda i: profiling.step_phases(trainer, state, batches[i % len(batches)], gen), n_prof)
     state.module.eval()
-    events = prof.events()
-    ranges = {name: sum(e.device_time_total for e in events
-                        if e.name == name and e.device_type.name == "CPU") / n_prof / 1e3
-              for name in ("train_forward", "train_optimizer")}
-    total_ms = sum(e.device_time_total for e in events
-                   if e.device_type.name == "CPU" and e.cpu_parent is None) / n_prof / 1e3
-    split = {"forward": ranges["train_forward"], "optimizer": ranges["train_optimizer"]}
-    split["backward"] = total_ms - split["forward"] - split["optimizer"]
-    averages = prof.key_averages()
-    launches = sum(e.count for e in averages if e.key == "cudaLaunchKernel") / n_prof
-    print(f"train step ({label}, {rows} rows x 128, ~{np.mean(jets):.1f} jets): median wall "
+    split, total_ms, launches = prof.phases, prof.device_ms, prof.launches
+    print(f"train step ({label}, {rows} rows x {width}, ~{np.mean(jets):.1f} jets): median wall "
           f"{wall_ms:.3f} ms over {n} steps (each synchronized), {jets_per_s:.1f} trained "
           f"jets/s")
     print(f"train step kernel time (torch.profiler, {n_prof} steps): forward "
           f"{split['forward']:.3f} ms, backward {split['backward']:.3f} ms, optimizer "
           f"{split['optimizer']:.3f} ms, total {total_ms:.3f} ms; device busy share "
-          f"{_share(total_ms, wall_ms):.3f} of the unprofiled wall ({_share(total_ms, prof_wall_ms):.3f} of "
-          f"the profiled wall, {prof_wall_ms:.3f} ms a step); {launches:.0f} cudaLaunchKernel "
+          f"{_share(total_ms, wall_ms):.3f} of the unprofiled wall ({_share(total_ms, prof.wall_ms):.3f} of "
+          f"the profiled wall, {prof.wall_ms:.3f} ms a step); {launches:.0f} cudaLaunchKernel "
           f"a step"
           + ("" if total_ms else " (the profiler shows no device time)"))
-    annotations = {e.key for e in averages if e.device_type.name == "CPU"}
-    kernels = [e for e in averages if e.device_type.name == "CUDA" and e.key not in annotations]
-    for e in sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:15]:
-        print(f"  {e.self_device_time_total / 1e3 / n_prof:8.3f} ms/step "
-              f"{_share(e.self_device_time_total / 1e3 / n_prof, total_ms):6.3f}  "
-              f"{e.count / n_prof:6.1f}/step  {e.key[:100]}")
-    # in the profiled steps: K1's own kernels, and the device time of the
-    # autograd nodes of its backward (the recompute through the plain version)
-    k1_fwd_ms = sum(e.self_device_time_total for e in kernels
-                    if "attention_kernel" in e.key) / n_prof / 1e3
-    node = "BtcAttentionBackward"
-    k1_bwd = [e for e in events if e.device_type.name == "CPU" and node in e.name
-              and not (e.cpu_parent is not None and node in e.cpu_parent.name)]
-    k1_bwd_ms = sum(e.device_time_total for e in k1_bwd) / n_prof / 1e3
-    print(f"attention in the profiled steps: K1 kernels {k1_fwd_ms:.3f} ms a step "
-          f"({_share(k1_fwd_ms, split['forward']):.3f} of the forward); {len(k1_bwd) / n_prof:.0f} "
-          f"backward nodes a step, {k1_bwd_ms:.3f} ms ({_share(k1_bwd_ms, split['backward']):.3f} "
+    for name, ms, count in prof.kernels[:15]:
+        print(f"  {ms:8.3f} ms/step {_share(ms, total_ms):6.3f}  {count:6.1f}/step  {name[:100]}")
+    # in the profiled steps: the attention kernel's own time, and the device
+    # time of the autograd nodes of its backward
+    attn_fwd_ms = prof.kernel_ms("attention_kernel")
+    n_nodes, attn_bwd_ms = prof.nodes(backward_node)
+    print(f"attention in the profiled steps: {kernel} kernels {attn_fwd_ms:.3f} ms a step "
+          f"({_share(attn_fwd_ms, split['forward']):.3f} of the forward); {n_nodes:.0f} "
+          f"backward nodes a step, {attn_bwd_ms:.3f} ms ({_share(attn_bwd_ms, split['backward']):.3f} "
           f"of the backward)")
     return dict(config=label, wall_ms=wall_ms, jets_per_s=jets_per_s, device_ms=total_ms,
                 busy_share=_share(total_ms, wall_ms), launches_per_step=launches, **split,
-                attention_forward_ms=k1_fwd_ms, attention_backward_ms=k1_bwd_ms)
+                attention_forward_ms=attn_fwd_ms, attention_backward_ms=attn_bwd_ms)
 
 
 def train_coocc(dev, train_ds, steps=5):
@@ -1022,7 +1099,7 @@ def time_dropout_attention(dev, rows=84, rate=0.1):
     with torch.no_grad():
         for C in (128, 256):
             q, k, v, _, seg, _, _ = _case_inputs((rows, 128, C, 4), "segments", dev)
-            times = _median_ms([
+            times = median_device_ms([
                 lambda: attention_btc_reference(q, k, v, 4, None, seg, None, rate, gen),
                 lambda: attention_btc_reference(q, k, v, 4, None, seg),
                 lambda: k1.btc_attention(q, k, v, 4, None, seg)], n=20)
@@ -1304,22 +1381,26 @@ def _read_events(path):
     return events
 
 
-class _EncoderForwards:
-    """Counts the forwards of every ParticleFormer while it is active."""
+class _Forwards:
+    """Counts the forwards of every module of class `cls` while it is
+    active."""
+
+    def __init__(self, cls=particle_transformers.ParticleFormer):
+        self.cls = cls
 
     def __enter__(self):
         self.count = 0
-        self._forward = forward = particle_transformers.ParticleFormer.forward
+        self._forward = forward = self.cls.forward
 
         def counted(module, *args, **kw):
             self.count += 1
             return forward(module, *args, **kw)
 
-        particle_transformers.ParticleFormer.forward = counted
+        self.cls.forward = counted
         return self
 
     def __exit__(self, *exc):
-        particle_transformers.ParticleFormer.forward = self._forward
+        self.cls.forward = self._forward
 
 
 def cli_entry_points(dev, out_dir):
@@ -1341,7 +1422,7 @@ def cli_entry_points(dev, out_dir):
 
     t0 = time.perf_counter()
     _reset_counts()
-    with _EncoderForwards() as forwards:
+    with _Forwards() as forwards:
         _, state = train_mmf.train(cfg, "MMF", train_ds, val_ds, device=dev)
         torch.cuda.synchronize()
     train_launches, train_forwards = _counts(), forwards.count
@@ -1380,7 +1461,7 @@ def cli_entry_points(dev, out_dir):
     test = MultiModal(continuous=tx, discrete=tk, mask=tmask)
     t0 = time.perf_counter()
     _reset_counts()
-    with _EncoderForwards() as forwards:
+    with _Forwards() as forwards:
         results = sample_mmf.sample(cfg, "MMF", tmask, dev, checkpoint="best",
                                     temperatures=cfg.temperature,
                                     timestep_grid=cfg.num_timesteps, save=False)
@@ -1552,6 +1633,207 @@ def substructure_phase(sample: MultiModal):
     return version
 
 
+def _gpt_card_vs_cpu(dev, system, cpu, ids):
+    """`FlavorSeqGPT` on the card against the CPU on shared weights: the
+    full forward's logits and the loss on `ids`; greedy generation and
+    generation from one set of Gumbel noise, tokens equal."""
+    batch = DataCoupling(target=MultiModal(discrete=ids))
+    with torch.no_grad():
+        logits = [s.module(ids.to(s.device)).cpu() for s in (system, cpu)]
+        losses = [s.loss_fn(batch.to(s.device), train=False)[0].item() for s in (system, cpu)]
+    B, T, V = logits[0].shape
+    u = np.random.default_rng(19).uniform(size=(T - 1, B, V)).astype(np.float32)
+    gumbel = torch.from_numpy(-np.log(-np.log(np.maximum(u, np.finfo(np.float32).tiny))))
+    same = {}
+    for name, kw in (("greedy", dict(top_k=1)), ("Gumbel noise", dict(gumbel=gumbel))):
+        seqs = [s.generate(B, **kw).cpu() for s in (system, cpu)]
+        same[name] = float((seqs[0] == seqs[1]).float().mean())
+    err = float((logits[0] - logits[1]).abs().max())
+    rel = abs(losses[0] - losses[1]) / abs(losses[1])
+    print(f"GPT card vs CPU, {B} sequences of {T}: logits max_abs_err {err:.3e} (atol "
+          f"{GPT_LOGITS_ATOL}), loss {losses[0]:.7f} vs {losses[1]:.7f} rel {rel:.3e} (<= "
+          f"{GPT_LOSS_RTOL}); generated tokens equal {same} (>= {GPT_TOKENS_EQUAL})")
+    if err > GPT_LOGITS_ATOL or rel > GPT_LOSS_RTOL or min(same.values()) < GPT_TOKENS_EQUAL:
+        raise AssertionError("GPT: the card disagrees with the CPU")
+    return dict(logits_max_abs_err=err, loss_rel_err=rel, tokens_equal=same)
+
+
+def gpt_phase(dev, out_dir):
+    """The GPT baseline at the training CLI's defaults with `--system GPT`:
+    the decode against the full forward on the card, the card against the
+    CPU, the training entry point's compute half (K2's bias form exactly 5
+    launches a forward, nothing else), 30 steps on a fixed batch, the step's
+    time, then the sampling entry point's GPT compute half on the
+    checkpoint (K2's key-mask form exactly 5 x 151 launches a batch) and the
+    decode step's time.  Returns the launch counts of both halves and the
+    phase's numbers."""
+    from multimodal_flows_tpu_torch.models.gpt import FlavorSeqGPT
+    from multimodal_flows_tpu_torch.train.gpt import GPT
+
+    cfg, _ = train_mmf.experiment_configs(GPT_ARGV + ["--dir", out_dir])
+    cfg.mint_experiment_id()
+    rng = np.random.default_rng(17)
+    x, tok, mask = _physical_jets(rng, _jets(rng, GPT_JETS, 4))
+    train_ds, val_ds = train_mmf.split_jets(MultiModal(continuous=x, discrete=tok, mask=mask),
+                                            cfg, "GPT")
+    trainer = train_mmf.build_trainer(cfg, "GPT", dev)
+    system, n_layer = trainer.system, cfg.n_layer
+    T = system.module.seq_len
+    ids = torch.from_numpy(train_ds.coupling.target.discrete[:cfg.batch_size]).to(dev)
+    numbers = {"shape": f"{cfg.batch_size} sequences of {T}, {cfg.n_layer} layers, C "
+                        f"{cfg.n_embd}, {cfg.n_head} heads, {system.module.full_vocab} logits"}
+
+    # the KV-cached decode against the teacher-forced forward, every position
+    with torch.no_grad():
+        full = system.module(ids)
+        caches = system.module.init_cache(len(ids))
+        steps = []
+        for t in range(T):
+            logits, caches = system.module.decode(ids[:, t], t, caches)
+            steps.append(logits)
+        err = float((torch.stack(steps, 1) - full).abs().max())
+    print(f"GPT decode vs the full forward on the card, {len(ids)} x {T} positions: max_abs_err "
+          f"{err:.3e} (atol {GPT_DECODE_ATOL})")
+    if err > GPT_DECODE_ATOL:
+        raise AssertionError("GPT: the KV-cached decode disagrees with the full forward")
+    numbers["decode_vs_full_max_abs_err"] = err
+    cpu = build_system(cfg, "GPT", device="cpu", generator=torch.Generator().manual_seed(0))
+    cpu.module.load_state_dict({k: v.cpu() for k, v in system.module.state_dict().items()})
+    numbers["card_vs_cpu"] = _gpt_card_vs_cpu(dev, system, cpu, ids[:GPT_VS_CPU_ROWS].cpu())
+    del trainer, system, cpu, full, caches, steps
+
+    # the training entry point's compute half: the main path
+    t0 = time.perf_counter()
+    _reset_counts()
+    with _Forwards(FlavorSeqGPT) as forwards:
+        trainer, state = train_mmf.train(cfg, "GPT", train_ds, val_ds, device=dev)
+        torch.cuda.synchronize()
+    train_launches, train_forwards = _counts(), forwards.count
+    train_s = time.perf_counter() - t0
+    exp = cfg.experiment_dir
+    records = [json.loads(line) for line in open(os.path.join(exp, "metrics.jsonl"))]
+    fresh = build_system(cfg, "GPT", device=dev)
+    fresh.module.load_state_dict(trainer.load_for_inference("last"))
+    reloaded = trainer.evaluate(val_ds, fresh.module, epoch=cfg.max_epochs - 1)["val_loss"]
+    del fresh
+    checks = {
+        f"{cfg.max_epochs} epochs logged, losses finite": len(records) == cfg.max_epochs and all(
+            np.isfinite(r["train_loss"]) and np.isfinite(r["val_loss"]) for r in records),
+        "last reloaded gives the logged val_loss (rel 1e-5)":
+            abs(reloaded - records[-1]["val_loss"]) <= 1e-5 * abs(records[-1]["val_loss"]),
+        f"K2 bias form {n_layer} launches a forward, every other form 0":
+            train_forwards > 0 and train_launches["K2"] == _only("bias", n_layer * train_forwards),
+        "K1 never, no plain dropout call": not _total(train_launches["K1"])
+            and not _total(train_launches["plain_dropout"]),
+    }
+    for r in records:
+        print(f"  epoch {r['epoch']:.0f}: train_loss {r['train_loss']:.5f} val_loss "
+              f"{r['val_loss']:.5f} ({r['epoch_time_s']:.2f} s)")
+    print(f"GPT entry point cli.train_mmf.train: {state.step} steps, {train_forwards} forwards "
+          f"(train + validation) in {train_s:.2f} s; launches {train_launches}; val_loss logged "
+          f"{records[-1]['val_loss']:.7f}, reloaded {reloaded:.7f}; checks {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"GPT training entry point failed {checks}")
+    numbers.update(train_s=train_s, train_steps=state.step, train_forwards=train_forwards,
+                   val_loss=records[-1]["val_loss"])
+
+    # 30 steps on one fixed batch: the loss falls
+    system = trainer.system
+    fixed = Trainer(system, cfg)
+    fixed_state = fixed.init_state(30)
+    batch = train_ds[np.arange(cfg.batch_size)].to(dev)
+    gen = torch.Generator(device=dev)
+    system.module.train()
+    _reset_counts()
+    losses = []
+    for _ in range(30):
+        gen.manual_seed(0)
+        losses.append(fixed._train_step(fixed_state, batch, gen)["loss"])
+    losses = torch.stack(losses).cpu().numpy()
+    fixed_launches = _counts()
+    system.module.eval()
+    print(f"GPT, fixed batch, 30 steps: loss {losses[0]:.5f} -> {losses[-1]:.5f} (last 5 mean "
+          f"{losses[-5:].mean():.5f}); launches {fixed_launches}")
+    if not (np.isfinite(losses).all() and losses[-5:].mean() < losses[0]
+            and fixed_launches["K2"] == _only("bias", 30 * n_layer)
+            and not _total(fixed_launches["K1"])):
+        raise AssertionError("GPT: the loss on a fixed batch did not fall, or K2 did not run "
+                             "5 times a step")
+    numbers["step"] = time_training(dev, fixed, fixed_state, train_ds, n=10, n_prof=3,
+                                    label="GPT", kernel="K2",
+                                    backward_node="SetAttentionBackward")
+    del trainer, state, fixed, fixed_state
+
+    # the sampling entry point's GPT compute half on the checkpoint
+    cfg.num_jets = GPT_SAMPLED_JETS
+    batches = -(-cfg.num_jets // cfg.batch_size)
+    generated = []
+    real_generate = GPT.generate
+
+    def recorded(self, batch_size, *args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_generate(self, batch_size, *args, **kw)
+        torch.cuda.synchronize()
+        generated.append((out.cpu().numpy(), time.perf_counter() - t0))
+        return out
+
+    GPT.generate = recorded
+    try:
+        t0 = time.perf_counter()
+        _reset_counts()
+        sample = sample_mmf.sample_gpt(cfg, dev, checkpoint="last", temperature=1.0)
+        sample_launches = _counts()
+        sample_s = time.perf_counter() - t0
+    finally:
+        GPT.generate = real_generate
+    seqs = np.concatenate([g for g, _ in generated])
+    V = cfg.vocab_size
+    after_eos = [row[np.argmax(row == V + 2) + 1:] for row in seqs if (row == V + 2).any()]
+    decode_steps = T - 1
+    checks = {
+        "shape": sample.shape == (cfg.num_jets, cfg.max_num_particles),
+        f"{batches} batches of {cfg.batch_size}": len(generated) == batches,
+        "BOS first": bool((seqs[:, 0] == V + 1).all()),
+        "PAD after the first EOS": all((rest == V + 3).all() for rest in after_eos),
+        "stripped tokens in [0, V]": bool(sample.min() >= 0 and sample.max() <= V),
+        f"K2 key-mask form {n_layer} x {decode_steps} launches a batch, every other form 0":
+            sample_launches["K2"] == _only("key_mask", n_layer * decode_steps * batches),
+        "K1 never": not _total(sample_launches["K1"]),
+    }
+    gen_s = sum(s for _, s in generated)
+    sampled_jets_per_s = len(seqs) / gen_s
+    ended = float(np.mean([(row == V + 2).any() for row in seqs]))
+    print(f"GPT entry point cli.sample_mmf.sample_gpt: {cfg.num_jets} jets in {batches} batches, "
+          f"{sample_s:.2f} s with the checkpoint's load, generation {gen_s:.3f} s = "
+          f"{sampled_jets_per_s:.1f} jets/s ({[round(s, 3) for _, s in generated]} s a batch); "
+          f"{ended:.3f} of the sequences ended with EOS, multiplicity mean "
+          f"{(sample > 0).sum(1).mean():.1f}, token V {int((sample == V).sum())} times; "
+          f"launches {sample_launches}; checks {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"GPT sampling entry point failed {checks}")
+    numbers.update(sample_s=sample_s, generate_s=gen_s, sampled_jets_per_s=sampled_jets_per_s)
+
+    # the decode step: one batch's generation under the profiler
+    system = build_system(cfg, "GPT", device=dev, generator=torch.Generator().manual_seed(0))
+    gen = torch.Generator(device=dev).manual_seed(1)
+    system.generate(cfg.batch_size, gen)  # warm-up
+    prof = profiling.profile_steps(lambda i: system.generate(cfg.batch_size, gen), 1)
+    step = dict(wall_ms=prof.wall_ms / decode_steps, device_ms=prof.device_ms / decode_steps,
+                launches=prof.launches / decode_steps,
+                attention_ms=prof.kernel_ms("attention_kernel") / decode_steps)
+    step["busy_share"] = _share(step["device_ms"], step["wall_ms"])
+    print(f"GPT decode step (batch {cfg.batch_size}, torch.profiler over one batch's "
+          f"{decode_steps} steps): wall {step['wall_ms']:.3f} ms, device {step['device_ms']:.3f} "
+          f"ms (busy share {step['busy_share']:.3f}), {step['launches']:.1f} cudaLaunchKernel, "
+          f"K2 {step['attention_ms']:.4f} ms a step")
+    for name, ms, count in prof.kernels[:10]:
+        print(f"  {ms / decode_steps:8.4f} ms/step {_share(ms, prof.device_ms):6.3f}  "
+              f"{count / decode_steps:6.1f}/step  {name[:100]}")
+    numbers["decode_step"] = step
+    return train_launches, sample_launches, numbers
+
+
 def _system(kind, cfg_kw, dev):
     system = build_system(Config(**cfg_kw), kind, device=dev,
                           generator=torch.Generator().manual_seed(0))
@@ -1605,8 +1887,9 @@ def main() -> None:
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     _build_all()
-    err = {"K1": check_k1(dev), "K2": check_k2(dev)}
+    err = {"K1": check_k1(dev), "K2": max(check_k2(dev), check_k2_gpt(dev))}
     times = time_kernels(dev)
+    gpt_times = time_gpt_attention(dev)
 
     rng = np.random.default_rng(0)
     mult = _jets(rng, 512, 4)
@@ -1690,9 +1973,11 @@ def main() -> None:
         cli_train_launches, cli_sample_launches, cli_numbers, cli_sample = cli_entry_points(
             dev, out_dir)
         toy = toy_phase(dev, out_dir)
+        gpt_train_launches, gpt_sample_launches, gpt = gpt_phase(dev, out_dir)
     substructure = substructure_phase(cli_sample)
     print(json.dumps({"entry_points": {"card": card, "cli": cli_numbers, "toy": toy,
                                        "substructure": substructure}}))
+    print(json.dumps({"gpt": {"card": card, **gpt}}))
 
     print(json.dumps({"training": {"card": card, "shape": "packed rows of 128, 256 jets/step",
                                    "steps": steps_timed,
@@ -1732,7 +2017,10 @@ def main() -> None:
          "launches_dropout_training": _total(dropout_launches["K2"]),
          "launches_epic": _total(epic_launches["K2"]) + _total(epic_train_launches["K2"]),
          "launches_cli": _total(cli_train_launches["K2"]) + _total(cli_sample_launches["K2"]),
-         "max_abs_err": err["K2"], **timed("K2")},
+         "launches_gpt_training": _total(gpt_train_launches["K2"]),
+         "launches_gpt_sampling": _total(gpt_sample_launches["K2"]),
+         "max_abs_err": err["K2"], **timed("K2"),
+         **{f"gpt_{shape}": t for shape, t in gpt_times.items()}},
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

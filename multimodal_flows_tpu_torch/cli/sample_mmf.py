@@ -14,12 +14,16 @@ and the W1 metrics `metrics.json`; `--make_plots` adds the closure plots and
 without touching a device.  One flag is new, `--device` (default `cuda`,
 raising without a CUDA device; `cpu` runs on the CPU).
 `--max_dispatch_steps` and `--scan_unroll` steer the JAX package's compiled
-loop; here they are accepted and have no effect.  A GPT experiment raises
-with its ROADMAP.md pointer.
+loop; here they are accepted and have no effect.
+
+A GPT experiment (tag `system:GPT`) is sampled autoregressively instead:
+`--num_jets` token sets in batches of `--batch_size` at the first
+`--temperature`, written as `generation_results_{tag}_gpt_temp_{temp}/
+sample.npy`, as the JAX script writes it (no metrics, as there).
 
 `main` is the file I/O (`Config.load`, `_load_test`, the result files)
-around the compute half `sample`, which takes the test pad masks and a
-device, and `point_metrics`, which is numpy.
+around the compute halves `sample` (the flows: the test pad masks and a
+device) and `sample_gpt`, and `point_metrics`, which is numpy.
 """
 
 from __future__ import annotations
@@ -30,13 +34,14 @@ import os
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from multimodal_flows_tpu_torch.cli.train_mmf import system_kind_of
 from multimodal_flows_tpu_torch.config import Config
 from multimodal_flows_tpu_torch.data.state import MultiModal
 from multimodal_flows_tpu_torch.sampling.generator import GenerationResult, run_generation_sweep
 from multimodal_flows_tpu_torch.train.systems import build_system
-from multimodal_flows_tpu_torch.train.trainer import Trainer
+from multimodal_flows_tpu_torch.train.trainer import Trainer, _seed
 from multimodal_flows_tpu_torch.utils.logger import SimpleLogger as log
 
 
@@ -117,7 +122,7 @@ def main(argv=None):
     config, args = experiment_configs(argv)
     kind = system_kind_of(config)
     if kind == "GPT":
-        build_system(config, kind)  # raises: the GPT baseline is not ported
+        return _sample_gpt(config, args)
 
     if args.metrics_only:
         return _metrics_only(config)
@@ -153,6 +158,38 @@ def main(argv=None):
             plot_kin_feats(gen_feats, test_feats, path=os.path.join(res_dir, "plots_kin.png"))
             flavor_kinematics(gen_feats, test_feats,
                               path=os.path.join(res_dir, "flavor_kinematics.png"))
+
+
+def sample_gpt(config: Config, device="cuda", *, checkpoint: str = "best",
+               temperature: float = 1.0) -> np.ndarray:
+    """The GPT compute half: build the GPT system on `device`, load
+    checkpoint slot `checkpoint` and generate `config.num_jets` token sets
+    in batches of `config.batch_size`, batch b from a generator seeded by
+    (`config.seed`, b).  Returns (num_jets, max_num_particles) flavor
+    tokens, the special tokens stripped."""
+    system = build_system(config, "GPT", device=device)
+    trainer = Trainer(system, config)
+    system.module.load_state_dict(trainer.load_for_inference(name=checkpoint))
+    log.info(f"loaded GPT checkpoint {checkpoint!r} from {config.experiment_dir}")
+    bs = config.batch_size
+    chunks = []
+    for b in range(-(-config.num_jets // bs)):
+        gen = torch.Generator(device=system.device).manual_seed(_seed(config.seed, b))
+        chunks.append(system.sample_jets(bs, gen, temperature=temperature,
+                                         top_k=config.top_k))
+    return np.concatenate(chunks, axis=0)[:config.num_jets]
+
+
+def _sample_gpt(config: Config, args) -> None:
+    """Autoregressive generation of a GPT experiment into `sample.npy`."""
+    temp = args.temperature[0]
+    sample = sample_gpt(config, args.device, checkpoint=args.checkpoint, temperature=temp)
+    res_dir = os.path.join(config.experiment_dir,
+                           f"generation_results_{args.tag}_gpt_temp_{temp}")
+    os.makedirs(res_dir, exist_ok=True)
+    out = os.path.join(res_dir, "sample.npy")
+    np.save(out, sample)
+    log.info(f"wrote {sample.shape} token sample -> {out}")
 
 
 def _load_test(config: Config) -> MultiModal:

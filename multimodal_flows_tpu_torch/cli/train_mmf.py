@@ -1,5 +1,5 @@
 """Training entry point of the port: train a MultiModal Flow Bridge (or
-CFM / MJB) on AOJ jets.
+CFM / MJB, or the GPT baseline) on AOJ jets.
 
     python -m multimodal_flows_tpu_torch.cli.train_mmf --dir_aoj ./aoj \
         --data_files RunG_batch0.h5 --num_jets 100000 --packed_training
@@ -11,8 +11,9 @@ package loads in both), the same `system:<kind>` tag and resume overrides
 `cuda`): the run raises without a CUDA device unless `--device cpu` is
 given.  `--attn_impl` and `--remat` steer XLA in the JAX package; here they
 are stored in the config and have no effect.  `--fsdp`, `--tensor_parallel
-> 1`, `--compute_dtype bfloat16` and `--system GPT` raise with their
-ROADMAP.md pointers.
+> 1` and `--compute_dtype bfloat16` raise with their ROADMAP.md pointers.
+With `--system GPT` the jets become BOS/EOS/PAD token sequences of
+`max_num_particles + 2` (`max_seq_length` is set to `max_num_particles`).
 
 `main` is the file I/O (`make_datasets`, `Config.save`) around the compute
 half, `build_trainer` and `Trainer.fit`; `train` is that half in one call,
@@ -28,7 +29,7 @@ from typing import Optional, Tuple
 import torch
 
 from multimodal_flows_tpu_torch.config import Config
-from multimodal_flows_tpu_torch.data.datasets import ArrayDataset
+from multimodal_flows_tpu_torch.data.datasets import ArrayDataset, jet_set_to_seq
 from multimodal_flows_tpu_torch.data.state import DataCoupling, MultiModal
 from multimodal_flows_tpu_torch.train.systems import build_system
 from multimodal_flows_tpu_torch.train.trainer import Trainer, TrainState
@@ -166,9 +167,10 @@ def system_kind_of(config: Config) -> str:
     return "MMF"
 
 
-def make_datasets(config: Config) -> Tuple[ArrayDataset, ArrayDataset]:
+def make_datasets(config: Config, kind: str = "MMF") -> Tuple[ArrayDataset, ArrayDataset]:
     """Read the AOJ files of the config (standardized, pT-ordered), put the
-    metadata into `config.metadata`, and split into (train, val)."""
+    metadata into `config.metadata`, and split into (train, val) for the
+    `kind` system."""
     from multimodal_flows_tpu_torch.data.aoj import AspenOpenJets
 
     aoj = AspenOpenJets(data_dir=config.dir_aoj, data_files=config.data_files)
@@ -183,20 +185,30 @@ def make_datasets(config: Config) -> Tuple[ArrayDataset, ArrayDataset]:
         padding="zeros",
     )
     config.metadata = metadata
-    return split_jets(jets, config)
+    return split_jets(jets, config, kind)
 
 
-def split_jets(jets: MultiModal, config: Config) -> Tuple[ArrayDataset, ArrayDataset]:
-    """(train, val) of in-memory jets.  The source carries only the pad
-    mask: x0 and k0 are drawn on the device at every loss call."""
-    coupling = DataCoupling(source=MultiModal(mask=jets.mask), target=jets)
+def split_jets(jets: MultiModal, config: Config,
+               kind: str = "MMF") -> Tuple[ArrayDataset, ArrayDataset]:
+    """(train, val) of in-memory jets.  For the flow systems the source
+    carries only the pad mask: x0 and k0 are drawn on the device at every
+    loss call.  For GPT the target is the jets' token sequences
+    (`jet_set_to_seq`)."""
+    if kind == "GPT":
+        coupling = DataCoupling(target=jet_set_to_seq(jets, config.vocab_size))
+    else:
+        coupling = DataCoupling(source=MultiModal(mask=jets.mask), target=jets)
     return ArrayDataset(coupling).split(config.train_frac, seed=config.seed)
 
 
 def build_trainer(config: Config, kind: str, device="cuda") -> Trainer:
     """The `kind` system on `device` (weights from `config.seed`) inside
-    its trainer.  Raises for what is not ported (GPT, bf16, meshes) and, on
-    the default device, without CUDA."""
+    its trainer.  Raises for what is not ported (bf16, meshes) and, on the
+    default device, without CUDA.  For GPT the sequences hold every
+    particle: `max_seq_length` is set to `max_num_particles` first, as the
+    JAX script's `make_datasets` does."""
+    if kind == "GPT":
+        config.max_seq_length = config.max_num_particles
     system = build_system(config, kind, device=device,
                           generator=torch.Generator().manual_seed(config.seed))
     return Trainer(system, config)
@@ -228,7 +240,7 @@ def main(argv=None):
     else:
         config.mint_experiment_id()
 
-    train_ds, val_ds = make_datasets(config)
+    train_ds, val_ds = make_datasets(config, kind)
     config.save()  # config.yaml, metadata included, into the experiment dir
     log.info(f"experiment dir: {config.experiment_dir} (system {kind}, device {device})")
     trainer.fit(train_ds, val_ds, resume=resume)

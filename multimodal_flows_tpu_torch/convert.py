@@ -4,7 +4,8 @@
 of numpy arrays and returns a state dict whose names mirror the flax
 names.  Given the whole MMF tree (`params['params']`: `encoder` +
 `multitask`) it fits `MMFModel`; given the encoder subtree it fits the
-encoder (`MMFModel.encoder`, or a CFM/MJB system's module):
+encoder (`MMFModel.encoder`, or a CFM/MJB system's module); given a
+`FlavorSeqGPT` tree it fits the GPT system's module:
 
 - a Dense `kernel` (in, out) becomes the Linear `weight` (out, in);
 - `bias` carries over unchanged;

@@ -1,23 +1,32 @@
-"""Self and cross attention over padded or packed particle sets (PyTorch
-port of `multimodal_flows_tpu/models/attention.py`).
+"""Self and cross attention over padded or packed particle sets, and the
+causal self attention of the GPT baseline (PyTorch port of
+`multimodal_flows_tpu/models/attention.py`).
 
-Pre-LN residual blocks around fused-QKV multi-head attention with a
-qk-LayerNorm over the head size, applied in token layout (B, T, H, hs)
-with its parameters shared across heads.  Masking and learned pairwise
-terms enter as an additive key mask (B, T), an additive bias
-broadcastable to (B, H|1, T, T) and (B, T) segment ids.  Self attention
-goes through `ops.attention.multihead_attention_btc` (on CUDA: K2 with a
-bias, K1 without); `CrossAttention` goes head-major through
-`ops.attention.multihead_attention` (K2 on CUDA).
+Pre-LN residual blocks around fused-QKV multi-head attention with an
+optional qk-LayerNorm over the head size, applied in token layout
+(B, T, H, hs) with its parameters shared across heads.  Masking and
+learned pairwise terms enter as an additive key mask (B, T), an additive
+bias broadcastable to (B, H|1, T, T) and (B, T) segment ids.  Self
+attention goes through `ops.attention.multihead_attention_btc` (on CUDA:
+K2 with a bias or a query shorter than its keys, K1 otherwise);
+`CrossAttention` goes head-major through `ops.attention.multihead_attention`
+(K2 on CUDA).
 
 Dropout follows `module.train()` / `module.eval()`: in train mode with
-`dropout > 0` the attention probabilities are dropped (the call then takes
-the plain attention on every device, as the JAX package sends it to XLA and
-never to a Pallas kernel) and the projected output goes through a residual
-`Dropout`; in eval mode, and at `dropout == 0`, nothing changes and the
-kernels run.  The masks come from `dropout_generator`
-(`models.blocks.set_dropout_generator`).  The KV-cache decode branch is
-not ported.
+`attn_dropout > 0` the attention probabilities are dropped (the call then
+takes the plain attention on every device, as the JAX package sends it to
+XLA and never to a Pallas kernel), and with `dropout > 0` the projected
+output goes through a residual `Dropout`; in eval mode, and at rate 0,
+nothing changes and the kernels run.  `attn_dropout` defaults to `dropout`
+(the set encoders); the GPT baseline sets the two apart.  The masks come
+from `dropout_generator` (`models.blocks.set_dropout_generator`).
+
+KV-cache decode (`kv_cache=(k_cache, v_cache, pos)`, the GPT baseline's
+generation): x is the one token at position `pos`; its k and v are written
+into the preallocated (B, seq_len, C) caches in place (the JAX package
+returns updated copies; the port saves the copies) and its query attends to
+the cached positions <= pos under an additive (B, seq_len) key mask.  The
+call returns (y, (k_cache, v_cache, pos)).
 """
 
 from __future__ import annotations
@@ -38,11 +47,12 @@ Tensor = torch.Tensor
 
 class SelfAttention(nn.Module):
     """Fused-QKV multi-head self attention with qk-LayerNorm.  `dropout`
-    is both the probability dropout of the attention and the residual
-    dropout after `c_proj`."""
+    is the residual dropout after `c_proj`; `attn_dropout` (None: the same
+    rate) the probability dropout of the attention."""
 
     def __init__(self, n_embd: int, n_head: int, bias: bool = True,
-                 qk_layernorm: bool = True, dropout: float = 0.0):
+                 qk_layernorm: bool = True, dropout: float = 0.0,
+                 attn_dropout: Optional[float] = None):
         super().__init__()
         if n_embd % n_head:
             raise ValueError(f"n_embd={n_embd} is not a multiple of n_head={n_head}")
@@ -52,22 +62,32 @@ class SelfAttention(nn.Module):
         self.q_layernorm = LayerNorm(hs, bias) if qk_layernorm else None
         self.k_layernorm = LayerNorm(hs, bias) if qk_layernorm else None
         self.c_proj = nn.Linear(n_embd, n_embd, bias=bias)
-        self.dropout = float(dropout)
+        self.attn_dropout = float(dropout if attn_dropout is None else attn_dropout)
         self.dropout_generator: Optional[torch.Generator] = None
         self.resid_drop = Dropout(dropout)
 
     def forward(self, x: Tensor, attn_bias: Optional[Tensor] = None,
                 key_mask: Optional[Tensor] = None,
-                segments: Optional[Tensor] = None) -> Tensor:
+                segments: Optional[Tensor] = None, kv_cache: Optional[tuple] = None):
         B, T, C = x.shape
         H, hs = self.n_head, C // self.n_head
         q, k, v = self.c_attn(x).split(self.n_embd, dim=-1)
         if self.q_layernorm is not None:
             q = self.q_layernorm(q.reshape(B, T, H, hs)).reshape(B, T, C)
             k = self.k_layernorm(k.reshape(B, T, H, hs)).reshape(B, T, C)
+        if kv_cache is not None:
+            k_cache, v_cache, pos = kv_cache
+            k_cache[:, pos:pos + T] = k
+            v_cache[:, pos:pos + T] = v
+            # causal: only the cached positions <= pos are keys
+            Tc = k_cache.shape[1]
+            causal = torch.where(torch.arange(Tc, device=x.device) <= pos, 0.0, -1e9)
+            y = multihead_attention_btc(q.contiguous(), k_cache, v_cache, H, None,
+                                        causal.expand(B, Tc).contiguous())
+            return self.c_proj(y), (k_cache, v_cache, pos)
         y = multihead_attention_btc(q.contiguous(), k.contiguous(), v.contiguous(), H,
                                     attn_bias, key_mask,
-                                    dropout_rate=self.dropout if self.training else 0.0,
+                                    dropout_rate=self.attn_dropout if self.training else 0.0,
                                     generator=self.dropout_generator, segments=segments)
         return self.resid_drop(self.c_proj(y))
 
@@ -109,19 +129,29 @@ class CrossAttention(nn.Module):
 
 
 class SelfAttnBlock(nn.Module):
-    """Pre-LN residual block: x + Attn(LN(x)); x + MLP(LN(x))."""
+    """Pre-LN residual block: x + Attn(LN(x)); x + MLP(LN(x)).
+
+    `attn_dropout` and `activation` exist for the GPT baseline's GPT2
+    semantics (attn_pdrop apart from resid_pdrop, `gelu_new`); the set
+    encoders keep the defaults.  With `kv_cache` the block returns
+    (x, kv_cache), as `SelfAttention` does."""
 
     def __init__(self, n_embd: int, n_head: int, n_inner: Optional[int] = None,
-                 bias: bool = True, qk_layernorm: bool = True, dropout: float = 0.0):
+                 bias: bool = True, qk_layernorm: bool = True, dropout: float = 0.0,
+                 attn_dropout: Optional[float] = None, activation: str = "gelu"):
         super().__init__()
         self.ln1 = LayerNorm(n_embd, bias)
-        self.attn = SelfAttention(n_embd, n_head, bias, qk_layernorm, dropout)
+        self.attn = SelfAttention(n_embd, n_head, bias, qk_layernorm, dropout, attn_dropout)
         self.ln2 = LayerNorm(n_embd, bias)
         self.ffw = MLP(n_embd, n_inner if n_inner is not None else 4 * n_embd, bias=bias,
-                       dropout=dropout)
+                       dropout=dropout, activation=activation)
 
     def forward(self, x: Tensor, attn_bias: Optional[Tensor] = None,
                 key_mask: Optional[Tensor] = None,
-                segments: Optional[Tensor] = None) -> Tensor:
+                segments: Optional[Tensor] = None, kv_cache: Optional[tuple] = None):
+        if kv_cache is not None:
+            y, kv_cache = self.attn(self.ln1(x), kv_cache=kv_cache)
+            x = x + y
+            return x + self.ffw(self.ln2(x)), kv_cache
         x = x + self.attn(self.ln1(x), attn_bias, key_mask, segments)
         return x + self.ffw(self.ln2(x))

@@ -1,7 +1,8 @@
 """Shared network blocks (PyTorch port of `multimodal_flows_tpu/models/blocks.py`).
 
-MLP (fc -> exact GELU -> proj -> dropout), LayerNorm with optional bias
-and fp32 statistics, `Dropout` with an explicit generator, the sinusoidal
+The named activations (`ACTIVATIONS`, `activation_fn`), MLP (fc ->
+activation, exact GELU by default -> proj -> dropout), LayerNorm with
+optional bias and fp32 statistics, `Dropout` with an explicit generator, the sinusoidal
 timestep embedding, the toy model's log-spaced Fourier time features, the
 compact additive key mask and the additive pair mask.  `init_weights` reproduces the JAX
 initialisation: Linear and Embedding weights N(0, 0.02), biases zero,
@@ -18,6 +19,22 @@ import torch.nn.functional as F
 from torch import nn
 
 Tensor = torch.Tensor
+
+#: named activations (the GPT baseline's `activation`; GPT2's `gelu_new` is
+#: the tanh approximation of GELU)
+ACTIVATIONS = {
+    "gelu": F.gelu,
+    "gelu_new": lambda x: F.gelu(x, approximate="tanh"),
+    "relu": F.relu,
+    "silu": F.silu,
+    "tanh": torch.tanh,
+}
+
+
+def activation_fn(name: str):
+    if name not in ACTIVATIONS:
+        raise ValueError(f"unknown activation {name!r}; one of {sorted(ACTIVATIONS)}")
+    return ACTIVATIONS[name]
 
 
 class Dropout(nn.Module):
@@ -51,17 +68,19 @@ def set_dropout_generator(module: nn.Module, generator: Optional[torch.Generator
 
 
 class MLP(nn.Module):
-    """fc -> exact GELU -> proj -> dropout (flax names `c_fc`, `c_proj`)."""
+    """fc -> activation (exact GELU unless named) -> proj -> dropout (flax
+    names `c_fc`, `c_proj`)."""
 
     def __init__(self, n_embd: int, n_inner: int, n_out: Optional[int] = None,
-                 bias: bool = True, dropout: float = 0.0):
+                 bias: bool = True, dropout: float = 0.0, activation: str = "gelu"):
         super().__init__()
         self.c_fc = nn.Linear(n_embd, n_inner, bias=bias)
+        self.act = activation_fn(activation)
         self.c_proj = nn.Linear(n_inner, n_out if n_out is not None else n_embd, bias=bias)
         self.drop = Dropout(dropout)
 
     def forward(self, x: Tensor) -> Tensor:
-        return self.drop(self.c_proj(F.gelu(self.c_fc(x))))
+        return self.drop(self.c_proj(self.act(self.c_fc(x))))
 
 
 class LayerNorm(nn.Module):

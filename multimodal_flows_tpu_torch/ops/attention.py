@@ -9,9 +9,12 @@
   CPU paths and the oracles the kernels are held to.
 - `multihead_attention` (head-major) and `multihead_attention_btc`
   (token-major) dispatch on the tensors' device.  CUDA tensors go to a
-  hand-written kernel: K2 (`ops/set_attention.py`) for head-major calls
-  and for every biased call, K1 (`ops/btc_attention.py`) for bias-free
-  token-major calls.  CPU tensors go to the plain versions.
+  hand-written kernel: K2 (`ops/set_attention.py`) for head-major calls,
+  for every biased call and for every token-major call whose query length
+  differs from its key length (the GPT baseline's KV-cache decode: one
+  query against the cache under a causal key mask); K1
+  (`ops/btc_attention.py`) for the other token-major calls (bias-free,
+  Tq == Tk).  CPU tensors go to the plain versions.
 - A call with `dropout_rate > 0` (a train-mode forward with
   `Config.dropout`) goes to the plain version on every device, by design:
   the JAX package sends attention with probability dropout to its XLA
@@ -131,16 +134,16 @@ def multihead_attention_btc(q: Tensor, k: Tensor, v: Tensor, n_head: int,
                             dropout_rate: float = 0.0,
                             generator: Optional[torch.Generator] = None,
                             segments: Optional[Tensor] = None) -> Tensor:
-    """Attention over token-major (B, T, C) q/k/v with heads packed in C:
-    on CUDA tensors the K2 kernel with a bias and the K1 kernel without
-    one, on CPU tensors the reference; the reference on both when
-    `dropout_rate` > 0."""
+    """Attention over token-major q (B, Tq, C), k/v (B, Tk, C) with heads
+    packed in C: on CUDA tensors the K2 kernel with a bias or with Tq !=
+    Tk, the K1 kernel otherwise; on CPU tensors the reference; the
+    reference on both when `dropout_rate` > 0."""
     if dropout_rate > 0.0:
         PLAIN_DROPOUT_CALLS["token_major"] += 1
         return attention_btc_reference(q, k, v, n_head, key_mask, segments, bias,
                                        dropout_rate, generator)
     if q.device.type == "cuda":
-        if bias is not None:
+        if bias is not None or k.shape[1] != q.shape[1]:
             from multimodal_flows_tpu_torch.ops.set_attention import set_attention_btc
 
             return set_attention_btc(q, k, v, n_head, key_mask, bias, segments)

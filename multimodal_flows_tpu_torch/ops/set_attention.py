@@ -11,7 +11,10 @@ The port uses it for two callers:
 - `set_attention_btc`: token-major (B, T, C) q/k/v with the heads packed
   in C, optionally with (B, T) segment ids, the biased self-attention of
   the pairwise encoders (co-occurrence, FlavorFormer pairwise, Lund),
-  which JAX runs as `_xla_attention_btc(bias=...)`.
+  which JAX runs as `_xla_attention_btc(bias=...)`, and the GPT
+  baseline's attention, which JAX runs in XLA too: its full forward under
+  a (1, 1, T, T) causal bias, and its KV-cache decode, one query against
+  the (B, seq_len, C) caches under a (B, seq_len) causal key mask.
 
 Both hand the kernel strided views, so neither layout is copied, and a
 broadcast bias (a zero stride) is never expanded.  The source file says

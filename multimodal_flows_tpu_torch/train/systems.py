@@ -76,13 +76,14 @@ def _placed(module: nn.Module, device: torch.device,
 
 
 @contextlib.contextmanager
-def _dropout_mode(module: nn.Module, config: Config, train: bool,
+def _dropout_mode(module: nn.Module, rate: float, train: bool,
                   generator: Optional[torch.Generator]):
-    """The forward inside runs with dropout when `train and config.dropout
-    > 0` (train mode, the masks from `generator`) and without it otherwise
-    (eval mode); the module's mode is restored after.  At `dropout == 0`
-    the mode makes no difference and is left alone."""
-    if config.dropout <= 0:
+    """The forward inside runs with dropout when `train and rate > 0` (train
+    mode, the masks from `generator`) and without it otherwise (eval mode);
+    the module's mode is restored after.  At `rate == 0` the mode makes no
+    difference and is left alone.  `rate` is the largest dropout rate of
+    the module (`Config.dropout` for the flow systems)."""
+    if rate <= 0:
         yield
         return
     was_training = module.training
@@ -183,7 +184,7 @@ class MMF:
         kt = self.bridge_discrete.sample(generator, t, k0, target.discrete)
         state = MultiModal(time=t, continuous=xt, discrete=kt, mask=mask)
         drift = self.bridge_continuous.conditional_drift(xt, x0, target.continuous)
-        with _dropout_mode(module, self.config, train, generator):
+        with _dropout_mode(module, self.config.dropout, train, generator):
             return _mmf_metrics(module.training_loss(state, drift, target.discrete))
 
     def packed_loss_fn(self, batch: PackedJets, generator: Optional[torch.Generator] = None,
@@ -203,7 +204,7 @@ class MMF:
         kt = self.bridge_discrete.sample(generator, t_tok, k0, k1)
         state = MultiModal(time=t_tok, continuous=xt, discrete=kt, mask=mask)
         drift = self.bridge_continuous.conditional_drift(xt, x0, x1)
-        with _dropout_mode(module, self.config, train, generator):
+        with _dropout_mode(module, self.config.dropout, train, generator):
             return _mmf_metrics(module.packed_training_loss(
                 state, drift, k1, t_jets, batch.segments, batch.jet_valid))
 
@@ -273,7 +274,7 @@ class CFM:
         if x0 is None:
             x0 = self.bridge_continuous.draw_source(generator, x1, mask)
         xt = self.bridge_continuous.sample(generator, t, x0, x1)
-        with _dropout_mode(module, self.config, train, generator):
+        with _dropout_mode(module, self.config.dropout, train, generator):
             vt = module(MultiModal(time=t, continuous=xt, mask=mask), segments, num_segments)
         loss = global_masked_mse(vt, self.bridge_continuous.conditional_drift(xt, x0, x1), mask)
         return loss, {"loss": loss, "loss_mse": loss}
@@ -331,7 +332,7 @@ class MJB:
         if k0 is None:
             k0 = self.bridge_discrete.draw_source(generator, k1.shape, mask)
         kt = self.bridge_discrete.sample(generator, t, k0, k1)
-        with _dropout_mode(module, self.config, train, generator):
+        with _dropout_mode(module, self.config.dropout, train, generator):
             logits = module(MultiModal(time=t, discrete=kt, mask=mask), segments, num_segments)
         loss = global_masked_ce(logits, k1, mask)
         return loss, {"loss": loss, "loss_ce": loss}
@@ -359,8 +360,10 @@ SYSTEM_REGISTRY = {"MMF": MMF, "CFM": CFM, "MJB": MJB}
 
 def build_system(config: Config, kind: str = "MMF", device="cuda",
                  generator: Optional[torch.Generator] = None):
-    """The `kind` system on `device` (CUDA unless the caller asks for the
-    CPU), weights from `generator`."""
+    """The `kind` system ("MMF", "CFM", "MJB" or "GPT") on `device` (CUDA
+    unless the caller asks for the CPU), weights from `generator`."""
     if kind == "GPT":
-        raise KeyError("the GPT baseline is not ported yet (ROADMAP.md Queue 1 item 20)")
+        from multimodal_flows_tpu_torch.train.gpt import GPT
+
+        return GPT(config, device=device, generator=generator)
     return SYSTEM_REGISTRY[kind](config, device=device, generator=generator)

@@ -191,8 +191,7 @@ def test_round_trip_of_the_other_systems(tmp_path, kind, model_flags):
     (["--fsdp"], NotImplementedError, "ROADMAP.md Queue 1 item 22"),
     (["--tensor_parallel", "2"], NotImplementedError, "ROADMAP.md Queue 1 item 22"),
     (["--compute_dtype", "bfloat16"], NotImplementedError, "ROADMAP.md Queue 2"),
-    (["--system", "GPT"], KeyError, "ROADMAP.md Queue 1 item 20"),
-], ids=["fsdp", "tensor_parallel", "bfloat16", "gpt"])
+], ids=["fsdp", "tensor_parallel", "bfloat16"])
 def test_flags_of_what_is_not_ported_raise_before_any_file_is_written(tmp_path, flags, error,
                                                                        match):
     exp_dir = str(tmp_path / "experiments")
@@ -213,11 +212,27 @@ def test_entry_points_raise_without_cuda_unless_asked_for_the_cpu(tmp_path, trai
         sample_mmf.main(trained["common"] + ["-id", trained["exp_id"], "--num_jets", "8"])
 
 
-def test_a_gpt_experiment_raises_in_the_sampling_entry_point(tmp_path):
-    cfg = Config(dir=str(tmp_path), experiment_id="gpt", tags=["system:GPT"])
-    cfg.save()
-    with pytest.raises(KeyError, match="ROADMAP.md Queue 1 item 20"):
-        sample_mmf.main(["--dir", str(tmp_path), "-id", "gpt", "--device", "cpu"])
+def test_gpt_round_trip_through_both_entry_points(tmp_path):
+    """`--system GPT` trains on the token sequences of the jets
+    (`max_seq_length` = `max_num_particles`), and the sampling entry point
+    writes the stripped token sample as `sample.npy` where the JAX script
+    writes it; two runs on one seed give the same sample."""
+    aoj, exp_dir = _aoj_dir(tmp_path), str(tmp_path / "experiments")
+    common = ["--dir", exp_dir, "--dir_aoj", aoj]
+    _run(train_mmf.main, common + TINY + ["--max_epochs", "1", "--system", "GPT"])
+    exp_id, exp = _only_experiment(exp_dir)
+    cfg = Config.load(exp)
+    assert cfg.tags == ["system:GPT"] and cfg.max_seq_length == cfg.max_num_particles == 8
+    argv = common + ["-id", exp_id, "--num_jets", "20", "--batch_size", "16", "--checkpoint",
+                     "last", "--temperature", "0.8", "--device", "cpu"]
+    _run(sample_mmf.main, argv)
+    path = os.path.join(exp, "generation_results__gpt_temp_0.8", "sample.npy")
+    sample = np.load(path)
+    assert sample.shape == (20, 8) and sample.min() >= 0 and sample.max() <= cfg.vocab_size
+    _run(sample_mmf.main, argv)
+    np.testing.assert_array_equal(np.load(path), sample)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sample_mmf.main(argv[:-2])
 
 
 def test_training_flags_and_defaults_are_the_jax_scripts(tmp_path):

@@ -383,8 +383,8 @@ def test_generate_packed_runs_each_system_on_cpu(kind, cfg_kw):
 def test_unported_modes_raise_with_roadmap_pointer():
     """The solver modes are all ported: each builds, and an unknown method
     raises ValueError as in JAX.  The toy model builds and jet substructure
-    computes.  What still raises names its ROADMAP item: the GPT baseline,
-    meshes, bf16 compute."""
+    computes.  What still raises names its ROADMAP item: meshes, bf16
+    compute."""
     solvers.ContinuousSolver(None, method="euler_maruyama")
     for method in ("tauleap-bernouilli", "euler", "jump_or_stay"):
         solvers.DiscreteSolver(None, None, 9, method=method, top_p=0.9)
@@ -392,8 +392,6 @@ def test_unported_modes_raise_with_roadmap_pointer():
         solvers.ContinuousSolver(None, method="heun")
     with pytest.raises(ValueError, match="unknown discrete method"):
         solvers.DiscreteSolver(None, None, 9, method="tauleap-bernoulli")
-    with pytest.raises(KeyError, match="ROADMAP.md Queue 1 item 20"):
-        systems.build_system(Config(), "GPT")
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 22"):
         Trainer(None, Config(mesh_shape={"data": 2}))
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 2"):
