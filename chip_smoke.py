@@ -109,7 +109,23 @@
    - `cli.sample_mmf.sample_gpt` on that checkpoint, 512 jets at batch 256:
      K2's key-mask form exactly 5 x 151 launches a batch, BOS first, PAD
      after EOS; jets/s, and the decode step under the profiler.
-10. Prints one JSON line of the kernels, the card line, and the contract
+10. The meshes (`mesh_phase`, right after the kernels' timings):
+   - K1 at the per-rank shapes of tensor_parallel=2, H=2 at C=64 and
+     C=128 (B=128, T=128), in its segment and key-mask forms, and K2 with a
+     (B, 2, T, T) bias + segments, against the plain version with
+     gradients, then timed as in 4;
+   - NCCL at world size 1 on cuda:0: the flagship's packed step plain,
+     data parallel and FSDP2 on one batch (84 rows) with the same draws:
+     loss, every gradient and the weights after the update equal, K1 16
+     launches a forward in each; each layout's step timed (wall, device
+     time, launches, NCCL kernel time, peak memory); an FSDP `fit` whose
+     `last` reloads into a plain one-device system to the logged val_loss;
+   - two processes sharing the card over gloo (CUDA tensors): a data
+     parallel and a tensor_parallel=2 step equal to the plain step (K1 at
+     H=2, 16 a forward), and 128 jets sampled over the data mesh at 8
+     steps equal to one process's on one seed.  A collective gloo refuses
+     fails the run with its name.
+11. Prints one JSON line of the kernels, the card line, and the contract
    line {"ok": true, "device": {...}} last.  Any failure exits non-zero.
 
 Against earlier versions of this script the two MMF sampling paths run 50
@@ -149,6 +165,8 @@ from multimodal_flows_tpu_torch.ops import btc_attention as k1
 from multimodal_flows_tpu_torch.ops import cuda_build
 from multimodal_flows_tpu_torch.ops import set_attention as k2
 from multimodal_flows_tpu_torch.ops.attention import attention_btc_reference, attention_reference
+from multimodal_flows_tpu_torch.parallel import tensor_parallel as tpar
+from multimodal_flows_tpu_torch.parallel.mesh import data_rows
 from multimodal_flows_tpu_torch.sampling.generator import generate_packed
 from multimodal_flows_tpu_torch.train import physics_eval
 from multimodal_flows_tpu_torch.train.systems import build_system
@@ -494,6 +512,56 @@ def _print_time(name, shape, form, t):
           f"{t['ms'] / t['bound_ms']:.2f}")
 
 
+def _time_packed(shape, dev):
+    """{"K1": times, "K2": times} at packed rows of `shape`: K1 in its
+    segment form, K2 in its bias + segments form, each with its plain
+    version, the library call and its bound."""
+    q, k, v, _, seg, bias, real = _case_inputs(shape, "bias_segments", dev)
+    B, T, C, H = shape
+    same = seg[:, None, :, None] == seg[:, None, None, :]
+    # (query, key) pairs of one jet: the only ones the function reads a
+    # bias entry for and computes a product of
+    pairs = int((same[:, 0] & real[:, :, None]).sum())
+    cross = torch.where(same, 0.0, -1e9)
+    forms = {
+        "K1": ("segments", lambda: k1.btc_attention(q, k, v, H, None, seg),
+               lambda: attention_btc_reference(q, k, v, H, None, seg),
+               cross, 4 * seg.numel()),
+        "K2": (f"bias {tuple(bias.shape)} + segments",
+               lambda: k2.set_attention_btc(q, k, v, H, None, bias, seg),
+               lambda: attention_btc_reference(q, k, v, H, None, seg, bias),
+               (bias + cross).contiguous(), 4 * (seg.numel() + H * pairs)),
+    }
+    result = {}
+    for name, (form, kernel, plain, mask, extra) in forms.items():
+        library = _library_call(q, k, v, H, plain(), real, f"{name} {shape}", attn_mask=mask)
+        ms, plain_ms, library_ms = median_device_ms([kernel, plain, library])
+        bound_ms, bound_by = _bound(q, pairs, extra)
+        t = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                 bound_by=bound_by)
+        _print_time(name, shape, form, t)
+        result[name] = t
+    return result
+
+
+def _time_key_mask(shape, dev):
+    """K1 in its key-mask form at `shape` (no key tile skipped), with its
+    plain version, the library call and its bound."""
+    q, k, v, km, _, _, real = _case_inputs(shape, "key_mask", dev)
+    H = shape[3]
+    plain = lambda: attention_btc_reference(q, k, v, H, km)  # noqa: E731
+    library = _library_call(q, k, v, H, plain(), real, f"K1 {shape} key_mask",
+                            attn_mask=km[:, None, None, :])
+    ms, plain_ms, library_ms = median_device_ms(
+        [lambda: k1.btc_attention(q, k, v, H, km, None), plain, library])
+    n_real = real.sum(dim=1)
+    bound_ms, bound_by = _bound(q, int((n_real * n_real).sum()), 4 * km.numel())
+    t = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+             bound_by=bound_by)
+    _print_time("K1", shape, "key_mask", t)
+    return t
+
+
 def time_kernels(dev):
     """{(kernel, shape): times} at the packed-row shapes: K1 in its segment
     form, K2 in its bias + segments form; then K1 in its key-mask form on
@@ -502,44 +570,9 @@ def time_kernels(dev):
     result = {}
     with torch.no_grad():
         for shape in TIMED:
-            q, k, v, _, seg, bias, real = _case_inputs(shape, "bias_segments", dev)
-            B, T, C, H = shape
-            same = seg[:, None, :, None] == seg[:, None, None, :]
-            # (query, key) pairs of one jet: the only ones the function
-            # reads a bias entry for and computes a product of
-            pairs = int((same[:, 0] & real[:, :, None]).sum())
-            cross = torch.where(same, 0.0, -1e9)
-            forms = {
-                "K1": ("segments", lambda: k1.btc_attention(q, k, v, H, None, seg),
-                       lambda: attention_btc_reference(q, k, v, H, None, seg),
-                       None, cross, 4 * seg.numel()),
-                "K2": ("bias (B,H,T,T) + segments",
-                       lambda: k2.set_attention_btc(q, k, v, H, None, bias, seg),
-                       lambda: attention_btc_reference(q, k, v, H, None, seg, bias),
-                       bias, (bias + cross).contiguous(), 4 * (seg.numel() + H * pairs)),
-            }
-            for name, (form, kernel, plain, b, mask, extra) in forms.items():
-                library = _library_call(q, k, v, H, plain(), real, f"{name} {shape}",
-                                        attn_mask=mask)
-                ms, plain_ms, library_ms = median_device_ms([kernel, plain, library])
-                bound_ms, bound_by = _bound(q, pairs, extra)
-                t = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                         bound_by=bound_by)
-                _print_time(name, shape, form, t)
+            for name, t in _time_packed(shape, dev).items():
                 result[name, shape] = t
-        q, k, v, km, _, _, real = _case_inputs(TIMED_WIDE, "key_mask", dev)
-        H = TIMED_WIDE[3]
-        plain = lambda: attention_btc_reference(q, k, v, H, km)  # noqa: E731
-        library = _library_call(q, k, v, H, plain(), real, f"K1 {TIMED_WIDE} key_mask",
-                                attn_mask=km[:, None, None, :])
-        ms, plain_ms, library_ms = median_device_ms(
-            [lambda: k1.btc_attention(q, k, v, H, km, None), plain, library])
-        n_real = real.sum(dim=1)
-        bound_ms, bound_by = _bound(q, int((n_real * n_real).sum()), 4 * km.numel())
-        t = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                 bound_by=bound_by)
-        _print_time("K1", TIMED_WIDE, "key_mask", t)
-        result["K1", TIMED_WIDE] = t
+        result["K1", TIMED_WIDE] = _time_key_mask(TIMED_WIDE, dev)
     return result
 
 
@@ -947,7 +980,9 @@ def time_training(dev, trainer, state, train_ds, n=20, n_prof=5, label="flagship
           f"of the backward)")
     return dict(config=label, wall_ms=wall_ms, jets_per_s=jets_per_s, device_ms=total_ms,
                 busy_share=_share(total_ms, wall_ms), launches_per_step=launches, **split,
-                attention_forward_ms=attn_fwd_ms, attention_backward_ms=attn_bwd_ms)
+                attention_forward_ms=attn_fwd_ms, attention_backward_ms=attn_bwd_ms,
+                collective_ms=prof.kernel_ms("nccl"), memcpy_ms=prof.kernel_ms("Memcpy"),
+                memcpy_per_step=sum(c for name, _, c in prof.kernels if "Memcpy" in name))
 
 
 def train_coocc(dev, train_ds, steps=5):
@@ -1834,6 +1869,292 @@ def gpt_phase(dev, out_dir):
     return train_launches, sample_launches, numbers
 
 
+# --------------------------------------------------------------- meshes
+#
+# mesh_phase: the port's meshes on the card.  Tensor parallelism at
+# tensor_parallel=2 gives each rank H=2 of the flagship's 4 heads: K1 and K2
+# then run at C=64 (head size 32, the half-width streams) and C=128 (head
+# size 64, the fused blocks), the co-occurrence bias at (B, 2, T, T).
+
+TP_SHAPES = [(128, 128, 64, 2), (128, 128, 128, 2)]
+MESH_TIMEOUT_S = 300
+# sampling over two ranks: 128 jets of AOJ-like multiplicity, 8 steps
+MESH_SAMPLE_JETS, MESH_SAMPLE_STEPS = 128, 8
+# every flagship forward: 5 + 5 half-width blocks and 6 fused blocks
+K1_PER_FORWARD = 16
+
+
+def check_tp_shapes(dev):
+    """K1 (segments and key mask) and K2 (bias (B, 2, T, T) + segments) at
+    the per-rank shapes of tensor_parallel=2, against the plain version with
+    their gradients (K2's with the bias's); then each timed as
+    `time_kernels` times them.  Returns (worst errors, times)."""
+    worst, times = {"K1": 0.0, "K2": 0.0}, {}
+    for shape in TP_SHAPES:
+        H = shape[3]
+        for form in ("segments", "key_mask"):
+            q, k, v, km, seg, _, real = _case_inputs(shape, form, dev, seed=11)
+            worst["K1"] = max(worst["K1"], _held(
+                f"K1 (TP shard) vs plain {shape} {form}", k1.btc_attention(q, k, v, H, km, seg),
+                attention_btc_reference(q, k, v, H, km, seg), real))
+            _grads_held(f"K1 (TP shard) {shape} {form}",
+                        [lambda a, b, c: k1.btc_attention(a, b, c, H, km, seg),
+                         lambda a, b, c: attention_btc_reference(a, b, c, H, km, seg)],
+                        [q, k, v])
+        q, k, v, _, seg, bias, real = _case_inputs(shape, "bias_segments", dev, seed=12)
+        worst["K2"] = max(worst["K2"], _held(
+            f"K2 (TP shard) vs plain {shape} bias {tuple(bias.shape)} + segments",
+            k2.set_attention_btc(q, k, v, H, None, bias, seg),
+            attention_btc_reference(q, k, v, H, None, seg, bias), real))
+        _grads_held(f"K2 (TP shard) {shape} bias + segments",
+                    [lambda a, b, c, d: k2.set_attention_btc(a, b, c, H, None, d, seg),
+                     lambda a, b, c, d: attention_btc_reference(a, b, c, H, None, seg, d)],
+                    [q, k, v, bias])
+    with torch.no_grad():
+        for shape in TP_SHAPES:
+            for name, t in _time_packed(shape, dev).items():
+                times[name, shape, "segments"] = t
+            times["K1", shape, "key_mask"] = _time_key_mask(shape, dev)
+    return worst, times
+
+
+def _mesh_batch(train_ds):
+    """The flagship's first packed row batch, cut to an even number of rows
+    (84) so that two data ranks take equal shares; host arrays."""
+    trainer = Trainer(_system("MMF", TRAIN, torch.device("cpu")), Config(**TRAIN), mesh=None)
+    batch = _first_batch(trainer, train_ds)
+    return batch[np.arange(len(batch) - len(batch) % 2)]
+
+
+def _layout_step(dev, cfg_kw, mesh, batch):
+    """One flagship train step in the layout of `cfg_kw` over `mesh` ("auto"
+    or None), on `batch` (global rows; each rank runs its share) with fixed
+    draws: the loss, every full gradient, the full weights after the update,
+    the forward's launches, and the trainer and its state."""
+    cfg = Config(**cfg_kw)
+    system = build_system(cfg, "MMF", device=dev, generator=torch.Generator().manual_seed(0))
+    trainer = Trainer(system, cfg, mesh=mesh)
+    state = trainer.init_state(10)
+    state.module.train()
+    batch = batch.to(dev)
+    _reset_counts()
+    loss, _ = system.loss_fn(batch, torch.Generator(device=dev).manual_seed(3), train=True,
+                             module=state.module, rows=data_rows(len(batch), trainer.mesh))
+    launches = _counts()
+    state.optimizer.zero_grad(set_to_none=True)
+    loss.backward()
+    # before the update: a data-parallel rank's own gradients (its share);
+    # FSDP's are reduced in the backward, TP's gathered here.  Host copies:
+    # an unsharded module's gradients are clipped in place and its state
+    # dict aliases the parameters, and the card's memory stays the layout's
+    grads = {n: tpar._full(p.grad, p).to("cpu", copy=True)
+             for n, p in state.module.named_parameters()}
+    trainer._update(state)
+    after = {n: w.to("cpu", copy=True) for n, w in tpar.full_state_dict(state.module).items()}
+    state.module.eval()
+    return loss.item(), grads, after, launches, trainer, state
+
+
+def _same_step(name, ref, got, loss_rtol=TRAIN_LOSS_RTOL):
+    """A layout's step against the plain step: loss, gradients, weights."""
+    (loss_a, grads_a, after_a), (loss_b, grads_b, after_b) = ref, got
+    rel = abs(loss_b - loss_a) / abs(loss_a)
+    worst, worst_name = max((float(((grads_b[n].cpu() - g.cpu()).abs()
+                                    / (TRAIN_GRAD_ATOL + TRAIN_GRAD_RTOL * g.cpu().abs())).max()),
+                             n) for n, g in grads_a.items())
+    err = max(float((after_b[n].cpu() - w.cpu()).abs().max()) for n, w in after_a.items())
+    print(f"{name} vs the plain step: loss {loss_b:.7f} vs {loss_a:.7f} (rel {rel:.3e} <= "
+          f"{loss_rtol}); {len(grads_a)} gradients, worst |diff| / (atol {TRAIN_GRAD_ATOL} + "
+          f"rtol {TRAIN_GRAD_RTOL} |g|) = {worst:.3f} (<= 1, {worst_name}); weights after the "
+          f"update max_abs_err {err:.3e} (atol {UPDATE_ATOL})")
+    if rel > loss_rtol or worst > 1.0 or err > UPDATE_ATOL:
+        raise AssertionError(f"{name}: the step disagrees with the plain step")
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def nccl_world_one(dev, train_ds, val_ds, out_dir, batch):
+    """NCCL at world size 1 on the card, through the real wrappers: the
+    flagship's step plain, data parallel (one NCCL all-reduce of the
+    gradients a step) and FSDP2, on one batch with the same draws: equal
+    losses, gradients and weights, K1 16 launches a forward in each; each
+    layout's step timed (`time_training`: wall, device time, launches, the
+    NCCL kernels' time) with its peak memory.  Then an FSDP `fit`, whose
+    `last` reloads into a plain one-device system and gives the logged
+    val_loss.  Returns ({layout: numbers}, the fit's val losses, the plain
+    step)."""
+    torch.distributed.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}",
+                                         rank=0, world_size=1, device_id=dev)
+    numbers, steps, live = {}, {}, {}
+    try:
+        for layout, cfg_kw, mesh in (("plain", TRAIN, None), ("data parallel", TRAIN, "auto"),
+                                     ("FSDP2", dict(TRAIN, fsdp=True), "auto")):
+            # the layout's own peak: above what the earlier layouts hold
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            loss, grads, after, launches, trainer, state = _layout_step(dev, cfg_kw, mesh, batch)
+            print(f"mesh, NCCL world size 1, {layout}: mesh {trainer.mesh}; forward launches "
+                  f"{launches}")
+            if launches["K1"]["segments"] != K1_PER_FORWARD or _total(launches["K2"]):
+                raise AssertionError(f"{layout}: K1 did not run {K1_PER_FORWARD} times a "
+                                     "forward in its segment form, or K2 ran")
+            steps[layout] = (loss, grads, after)
+            if layout != "plain":
+                _same_step(f"NCCL world size 1, {layout}", steps["plain"], steps[layout])
+            t = time_training(dev, trainer, state, train_ds, n=10, n_prof=3,
+                              label=f"flagship, {layout}, NCCL world size 1")
+            t["peak_mib"] = (torch.cuda.max_memory_allocated() - base) / 2**20
+            t["forward_k1_launches"] = launches["K1"]["segments"]
+            t["walls_ms"] = [t["wall_ms"]]
+            print(f"{layout}: peak max_memory_allocated {t['peak_mib']:.1f} MiB above the "
+                  f"{base / 2**20:.1f} MiB held before; NCCL kernels {t['collective_ms']:.4f} ms, "
+                  f"memcpy {t['memcpy_ms']:.4f} ms ({t['memcpy_per_step']:.0f}) a step")
+            numbers[layout], live[layout] = t, (trainer, state)
+        # the walls again in reverse order (turns plain, DP, FSDP, FSDP, DP,
+        # plain): the host's speed drifts within a call
+        for layout in reversed(list(live)):
+            again = time_training(dev, *live[layout], train_ds, n=10, n_prof=3,
+                                  label=f"flagship, {layout}, NCCL world size 1, second turn")
+            numbers[layout]["walls_ms"].append(again["wall_ms"])
+        live.clear()
+
+        # an FSDP fit: its checkpoint holds full tensors and loads into one device
+        cfg = Config(**dict(TRAIN, fsdp=True, max_epochs=1, dir=out_dir, experiment_id="fsdp"))
+        trainer = Trainer(_system("MMF", dict(TRAIN, fsdp=True), dev), cfg)
+        trainer.fit(train_ds, val_ds)
+        logged = [json.loads(line) for line in open(
+            os.path.join(cfg.experiment_dir, "metrics.jsonl"))][-1]["val_loss"]
+        fresh = build_system(cfg, "MMF", device=dev)
+        plain = Trainer(fresh, Config(**TRAIN), mesh=None)
+        fresh.module.load_state_dict(trainer.load_for_inference("last"))
+        reloaded = plain.evaluate(val_ds, fresh.module, epoch=0)["val_loss"]
+        print(f"FSDP fit: val_loss logged {logged:.7f}, `last` reloaded into a plain system "
+              f"{reloaded:.7f} (rel 1e-5)")
+        if abs(reloaded - logged) > 1e-5 * abs(logged):
+            raise AssertionError("the FSDP checkpoint does not reload to the logged val_loss")
+    finally:
+        torch.distributed.destroy_process_group()
+    return numbers, dict(val_loss_logged=logged, val_loss_reloaded=reloaded), steps["plain"]
+
+
+def _two_rank_worker(rank, port, out_dir, device, train_kw, flagship_kw):
+    """One of two ranks sharing `device` (cuda:0) over gloo with its
+    tensors: a data parallel step and a tensor_parallel=2 step of
+    `train_kw` on the parent's batch (`batch.pt`), and `generate_packed` of
+    `flagship_kw` over the data mesh on the parent's masks (`masks.npy`)."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    torch.distributed.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                                         rank=rank, world_size=2)
+    try:
+        batch = torch.load(os.path.join(out_dir, "batch.pt"), weights_only=False)
+        res = {}
+        for layout, cfg_kw in (("dp", train_kw), ("tp", dict(train_kw, tensor_parallel=2))):
+            loss, grads, after, launches, trainer, state = _layout_step(dev, cfg_kw, "auto",
+                                                                        batch)
+            heads = state.module.encoder.block_fuse_0.attn.n_head
+            res[layout] = dict(loss=loss, after={n: w.cpu() for n, w in after.items()},
+                               grads={n: g.cpu() for n, g in grads.items()},
+                               launches=launches, heads=heads, mesh=str(trainer.mesh))
+            del trainer, state
+        system = _system("MMF", flagship_kw, dev)
+        mesh = Trainer(system, Config(**flagship_kw)).mesh
+        res["sample"] = generate_packed(system, np.load(os.path.join(out_dir, "masks.npy")),
+                                        num_timesteps=MESH_SAMPLE_STEPS,
+                                        pack_width=train_kw["pack_width"], batch_size=128,
+                                        seed=0, mesh=mesh).sample
+        torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def two_ranks_one_card(dev, plain_step, batch, out_dir):
+    """Two processes sharing the card over gloo (CUDA tensors): their data
+    parallel and tensor-parallel steps against the plain step on the same
+    global batch and draws (K1 at H=2 in the TP step), and 128 jets sampled
+    over the data mesh at 8 steps against one process on one seed.  A
+    collective that gloo refuses fails the phase with its name (the
+    worker's traceback)."""
+    import torch.multiprocessing as mp
+
+    torch.save(batch, os.path.join(out_dir, "batch.pt"))
+    width = TRAIN["pack_width"]
+    mult = _multiplicities(np.random.default_rng(8), MESH_SAMPLE_JETS, width)
+    masks = _pad_masks(mult, FLAGSHIP["max_num_particles"])
+    np.save(os.path.join(out_dir, "masks.npy"), masks)
+    t0 = time.perf_counter()
+    ctx = mp.spawn(_two_rank_worker, args=(_free_port(), out_dir, str(dev), TRAIN, FLAGSHIP),
+                   nprocs=2, join=False)
+    deadline = time.monotonic() + MESH_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=1):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"the two ranks did not finish in {MESH_TIMEOUT_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    wall = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
+             for r in range(2)]
+
+    # data parallel: each rank's loss and gradients are its share, scaled so
+    # that their mean over the ranks is the global batch's
+    dp_loss = float(np.mean([r["dp"]["loss"] for r in ranks]))
+    dp_grads = {n: (ranks[0]["dp"]["grads"][n] + ranks[1]["dp"]["grads"][n]) / 2
+                for n in ranks[0]["dp"]["grads"]}
+    for r, res in enumerate(ranks):
+        print(f"two ranks on one card, rank {r}: dp mesh {res['dp']['mesh']}, forward launches "
+              f"{res['dp']['launches']}; tp mesh {res['tp']['mesh']}, {res['tp']['heads']} heads "
+              f"a rank, forward launches {res['tp']['launches']}")
+        if res["tp"]["heads"] != 2 or res["tp"]["launches"]["K1"]["segments"] != K1_PER_FORWARD:
+            raise AssertionError("the TP step did not run K1 at H=2, 16 times a forward")
+        _same_step(f"gloo rank {r}, data parallel (the ranks' mean loss and gradients)",
+                   plain_step, (dp_loss, dp_grads, res["dp"]["after"]))
+        _same_step(f"gloo rank {r}, tensor_parallel=2", plain_step,
+                   (res["tp"]["loss"], res["tp"]["grads"], res["tp"]["after"]))
+
+    single = generate_packed(_system("MMF", FLAGSHIP, dev), masks,
+                             num_timesteps=MESH_SAMPLE_STEPS, pack_width=width, batch_size=128,
+                             seed=0).sample
+    real = single.mask[..., 0] > 0
+    for r, res in enumerate(ranks):
+        s = res["sample"]
+        err = float((s.continuous - single.continuous).abs().max())
+        same = float((s.discrete[..., 0] == single.discrete[..., 0])[real].float().mean())
+        print(f"sampling over 2 ranks (rank {r}): {len(s)} jets, continuous max_abs_err "
+              f"{err:.3e} (atol 1e-4), tokens equal on {same:.4f} of real sites (>= 0.999)")
+        if len(s) != len(single) or err > 1e-4 or same < 0.999:
+            raise AssertionError("sampling over two ranks disagrees with one process")
+    return dict(wall_s=wall, dp_loss=dp_loss, tp_loss=ranks[0]["tp"]["loss"],
+                plain_loss=plain_step[0])
+
+
+def mesh_phase(dev, train_ds, val_ds, out_dir):
+    """The meshes: K1 / K2 at the TP shard shapes (held, timed), NCCL at
+    world size 1 (plain, data parallel, FSDP2), then two ranks on the one
+    card over gloo (data parallel, tensor parallel, sharded sampling)."""
+    t0 = time.perf_counter()
+    worst, tp_times = check_tp_shapes(dev)
+    batch = _mesh_batch(train_ds)
+    layouts, fsdp_fit, plain_step = nccl_world_one(dev, train_ds, val_ds, out_dir, batch)
+    two = two_ranks_one_card(dev, plain_step, batch, out_dir)
+    wall = time.perf_counter() - t0
+    print(f"mesh phase: {wall:.1f} s")
+    return worst, tp_times, dict(layouts=layouts, fsdp_fit=fsdp_fit, two_ranks=two,
+                                 wall_s=wall)
+
+
 def _system(kind, cfg_kw, dev):
     system = build_system(Config(**cfg_kw), kind, device=dev,
                           generator=torch.Generator().manual_seed(0))
@@ -1891,6 +2212,13 @@ def main() -> None:
     times = time_kernels(dev)
     gpt_times = time_gpt_attention(dev)
 
+    train_ds, val_ds = _train_data(np.random.default_rng(5))
+    build_dir = Path(__file__).resolve().parent / "build"
+    build_dir.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as out_dir:
+        mesh_err, tp_times, mesh = mesh_phase(dev, train_ds, val_ds, out_dir)
+    err = {k: max(v, mesh_err[k]) for k, v in err.items()}
+
     rng = np.random.default_rng(0)
     mult = _jets(rng, 512, 4)
 
@@ -1919,11 +2247,8 @@ def main() -> None:
               lambda l1, l2: "did not run K2" if not sum(l2.values()) else "")
         del system
 
-    train_ds, val_ds = _train_data(np.random.default_rng(5))
     train_card_vs_cpu(dev, train_ds)
     fit_fixed_batch(dev, train_ds)
-    build_dir = Path(__file__).resolve().parent / "build"
-    build_dir.mkdir(exist_ok=True)
     steps_timed = []
     with tempfile.TemporaryDirectory(dir=build_dir) as out_dir:
         train_launches, trainer, state, peak = train_flagship(dev, train_ds, val_ds, out_dir)
@@ -1978,6 +2303,8 @@ def main() -> None:
     print(json.dumps({"entry_points": {"card": card, "cli": cli_numbers, "toy": toy,
                                        "substructure": substructure}}))
     print(json.dumps({"gpt": {"card": card, **gpt}}))
+    print(json.dumps({"mesh": {"card": card, **mesh, "tp_shapes": {
+        f"{name} {shape} {form}": t for (name, shape, form), t in tp_times.items()}}}))
 
     print(json.dumps({"training": {"card": card, "shape": "packed rows of 128, 256 jets/step",
                                    "steps": steps_timed,
@@ -2006,7 +2333,11 @@ def main() -> None:
          "launches_epic": _total(epic_launches["K1"]) + _total(epic_train_launches["K1"]),
          "launches_cli_training": _total(cli_train_launches["K1"]),
          "launches_cli_sampling": _total(cli_sample_launches["K1"]),
-         "max_abs_err": err["K1"], **timed("K1")},
+         "launches_mesh_forward": {k: v["forward_k1_launches"]
+                                   for k, v in mesh["layouts"].items()},
+         "max_abs_err": err["K1"], **timed("K1"),
+         **{f"tp_c{shape[2]}_{form}": tp_times["K1", shape, form]
+            for shape in TP_SHAPES for form in ("segments", "key_mask")}},
         {"name": "set_attention (K2, timed at B=128 T=128 H=4 bias + segments, "
                  "C=128 and C=256)",
          "route": "cuda",
@@ -2020,7 +2351,9 @@ def main() -> None:
          "launches_gpt_training": _total(gpt_train_launches["K2"]),
          "launches_gpt_sampling": _total(gpt_sample_launches["K2"]),
          "max_abs_err": err["K2"], **timed("K2"),
-         **{f"gpt_{shape}": t for shape, t in gpt_times.items()}},
+         **{f"gpt_{shape}": t for shape, t in gpt_times.items()},
+         **{f"tp_c{shape[2]}_bias_segments": tp_times["K2", shape, "segments"]
+            for shape in TP_SHAPES}},
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -14,7 +14,10 @@ and the W1 metrics `metrics.json`; `--make_plots` adds the closure plots and
 without touching a device.  One flag is new, `--device` (default `cuda`,
 raising without a CUDA device; `cpu` runs on the CPU).
 `--max_dispatch_steps` and `--scan_unroll` steer the JAX package's compiled
-loop; here they are accepted and have no effect.
+loop; here they are accepted and have no effect.  Under `torchrun` each
+sweep point's batches shard over the ranks (`Trainer(mesh="auto")`, the
+model replicated as in the JAX sampler), every rank ends with all the
+jets, and rank 0 writes every file.
 
 A GPT experiment (tag `system:GPT`) is sampled autoregressively instead:
 `--num_jets` token sets in batches of `--batch_size` at the first
@@ -39,6 +42,7 @@ import torch
 from multimodal_flows_tpu_torch.cli.train_mmf import system_kind_of
 from multimodal_flows_tpu_torch.config import Config
 from multimodal_flows_tpu_torch.data.state import MultiModal
+from multimodal_flows_tpu_torch.parallel.mesh import init_from_env, initialized, is_primary
 from multimodal_flows_tpu_torch.sampling.generator import GenerationResult, run_generation_sweep
 from multimodal_flows_tpu_torch.train.systems import build_system
 from multimodal_flows_tpu_torch.train.trainer import Trainer, _seed
@@ -103,11 +107,13 @@ def sample(config: Config, kind: str, test_masks: np.ndarray, device="cuda", *,
     checkpoint slot `checkpoint` of the experiment, draw `config.num_jets`
     pad masks from the multiplicities of `test_masks` (N, D, 1) and run the
     generation sweep.  With `save` each sweep point is written into the
-    experiment directory (that needs h5py and yaml)."""
+    experiment directory (that needs h5py and yaml).  With a process group
+    the batches shard over its ranks; the model is replicated (the
+    training layout does not matter: a checkpoint holds full tensors)."""
     from multimodal_flows_tpu_torch.data.aoj import sample_from_empirical_masks
 
     system = build_system(config, kind, device=device)
-    trainer = Trainer(system, config)
+    trainer = Trainer(system, config.replace(fsdp=False, tensor_parallel=1), mesh="auto")
     system.module.load_state_dict(trainer.load_for_inference(name=checkpoint))
     log.info(f"loaded checkpoint {checkpoint!r} from {config.experiment_dir}")
 
@@ -115,17 +121,26 @@ def sample(config: Config, kind: str, test_masks: np.ndarray, device="cuda", *,
         test_masks, config.num_jets, config.max_num_particles, seed=config.seed)
     return run_generation_sweep(system, pad_masks, config, temperatures=list(temperatures),
                                 timestep_grid=list(timestep_grid), num_files=num_files,
-                                save=save)
+                                save=save, mesh=trainer.mesh)
 
 
 def main(argv=None):
     config, args = experiment_configs(argv)
     kind = system_kind_of(config)
-    if kind == "GPT":
-        return _sample_gpt(config, args)
-
-    if args.metrics_only:
+    if args.metrics_only and kind != "GPT":
         return _metrics_only(config)
+    args.device = init_from_env(args.device)  # under torchrun: this rank's device
+    try:
+        if kind == "GPT":
+            _sample_gpt(config, args)
+        else:
+            _sample_flows(config, kind, args)
+    finally:
+        if initialized():
+            torch.distributed.destroy_process_group()
+
+
+def _sample_flows(config: Config, kind: str, args) -> None:
     if args.max_dispatch_steps != 8_000 or args.scan_unroll != 1:
         log.info("--max_dispatch_steps and --scan_unroll steer the JAX package's compiled "
                  "loop and have no effect in the PyTorch port")
@@ -134,6 +149,8 @@ def main(argv=None):
     results = sample(config, kind, test.mask, args.device, checkpoint=args.checkpoint,
                      temperatures=args.temperature, timestep_grid=args.num_timesteps,
                      num_files=args.num_files)
+    if not is_primary():
+        return
 
     # W1 closure metrics against the test sample
     for res in results:
@@ -168,7 +185,7 @@ def sample_gpt(config: Config, device="cuda", *, checkpoint: str = "best",
     (`config.seed`, b).  Returns (num_jets, max_num_particles) flavor
     tokens, the special tokens stripped."""
     system = build_system(config, "GPT", device=device)
-    trainer = Trainer(system, config)
+    trainer = Trainer(system, config, mesh=None)
     system.module.load_state_dict(trainer.load_for_inference(name=checkpoint))
     log.info(f"loaded GPT checkpoint {checkpoint!r} from {config.experiment_dir}")
     bs = config.batch_size
@@ -181,9 +198,12 @@ def sample_gpt(config: Config, device="cuda", *, checkpoint: str = "best",
 
 
 def _sample_gpt(config: Config, args) -> None:
-    """Autoregressive generation of a GPT experiment into `sample.npy`."""
+    """Autoregressive generation of a GPT experiment into `sample.npy`
+    (every rank generates the same jets; rank 0 writes them)."""
     temp = args.temperature[0]
     sample = sample_gpt(config, args.device, checkpoint=args.checkpoint, temperature=temp)
+    if not is_primary():
+        return
     res_dir = os.path.join(config.experiment_dir,
                            f"generation_results_{args.tag}_gpt_temp_{temp}")
     os.makedirs(res_dir, exist_ok=True)

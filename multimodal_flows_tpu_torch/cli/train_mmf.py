@@ -3,6 +3,8 @@ CFM / MJB, or the GPT baseline) on AOJ jets.
 
     python -m multimodal_flows_tpu_torch.cli.train_mmf --dir_aoj ./aoj \
         --data_files RunG_batch0.h5 --num_jets 100000 --packed_training
+    torchrun --nproc_per_node=8 -m multimodal_flows_tpu_torch.cli.train_mmf ... \
+        [--fsdp | --tensor_parallel 2]
 
 The twin of `scripts/train_mmf.py`: the same flags, short names and
 defaults, the same `config.yaml` round trip (a file written by either
@@ -10,8 +12,12 @@ package loads in both), the same `system:<kind>` tag and resume overrides
 (`-id <experiment> [-resume last]`).  One flag is new, `--device` (default
 `cuda`): the run raises without a CUDA device unless `--device cpu` is
 given.  `--attn_impl` and `--remat` steer XLA in the JAX package; here they
-are stored in the config and have no effect.  `--fsdp`, `--tensor_parallel
-> 1` and `--compute_dtype bfloat16` raise with their ROADMAP.md pointers.
+are stored in the config and have no effect.  `--compute_dtype bfloat16`
+raises with its ROADMAP.md pointer.  Under `torchrun` every process trains
+on its rank's device (NCCL on `cuda:LOCAL_RANK`, gloo with `--device cpu`)
+over the mesh of `Trainer(mesh="auto")`: data parallel, FSDP (`--fsdp`) or
+tensor parallel (`--tensor_parallel N`); rank 0 mints the experiment id
+and writes every file.  `--system GPT` trains data parallel the same way.
 With `--system GPT` the jets become BOS/EOS/PAD token sequences of
 `max_num_particles + 2` (`max_seq_length` is set to `max_num_particles`).
 
@@ -31,6 +37,13 @@ import torch
 from multimodal_flows_tpu_torch.config import Config
 from multimodal_flows_tpu_torch.data.datasets import ArrayDataset, jet_set_to_seq
 from multimodal_flows_tpu_torch.data.state import DataCoupling, MultiModal
+from multimodal_flows_tpu_torch.parallel.mesh import (
+    broadcast_object,
+    init_from_env,
+    initialized,
+    is_primary,
+    sync_hosts,
+)
 from multimodal_flows_tpu_torch.train.systems import build_system
 from multimodal_flows_tpu_torch.train.trainer import Trainer, TrainState
 from multimodal_flows_tpu_torch.utils.logger import SimpleLogger as log
@@ -132,9 +145,11 @@ def experiment_configs(argv=None) -> Tuple[Config, str]:
     p.add_argument("--remat", action="store_true", default=False,
                    help="stored for the JAX package; no effect here")
     p.add_argument("--fsdp", action="store_true", default=False,
-                   help="not ported (ROADMAP.md Queue 1 item 22)")
+                   help="ZeRO-3-style: shard params + optimizer state over "
+                        "the data axis (FSDP2)")
     p.add_argument("--tensor_parallel", type=int, default=1,
-                   help="> 1 is not ported (ROADMAP.md Queue 1 item 22)")
+                   help="model-axis size of a (data, model) mesh with "
+                        "Megatron-style layer sharding")
     p.add_argument("--epoch_hbm_budget_mb", type=int, default=4096,
                    help="cap of the device-resident epoch data; larger sets stay on "
                         "the host and ship batch by batch")
@@ -203,8 +218,9 @@ def split_jets(jets: MultiModal, config: Config,
 
 def build_trainer(config: Config, kind: str, device="cuda") -> Trainer:
     """The `kind` system on `device` (weights from `config.seed`) inside
-    its trainer.  Raises for what is not ported (bf16, meshes) and, on the
-    default device, without CUDA.  For GPT the sequences hold every
+    its trainer, over the mesh of the process group when there is one.
+    Raises for what is not ported (bf16), on the default device without
+    CUDA, and when the world size does not divide by `tensor_parallel`.  For GPT the sequences hold every
     particle: `max_seq_length` is set to `max_num_particles` first, as the
     JAX script's `make_datasets` does."""
     if kind == "GPT":
@@ -225,12 +241,13 @@ def train(config: Config, kind: str, train_ds: ArrayDataset, val_ds: ArrayDatase
 
 def main(argv=None):
     config, device = experiment_configs(argv)
+    device = init_from_env(device)  # under torchrun: this rank's device
     kind = system_kind_of(config)
     if config.attn_impl is not None or config.remat:
         log.info("--attn_impl and --remat are stored for the JAX package and have no "
                  "effect in the PyTorch port")
-    # before any file is read or written: what is not ported, and a missing
-    # CUDA device, raise here
+    # before any file is read or written: what is not ported, a missing
+    # CUDA device and a mesh that does not fit, raise here
     trainer = build_trainer(config, kind, device)
 
     resume = None
@@ -238,12 +255,17 @@ def main(argv=None):
         resume = config.resume_ckpt
         log.info(f"resuming experiment {config.experiment_id} from {resume!r}")
     else:
-        config.mint_experiment_id()
+        config.experiment_id = broadcast_object(
+            config.mint_experiment_id() if is_primary() else None)
 
     train_ds, val_ds = make_datasets(config, kind)
-    config.save()  # config.yaml, metadata included, into the experiment dir
+    if is_primary():
+        config.save()  # config.yaml, metadata included, into the experiment dir
+    sync_hosts("config")
     log.info(f"experiment dir: {config.experiment_dir} (system {kind}, device {device})")
     trainer.fit(train_ds, val_ds, resume=resume)
+    if initialized():
+        torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

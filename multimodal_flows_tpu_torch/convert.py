@@ -85,5 +85,12 @@ def params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
 def load_flax_params(module: nn.Module, tree: Mapping) -> None:
     """Load a converted flax tree into `module`, strictly (missing or
     unexpected names and shape mismatches raise): the whole MMF tree into
-    `MMF.module`, an encoder subtree into an encoder."""
+    `MMF.module`, an encoder subtree into an encoder.  The module must be
+    unsharded: load first, then `tp_sharding` / `fsdp_sharding` split the
+    weights, so one converted tree feeds every layout."""
+    from multimodal_flows_tpu_torch.parallel.tensor_parallel import is_sharded
+
+    if is_sharded(module):
+        raise ValueError("load the flax tree into the unsharded module, then shard it "
+                         "(parallel.tensor_parallel.tp_sharding / fsdp_sharding)")
     module.load_state_dict(params_from_flax(tree), strict=True)

@@ -184,9 +184,11 @@ class HybridSolver:
         site): `simulate` then draws the whole trajectory's in one call."""
         return self.method == "tauleap"
 
-    def step_noise(self, generator: Optional[torch.Generator], state: MultiModal) -> Tensor:
-        """The uniforms (B, D) of one step."""
-        return _uniform(generator, state.discrete.shape[:2], state.discrete)
+    def step_noise(self, generator: Optional[torch.Generator], state: MultiModal,
+                   n_rows: Optional[int] = None) -> Tensor:
+        """The uniforms (B, D) of one step, B = `n_rows` when given."""
+        B, D = state.discrete.shape[:2]
+        return _uniform(generator, (n_rows or B, D), state.discrete)
 
     def fwd_step_u(self, u: Tensor, state: MultiModal, dt: Tensor
                    ) -> Tuple[MultiModal, Tensor]:
@@ -222,14 +224,15 @@ class ContinuousSolver:
         self.diffusion_fn = diffusion_fn
         self.method = method
 
-    def step_noise(self, generator: Optional[torch.Generator],
-                   state: MultiModal) -> Optional[Tensor]:
-        """The normals (B, D, Fc) of one euler_maruyama step; euler takes
-        none."""
+    def step_noise(self, generator: Optional[torch.Generator], state: MultiModal,
+                   n_rows: Optional[int] = None) -> Optional[Tensor]:
+        """The normals (B, D, Fc) of one euler_maruyama step, B = `n_rows`
+        when given; euler takes none."""
         if self.method == "euler":
             return None
         x = state.continuous
-        return torch.randn(x.shape, generator=generator, dtype=x.dtype, device=x.device)
+        return torch.randn((n_rows or x.shape[0],) + tuple(x.shape[1:]), generator=generator,
+                           dtype=x.dtype, device=x.device)
 
     def fwd_step_u(self, dw: Optional[Tensor], state: MultiModal, dt: Tensor) -> MultiModal:
         vt = self.apply_fn(state)
@@ -263,11 +266,13 @@ class DiscreteSolver:
     def uses_single_uniform(self) -> bool:
         return self.method == "tauleap-poisson"
 
-    def step_noise(self, generator: Optional[torch.Generator], state: MultiModal) -> Tensor:
+    def step_noise(self, generator: Optional[torch.Generator], state: MultiModal,
+                   n_rows: Optional[int] = None) -> Tensor:
         """The uniforms of one step: (B, D), (B, D, S) for the Bernoulli
-        tau-leap, (B, D, 2) for jump_or_stay."""
+        tau-leap, (B, D, 2) for jump_or_stay; B = `n_rows` when given."""
         tail = {"tauleap-bernouilli": (self.vocab_size,), "jump_or_stay": (2,)}
-        return _uniform(generator, state.discrete.shape[:2] + tail.get(self.method, ()),
+        B, D = state.discrete.shape[:2]
+        return _uniform(generator, (n_rows or B, D) + tail.get(self.method, ()),
                         state.discrete)
 
     def fwd_step_u(self, u: Tensor, state: MultiModal, dt: Tensor
@@ -302,7 +307,8 @@ def simulate(solver, source: MultiModal, num_timesteps: int,
              time_eps: float, *, generator: Optional[torch.Generator] = None,
              uniforms: Optional[Tensor] = None,
              return_trajectory: bool = False,
-             use_final_max_rates: bool = False):
+             use_final_max_rates: bool = False,
+             draw_rows: Optional[Tuple[int, slice]] = None):
     """Roll a solver (hybrid, continuous or discrete) over the time grid.
 
     For the tau-leap solvers (one uniform per site) the whole trajectory's
@@ -313,6 +319,11 @@ def simulate(solver, source: MultiModal, num_timesteps: int,
     the same noise into two samplers.  `use_final_max_rates` replaces the
     final tokens by the argmax of the last step's rates.
 
+    `draw_rows` = (n, rows): `source` is the rows `rows` of a batch of n
+    (a data-parallel rank's share); every draw is made at the batch's
+    shape and the rank keeps its rows, so the sharded trajectory is the
+    unsharded one's.
+
     Returns the final state, or with `return_trajectory` the pair (final,
     trajectory): the trajectory is a `MultiModal` stacked on a leading
     steps axis, entry i the state after step i with the `time` of that
@@ -322,13 +333,18 @@ def simulate(solver, source: MultiModal, num_timesteps: int,
     B, D = len(source), source.num_particles
     device = source.mask.device
     ts, dt = time_grid(time_eps, num_timesteps, device)
+    n_rows, rows = draw_rows if draw_rows is not None else (B, slice(None))
     if solver.uses_single_uniform and uniforms is None:
-        uniforms = torch.rand((num_timesteps, B, D), generator=generator,
-                              dtype=torch.float32, device=device)
+        uniforms = torch.rand((num_timesteps, n_rows, D), generator=generator,
+                              dtype=torch.float32, device=device)[:, rows]
     state, rates, trajectory = source, None, []
     for i in range(num_timesteps):
         state = state.replace(time=ts[i].expand(B))
-        noise = uniforms[i] if uniforms is not None else solver.step_noise(generator, state)
+        if uniforms is not None:
+            noise = uniforms[i]
+        else:
+            noise = solver.step_noise(generator, state, n_rows)
+            noise = None if noise is None else noise[rows]
         out = solver.fwd_step_u(noise, state, dt)
         state, rates = out if isinstance(out, tuple) else (out, None)
         if return_trajectory:

@@ -27,6 +27,15 @@ into the preallocated (B, seq_len, C) caches in place (the JAX package
 returns updated copies; the port saves the copies) and its query attends to
 the cached positions <= pos under an additive (B, seq_len) key mask.  The
 call returns (y, (k_cache, v_cache, pos)).
+
+Tensor parallelism (`parallel.tensor_parallel.tp_sharding`) leaves each
+rank `n_head` of the heads: `c_attn` yields their q, k and v, the attention
+and the qk-LayerNorm (per head) run on them alone, and the row-parallel
+`c_proj` all-reduces the heads' partial outputs and adds its bias once.
+`CrossAttention`'s `c_query` stays replicated and its output is cut to the
+rank's heads after `copy_to_region`, so its gradient is summed over the
+model group.  The forwards read the head count and size from the module,
+never from `n_embd`, so the same code runs whole and sharded.
 """
 
 from __future__ import annotations
@@ -57,7 +66,7 @@ class SelfAttention(nn.Module):
         if n_embd % n_head:
             raise ValueError(f"n_embd={n_embd} is not a multiple of n_head={n_head}")
         self.n_embd, self.n_head = n_embd, n_head
-        hs = n_embd // n_head
+        self.head_size = hs = n_embd // n_head
         self.c_attn = nn.Linear(n_embd, 3 * n_embd, bias=bias)
         self.q_layernorm = LayerNorm(hs, bias) if qk_layernorm else None
         self.k_layernorm = LayerNorm(hs, bias) if qk_layernorm else None
@@ -69,9 +78,10 @@ class SelfAttention(nn.Module):
     def forward(self, x: Tensor, attn_bias: Optional[Tensor] = None,
                 key_mask: Optional[Tensor] = None,
                 segments: Optional[Tensor] = None, kv_cache: Optional[tuple] = None):
-        B, T, C = x.shape
-        H, hs = self.n_head, C // self.n_head
-        q, k, v = self.c_attn(x).split(self.n_embd, dim=-1)
+        B, T, _ = x.shape
+        H, hs = self.n_head, self.head_size
+        C = H * hs  # the width of this rank's heads
+        q, k, v = self.c_attn(x).split(C, dim=-1)
         if self.q_layernorm is not None:
             q = self.q_layernorm(q.reshape(B, T, H, hs)).reshape(B, T, C)
             k = self.k_layernorm(k.reshape(B, T, H, hs)).reshape(B, T, C)
@@ -104,7 +114,8 @@ class CrossAttention(nn.Module):
         if n_embd % n_head:
             raise ValueError(f"n_embd={n_embd} is not a multiple of n_head={n_head}")
         self.n_embd, self.n_head = n_embd, n_head
-        hs = n_embd // n_head
+        self.head_size = hs = n_embd // n_head
+        self.tp_group = None  # the model group once sharded (tp_sharding)
         self.c_query = nn.Linear(n_embd, n_embd, bias=bias)
         self.c_attn = nn.Linear(n_embd, 2 * n_embd, bias=bias)
         self.q_layernorm = LayerNorm(hs, bias) if qk_layernorm else None
@@ -113,19 +124,25 @@ class CrossAttention(nn.Module):
         self.resid_drop = Dropout(dropout)
 
     def forward(self, x: Tensor, z: Tensor, attn_bias: Optional[Tensor] = None) -> Tensor:
-        B, T, C = x.shape
-        H, hs = self.n_head, C // self.n_head
+        B, T, _ = x.shape
+        H, hs = self.n_head, self.head_size
 
         def heads(t):
-            return t.reshape(B, -1, H, hs).transpose(1, 2)
+            return t.reshape(B, t.shape[1], H, hs).transpose(1, 2)
 
-        q = heads(self.c_query(x))
-        k, v = (heads(t) for t in self.c_attn(z).split(self.n_embd, dim=-1))
+        q = self.c_query(x)
+        if self.tp_group is not None:
+            from multimodal_flows_tpu_torch.parallel.tensor_parallel import copy_to_region
+
+            r = torch.distributed.get_rank(self.tp_group)
+            q = copy_to_region(q, self.tp_group)[..., r * H * hs:(r + 1) * H * hs]
+        q = heads(q)
+        k, v = (heads(t) for t in self.c_attn(z).split(H * hs, dim=-1))
         if self.q_layernorm is not None:
             q = self.q_layernorm(q)
             k = self.k_layernorm(k)
         y = multihead_attention(q, k, v, attn_bias)
-        return self.resid_drop(self.c_proj(y.transpose(1, 2).reshape(B, T, C)))
+        return self.resid_drop(self.c_proj(y.transpose(1, 2).reshape(B, T, H * hs)))
 
 
 class SelfAttnBlock(nn.Module):

@@ -70,8 +70,11 @@ class FlavorSeqGPT(nn.Module):
         return self.lm_head(self.ln_f(h))
 
     def init_cache(self, batch_size: int) -> List[Tuple[Tensor, Tensor]]:
-        """Per-layer (k, v) caches of shape (B, seq_len, n_embd), zeros."""
-        shape = (batch_size, self.seq_len, self.config.n_embd)
+        """Per-layer (k, v) caches of shape (B, seq_len, width of the
+        attention's heads: n_embd, or this rank's share under tensor
+        parallelism), zeros."""
+        attn = self.blocks[0].attn
+        shape = (batch_size, self.seq_len, attn.n_head * attn.head_size)
         device = self.wte.weight.device
         return [(torch.zeros(shape, device=device), torch.zeros(shape, device=device))
                 for _ in range(self.config.n_layer)]

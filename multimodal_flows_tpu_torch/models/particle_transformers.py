@@ -75,7 +75,9 @@ class _CoOccurrenceBias(nn.Module):
     """Symmetric token co-occurrence bias via triangle-number pair ids.
     The (n_pairs, E) table is projected to the H heads first (45 rows at
     V = 9), then gathered: no (B, D, D, E) tensor.  Returns (B, H, D, D)
-    fp32, a view whose key axis has stride 1 (what K2 reads along)."""
+    fp32, a view whose key axis has stride 1 (what K2 reads along).  Under
+    tensor parallelism `wue_proj` is column-parallel over the heads, so H
+    is this rank's share and the bias comes out contiguous."""
 
     def __init__(self, vocab_size: int, n_embd: int, n_head: int):
         super().__init__()

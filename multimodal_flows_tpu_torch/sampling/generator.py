@@ -12,17 +12,27 @@ run one after another in eager PyTorch; the JAX package's
 `max_dispatch_steps` chunking, a workaround for its remote-TPU transport,
 has no counterpart here.  Destandardization with the dataset metadata and
 final pad masking happen on the host, as in the JAX package.
+
+With a `mesh` (`parallel/mesh.py`) each batch's rows shard over the data
+axis (batches a multiple of lcm(8, n_data)): every rank draws the batch's
+noise source and each step's uniforms at the batch's shape and keeps its
+rows (`simulate(draw_rows=)`), so a sample on n ranks is the sample on one
+from the same seed, and `gather_multihost` hands every rank all the jets.
+The module is whatever the system holds (replicated, or sharded by the
+trainer, whose ranks then run every batch in step).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 import time
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from multimodal_flows_tpu_torch.config import Config
@@ -33,6 +43,12 @@ from multimodal_flows_tpu_torch.data.packing import (
     unpack_rows,
 )
 from multimodal_flows_tpu_torch.data.state import MultiModal
+from multimodal_flows_tpu_torch.parallel.mesh import (
+    data_axis_size,
+    data_group,
+    data_rows,
+    is_primary,
+)
 from multimodal_flows_tpu_torch.utils.logger import SimpleLogger as log
 
 Tensor = torch.Tensor
@@ -84,6 +100,60 @@ def _synchronize(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _granule(mesh) -> int:
+    """Batch granularity: 8 rows, and a multiple of the data axis."""
+    return math.lcm(8, data_axis_size(mesh))
+
+
+def _check_batch(batch_size: int, mesh) -> None:
+    n_data = data_axis_size(mesh)
+    if batch_size % n_data:
+        raise ValueError(f"batch_size {batch_size} must be divisible by the "
+                         f"{n_data}-device data axis")
+
+
+def _simulate_batch(system, gen: torch.Generator, masks: Tensor, segments: Optional[Tensor],
+                    mesh, **kw) -> MultiModal:
+    """One batch of `masks` (B, W, 1): its noise source drawn at the
+    batch's shape, the trajectory of this rank's rows (all rows without a
+    data axis)."""
+    src = make_noise_source(gen, masks, system.config)
+    rows = data_rows(len(masks), mesh)
+    if rows is None:
+        return system.simulate(src, segments=segments, generator=gen, **kw)
+    return system.simulate(src[rows], segments=None if segments is None else segments[rows],
+                           generator=gen, draw_rows=(len(masks), rows), **kw)
+
+
+def _gather_batches(finals: List[MultiModal], mesh) -> MultiModal:
+    """All ranks' rows of every batch, in the batches' row order."""
+    local = MultiModal.concat(finals)
+    n = data_axis_size(mesh)
+    if n == 1:
+        return local
+    full = gather_multihost(local, mesh)
+    per = len(finals[0])
+    # gathered order: rank, batch, row -> batch, rank, row
+    return full.map(lambda a: a.reshape((n, len(finals), per) + a.shape[1:])
+                    .transpose(0, 1).reshape((-1,) + a.shape[1:]))
+
+
+def gather_multihost(sample: MultiModal, mesh) -> MultiModal:
+    """Every data rank's `sample`, concatenated along the jet axis in rank
+    order, on every rank (one all-gather per field; each rank holds as many
+    jets)."""
+    group = data_group(mesh)
+    if group is None:
+        return sample
+
+    def gather(a):
+        parts = [torch.empty_like(a) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, a.contiguous(), group=group)
+        return torch.cat(parts)
+
+    return sample.map(gather)
+
+
 def _finalize(sample: MultiModal, metadata: Optional[Dict]) -> MultiModal:
     """Host-side finalize: destandardize with the metadata, zero the pads."""
     m = sample.mask.cpu().to(torch.int32)
@@ -99,15 +169,16 @@ def generate(system, pad_masks: np.ndarray, *, num_timesteps: int,
              temperature: float = 1.0, top_k: Optional[int] = None,
              top_p: Optional[float] = None, use_final_max_rates: bool = False,
              batch_size: int = 256, seed: int = 0,
-             metadata: Optional[Dict] = None) -> GenerationResult:
+             metadata: Optional[Dict] = None, mesh=None) -> GenerationResult:
     """Generate one jet per pad-mask row (N, D, 1), in batches of
     `batch_size`; the tail batch is padded and trimmed after."""
-    cfg = system.config
     device = system.device
     num_jets = pad_masks.shape[0]
+    _check_batch(batch_size, mesh)
+    gran = _granule(mesh)
     kw = dict(num_timesteps=num_timesteps, temperature=temperature, top_k=top_k,
               top_p=top_p, use_final_max_rates=use_final_max_rates,
-              batch_size=batch_size, metadata=metadata)
+              batch_size=batch_size, metadata=metadata, mesh=mesh)
 
     # a tail that would waste >= 64 padded rows runs as its own smaller
     # batch, snapped to the {8, 16, 32, 64k} ladder
@@ -120,7 +191,7 @@ def generate(system, pad_masks: np.ndarray, *, num_timesteps: int,
                                 jets_per_sec=num_jets / wall, wall_time_s=wall,
                                 num_timesteps=num_timesteps, temperature=temperature)
     if num_jets < batch_size:
-        batch_size = min(_snap_batch(num_jets), batch_size)
+        batch_size = min(_ceil_to(_snap_batch(num_jets), gran), batch_size)
 
     n_batches = (num_jets + batch_size - 1) // batch_size
     total = n_batches * batch_size
@@ -131,17 +202,14 @@ def generate(system, pad_masks: np.ndarray, *, num_timesteps: int,
     t_start = time.perf_counter()
     masks_dev = torch.as_tensor(masks, dtype=torch.int32, device=device)
     gen = torch.Generator(device=device).manual_seed(seed)
-    finals = []
-    for i in range(n_batches):
-        src = make_noise_source(gen, masks_dev[i * batch_size:(i + 1) * batch_size], cfg)
-        finals.append(system.simulate(src, num_timesteps, temperature=temperature,
-                                      top_k=top_k, top_p=top_p,
-                                      use_final_max_rates=use_final_max_rates,
-                                      generator=gen))
+    finals = [_simulate_batch(system, gen, masks_dev[i * batch_size:(i + 1) * batch_size],
+                              None, mesh, num_timesteps=num_timesteps,
+                              temperature=temperature, top_k=top_k, top_p=top_p,
+                              use_final_max_rates=use_final_max_rates)
+              for i in range(n_batches)]
+    sample = _gather_batches(finals, mesh)[:num_jets]
     _synchronize(device)
     wall = time.perf_counter() - t_start
-
-    sample = MultiModal.concat(finals)[:num_jets]
     return GenerationResult(sample=_finalize(sample, metadata),
                             jets_per_sec=num_jets / wall, wall_time_s=wall,
                             num_timesteps=num_timesteps, temperature=temperature)
@@ -186,7 +254,8 @@ def generate_packed(system, pad_masks: np.ndarray, *, num_timesteps: int,
                     pack_width: int = 128, temperature: float = 1.0,
                     top_k: Optional[int] = None, top_p: Optional[float] = None,
                     use_final_max_rates: bool = False, batch_size: int = 256,
-                    seed: int = 0, metadata: Optional[Dict] = None) -> GenerationResult:
+                    seed: int = 0, metadata: Optional[Dict] = None,
+                    mesh=None) -> GenerationResult:
     """Generation with multi-jet packing: several jets share one
     `pack_width`-token row behind a block-diagonal segment mask.
 
@@ -198,7 +267,7 @@ def generate_packed(system, pad_masks: np.ndarray, *, num_timesteps: int,
     cfg = system.config
     num_jets, D = pad_masks.shape[0], pad_masks.shape[1]
     kw = dict(num_timesteps=num_timesteps, temperature=temperature, top_k=top_k,
-              top_p=top_p, use_final_max_rates=use_final_max_rates)
+              top_p=top_p, use_final_max_rates=use_final_max_rates, mesh=mesh)
     if (cfg.model not in _PACKABLE_MODELS or cfg.use_pos_emb
             or not first_n_filled(pad_masks)):
         return generate_bucketed(system, pad_masks, batch_size=batch_size, seed=seed,
@@ -237,6 +306,10 @@ def generate_packed(system, pad_masks: np.ndarray, *, num_timesteps: int,
                             num_timesteps=num_timesteps, temperature=temperature)
 
 
+def _ceil_to(n: int, gran: int) -> int:
+    return -(-n // gran) * gran
+
+
 def _rebalanced_batch(n_rows: int, batch_size: int, gran: int = 8) -> int:
     """Shrink the batch so the same number of batches covers `n_rows`
     nearly evenly (e.g. 674 rows: 3 x 232 instead of 3 x 256).  Only when
@@ -255,17 +328,19 @@ def _rebalanced_batch(n_rows: int, batch_size: int, gran: int = 8) -> int:
 def _run_packed_rows(system, row_masks: np.ndarray, row_segs: np.ndarray, *,
                      num_timesteps: int, temperature: float, top_k, top_p,
                      use_final_max_rates: bool, batch_size: int,
-                     seed: int, num_segments: Optional[int] = None) -> MultiModal:
+                     seed: int, num_segments: Optional[int] = None,
+                     mesh=None) -> MultiModal:
     """Sample packed rows (R, W): noise per row on the device, the segment
     ids fixed through each trajectory; `num_segments` (the most jets a row
     holds) sizes EPiC's per-jet global stream.  Returns the rows on the
     CPU."""
-    cfg = system.config
     device = system.device
     n_rows, W = row_masks.shape[0], row_masks.shape[1]
+    _check_batch(batch_size, mesh)
+    gran = _granule(mesh)
     if n_rows < batch_size:
-        batch_size = min(_snap_batch(n_rows), batch_size)
-    batch_size = _rebalanced_batch(n_rows, batch_size)
+        batch_size = min(_ceil_to(_snap_batch(n_rows), gran), batch_size)
+    batch_size = _rebalanced_batch(n_rows, batch_size, gran)
     n_batches = (n_rows + batch_size - 1) // batch_size
     total = n_batches * batch_size
     if total > n_rows:  # pad with empty rows (mask 0, segment -1)
@@ -280,13 +355,12 @@ def _run_packed_rows(system, row_masks: np.ndarray, row_segs: np.ndarray, *,
     finals = []
     for i in range(n_batches):
         sl = slice(i * batch_size, (i + 1) * batch_size)
-        src = make_noise_source(gen, masks_dev[sl], cfg)
-        finals.append(system.simulate(src, num_timesteps, temperature=temperature,
+        finals.append(_simulate_batch(system, gen, masks_dev[sl], segs_dev[sl], mesh,
+                                      num_timesteps=num_timesteps, temperature=temperature,
                                       top_k=top_k, top_p=top_p,
                                       use_final_max_rates=use_final_max_rates,
-                                      segments=segs_dev[sl], num_segments=num_segments,
-                                      generator=gen))
-    return MultiModal.concat(finals)[:n_rows].to("cpu")
+                                      num_segments=num_segments))
+    return _gather_batches(finals, mesh)[:n_rows].to("cpu")
 
 
 def save_generation(result: GenerationResult, config: Config, res_dir: str) -> str:
@@ -303,13 +377,14 @@ def save_generation(result: GenerationResult, config: Config, res_dir: str) -> s
 
 def run_generation_sweep(system, test_masks: np.ndarray, config: Config, *,
                          temperatures: List[float], timestep_grid: List[int],
-                         num_files: int = 1, save: bool = True) -> List[GenerationResult]:
+                         num_files: int = 1, save: bool = True,
+                         mesh=None) -> List[GenerationResult]:
     """The generation sweep: num_files x temperatures x timestep_grid runs of
     `generate_packed` on `test_masks`, file i seeded `config.seed + i`,
     each result tagged `{_tags}{_i}_steps_{steps}_temp_{temp}`.  With
     `save` and an experiment id each run is written to
-    `<experiment_dir>/generation_results{tag}` (that needs h5py and yaml;
-    `save=False` does not)."""
+    `<experiment_dir>/generation_results{tag}` by rank 0 (that needs h5py
+    and yaml; `save=False` does not)."""
     results = []
     tags = config.tags or ""
     if isinstance(tags, (list, tuple)):
@@ -326,11 +401,11 @@ def run_generation_sweep(system, test_masks: np.ndarray, config: Config, *,
                     top_k=config.top_k, top_p=config.top_p,
                     use_final_max_rates=config.use_final_max_rates,
                     batch_size=config.batch_size, seed=config.seed + i,
-                    metadata=config.metadata)
+                    metadata=config.metadata, mesh=mesh)
                 res.tag = tag
                 log.info(f"generated {len(res.sample)} jets @steps={steps} T={temp}: "
                          f"{res.jets_per_sec:.1f} jets/s")
-                if save and config.experiment_id:
+                if save and config.experiment_id and is_primary():
                     save_generation(res, config, os.path.join(config.experiment_dir,
                                                                f"generation_results{tag}"))
                 results.append(res)

@@ -10,6 +10,12 @@ of its ranking.  `best_physics` follows the tie-to-later rule when
 (1 + margin) of the best score seen; a score beyond the margin freezes
 it.  Its metric exists only on physics-eval epochs, so it stays empty
 while physics evaluation is off.
+
+Over several processes every rank calls `save` with the same (full)
+state and metrics and keeps the same index, but only rank 0 touches the
+files: it writes `tmp`, renames it into place, repoints the symlinks,
+evicts and writes `index.json`, with barriers around the writes so that
+no rank reads a half-written slot.
 """
 
 from __future__ import annotations
@@ -20,6 +26,8 @@ import os
 from typing import Any, Dict, Optional
 
 import torch
+
+from multimodal_flows_tpu_torch.parallel.mesh import is_primary, sync_hosts
 
 MONITORS = {
     "best": "val_loss",
@@ -33,7 +41,9 @@ class CheckpointManager:
     def __init__(self, ckpt_dir: str, monitors: Optional[Dict[str, str]] = None,
                  top_k: int = 10, physics_margin: float = 0.0):
         self.dir = os.path.abspath(ckpt_dir)
-        os.makedirs(self.dir, exist_ok=True)
+        self._primary = is_primary()
+        if self._primary:
+            os.makedirs(self.dir, exist_ok=True)
         self.monitors = dict(monitors) if monitors is not None else dict(MONITORS)
         self.top_k = int(top_k)
         self.physics_margin = float(physics_margin)
@@ -48,12 +58,17 @@ class CheckpointManager:
         return os.path.join(self.dir, name + ".pt")
 
     def _save_to(self, name: str, state) -> None:
-        path = self._path(name)
-        tmp = path + ".tmp"
-        torch.save(state, tmp)
-        os.replace(tmp, path)
+        sync_hosts(f"ckpt-pre-save-{name}")
+        if self._primary:
+            path = self._path(name)
+            tmp = path + ".tmp"
+            torch.save(state, tmp)
+            os.replace(tmp, path)
+        sync_hosts(f"ckpt-post-save-{name}")
 
     def _write_index(self) -> None:
+        if not self._primary:
+            return
         tmp = self._index_path + ".tmp"
         with open(tmp, "w") as f:
             json.dump(self.index, f, indent=1)
@@ -108,20 +123,23 @@ class CheckpointManager:
             if not margin_mode and ranked[0]["name"] == name:
                 # the plain slot links to the new #1; it is re-pointed
                 # before any eviction, so it never dangles
-                if os.path.lexists(link):
-                    os.unlink(link)
-                os.symlink(os.path.basename(self._path(name)), link)
+                if self._primary:
+                    if os.path.lexists(link):
+                        os.unlink(link)
+                    os.symlink(os.path.basename(self._path(name)), link)
                 self.index["best_values"][slot] = {"value": value, "epoch": epoch}
                 written[slot] = True
-            link_target = os.readlink(link) if os.path.islink(link) else None
-            for ev in evicted:
-                path = self._path(ev["name"])
-                if os.path.basename(path) != link_target and os.path.exists(path):
-                    os.remove(path)
+            if self._primary:
+                link_target = os.readlink(link) if os.path.islink(link) else None
+                for ev in evicted:
+                    path = self._path(ev["name"])
+                    if os.path.basename(path) != link_target and os.path.exists(path):
+                        os.remove(path)
 
         self.index["history"].append(
             {"epoch": epoch, **{k: float(v) for k, v in metrics.items()}})
         self._write_index()
+        sync_hosts("ckpt-index")
         return written
 
     def load(self, name: str = "last", map_location=None):

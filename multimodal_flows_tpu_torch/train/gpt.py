@@ -23,7 +23,7 @@ from torch import nn
 from multimodal_flows_tpu_torch.config import Config
 from multimodal_flows_tpu_torch.data.state import DataCoupling
 from multimodal_flows_tpu_torch.models.gpt import FlavorSeqGPT
-from multimodal_flows_tpu_torch.train.systems import _device, _dropout_mode, _placed
+from multimodal_flows_tpu_torch.train.systems import _device, _dropout_mode, _placed, _rank_total
 
 Tensor = torch.Tensor
 
@@ -54,18 +54,23 @@ class GPT:
     # ----------------------------------------------------------------- loss
 
     def loss_fn(self, batch: DataCoupling, generator: Optional[torch.Generator] = None,
-                train: bool = True, module: Optional[nn.Module] = None
-                ) -> Tuple[Tensor, Dict[str, Tensor]]:
+                train: bool = True, module: Optional[nn.Module] = None,
+                rows: Optional[slice] = None) -> Tuple[Tensor, Dict[str, Tensor]]:
         """Next-token CE over the token sequences `batch.target.discrete`
         (B, T) or (B, T, 1); positions whose target is PAD are ignored.
         With `train` and a dropout rate > 0 the forward runs in train mode,
-        every mask from `generator`."""
+        every mask from `generator`.  With `rows` (data parallelism), the
+        forward runs on those rows and the sum divides by their share of
+        the batch's target count."""
         module = module or self.module
         cfg = self.config
         tokens = batch.target.discrete
         if tokens.ndim == 3:
             tokens = tokens[..., 0]
         tokens = tokens.long()
+        total = _rank_total((tokens[:, 1:] != self.pad_token).sum(), rows, len(tokens))
+        if rows is not None:
+            tokens = tokens[rows]
         rate = max(cfg.dropout_att, cfg.dropout_emb, cfg.dropout_res)
         with _dropout_mode(module, rate, train, generator):
             logits = module(tokens)
@@ -74,7 +79,7 @@ class GPT:
         targets = tokens[:, 1:]
         nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
         w = (targets != self.pad_token).to(torch.float32)
-        loss = (nll * w).sum() / w.sum().clamp_min(1.0)
+        loss = (nll * w).sum() / (w.sum().clamp_min(1.0) if total is None else total)
         return loss, {"loss": loss, "loss_ce": loss}
 
     # ------------------------------------------------------------- sampling

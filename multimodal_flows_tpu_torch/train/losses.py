@@ -9,6 +9,13 @@
 - `global_masked_mse` / `global_masked_ce`: the CFM and MJB losses,
   normalised over the whole batch (`multimodal_flows_tpu/train/systems.py`
   computes them inline).
+
+Data parallelism: a rank holds a share of the global batch, and packed
+rows carry unequal numbers of jets, so the mean of per-rank weighted means
+is not the global weighted mean.  The weighted means therefore take the
+denominator `total` from the caller: the global weight (or count) times
+the rank's share of the rows, so that the ranks' mean of the returned
+losses, and of their gradients, is exactly the global weighted mean.
 - `MultiTaskLoss`: `sum`, `weighted` (a learned (2,) log-variance) and
   `time-weighted` (an MLP over the sinusoidal time embedding emits
   per-jet log-variances).  Its parameters sit in the trained module, so
@@ -86,25 +93,29 @@ def packed_masked_ce(logits: Tensor, targets: Tensor, mask: Tensor, segments: Te
     return per_jet / _per_jet_sums(m, segments, num_slots).clamp(min=1.0)
 
 
-def global_masked_mse(pred: Tensor, target: Tensor, mask: Tensor) -> Tensor:
+def global_masked_mse(pred: Tensor, target: Tensor, mask: Tensor,
+                      total: Optional[Tensor] = None) -> Tensor:
     """The CFM loss: the squared error over the whole batch, over its
-    particle count (clamped to 1, so a batch of empty rows gives 0)."""
+    particle count (clamped to 1, so a batch of empty rows gives 0), or over
+    `total` when given (a rank's share of the global count)."""
     se = (pred - target) ** 2 * mask
-    return se.sum() / mask.sum().to(se.dtype).clamp(min=1.0)
+    return se.sum() / (mask.sum().to(se.dtype).clamp(min=1.0) if total is None else total)
 
 
-def global_masked_ce(logits: Tensor, targets: Tensor, mask: Tensor) -> Tensor:
+def global_masked_ce(logits: Tensor, targets: Tensor, mask: Tensor,
+                     total: Optional[Tensor] = None) -> Tensor:
     """The MJB loss: the NLL of real non-pad targets over the whole batch,
-    over its particle count (clamped to 1)."""
+    over its particle count (clamped to 1), or over `total` when given."""
     nll, m = _token_nll(logits, targets, mask)
-    return nll.sum() / m.sum().clamp(min=1.0)
+    return nll.sum() / (m.sum().clamp(min=1.0) if total is None else total)
 
 
-def _wmean(x: Tensor, weights: Optional[Tensor]) -> Tensor:
+def _wmean(x: Tensor, weights: Optional[Tensor], total: Optional[Tensor] = None) -> Tensor:
+    """sum(x w) / sum(w) (sum(w) clamped to 1), or sum(x w) / `total`."""
     if weights is None:
         return x.mean()
     w = weights.to(torch.float32)
-    return (x * w).sum() / w.sum().clamp(min=1.0)
+    return (x * w).sum() / (w.sum().clamp(min=1.0) if total is None else total)
 
 
 class MultiTaskLoss(nn.Module):
@@ -112,7 +123,8 @@ class MultiTaskLoss(nn.Module):
     mean, loss_2 mean, w1, w2); the w's are zeros in `sum` mode.  Optional
     `weights` (the per-jet losses' shape) exclude entries from every mean:
     packed rows pass the jet-slot validity, so empty slots do not dilute
-    the loss.
+    the loss; `total` replaces sum(weights) as the means' denominator (a
+    rank's share of the global batch's).
 
     Flax names: `loss_weights` (weighted), `c_fc` / `c_proj`
     (time-weighted, `c_proj`'s bias zero-initialised so training starts
@@ -130,12 +142,14 @@ class MultiTaskLoss(nn.Module):
             self.c_proj = nn.Linear(n_embd, 2)
 
     def forward(self, loss_1: Tensor, loss_2: Tensor, time: Optional[Tensor] = None,
-                weights: Optional[Tensor] = None
+                weights: Optional[Tensor] = None, total: Optional[Tensor] = None
                 ) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
+        def mean(x):
+            return _wmean(x, weights, total)
+
         if self.mode == "sum":
             zero = loss_1.new_zeros(())
-            return (_wmean(loss_1 + loss_2, weights), _wmean(loss_1, weights),
-                    _wmean(loss_2, weights), zero, zero)
+            return mean(loss_1 + loss_2), mean(loss_1), mean(loss_2), zero, zero
         if self.mode == "weighted":
             u1, u2 = self.loss_weights[0], self.loss_weights[1]
         else:
@@ -147,7 +161,5 @@ class MultiTaskLoss(nn.Module):
         w1, w2 = torch.exp(-u1), torch.exp(-u2)
         loss = 0.5 * (u1 + w1 * loss_1) + 0.5 * (u2 + w2 * loss_2)
         if self.mode == "weighted":
-            return (_wmean(loss, weights), _wmean(loss_1, weights), _wmean(loss_2, weights),
-                    w1, w2)
-        return (_wmean(loss, weights), _wmean(loss_1, weights), _wmean(loss_2, weights),
-                _wmean(w1, weights), _wmean(w2, weights))
+            return mean(loss), mean(loss_1), mean(loss_2), w1, w2
+        return mean(loss), mean(loss_1), mean(loss_2), mean(w1), mean(w2)

@@ -51,11 +51,11 @@ def reference_observables(ref_jets: MultiModal, metadata: Optional[Dict],
 
 def physics_metrics(system, module, ref_obs: Dict[str, np.ndarray], masks: np.ndarray, *,
                     num_timesteps: int, metadata: Optional[Dict], batch_size: int,
-                    seed: int, pack_width: int = 128) -> Dict[str, float]:
+                    seed: int, pack_width: int = 128, mesh=None) -> Dict[str, float]:
     """Generate one jet per row of `masks` with the weights of `module`
-    (the system's own, or e.g. its EMA copy; None for the system's) and
-    score W1 per observable against `ref_obs` (from
-    `reference_observables`).
+    (the system's own, or e.g. its EMA copy; None for the system's),
+    sharded over `mesh`'s data axis when given, and score W1 per
+    observable against `ref_obs` (from `reference_observables`).
 
     Returns {"val_w1_pt": ..., "val_w1_mass": ..., "val_w1_mult": ...,
     "val_w1_physics": combined}: the combined score is the mean of the
@@ -68,7 +68,7 @@ def physics_metrics(system, module, ref_obs: Dict[str, np.ndarray], masks: np.nd
     try:
         res = generate_packed(system, masks, num_timesteps=num_timesteps,
                               pack_width=pack_width, batch_size=batch_size, seed=seed,
-                              metadata=metadata)
+                              metadata=metadata, mesh=mesh)
     finally:
         system.module = own
     sample = astype_numpy(res.sample)

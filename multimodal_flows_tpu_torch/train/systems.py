@@ -8,10 +8,15 @@
 Each takes its weights from `generator` and lives on `device`, CUDA
 unless the caller asks for the CPU; without CUDA the default raises.
 
-`loss_fn(batch, generator, train, module)` takes a `DataCoupling` or
-packed rows (`PackedJets`) on the system's device, draws t, the sources
+`loss_fn(batch, generator, train, module, rows)` takes a `DataCoupling`
+or packed rows (`PackedJets`) on the system's device, draws t, the sources
 and the bridge states from `generator` (on the same device), and returns
-(loss, metrics) of `module` (the system's own, or e.g. its EMA copy).  The
+(loss, metrics) of `module` (the system's own, or e.g. its EMA copy).
+Under data parallelism every rank holds the whole global batch and makes
+every draw at its shape, then runs the forward on its `rows` alone, with
+the loss's denominator taken over the global batch (`train/losses.py`):
+the ranks' mean of the loss and of its gradients is then the loss and the
+gradients of one device on the whole batch.  The
 deterministic cores that follow the draws, `MMFModel.training_loss` /
 `packed_training_loss` and the global CFM / MJB losses, are what the
 tests hold against the JAX package on shared states.
@@ -110,6 +115,19 @@ def _token_time(t_jets: Tensor, segments: Tensor) -> Tensor:
     return torch.gather(t_jets, 1, slot)
 
 
+def _rank_total(weight_sum: Tensor, rows: Optional[slice], n: int) -> Optional[Tensor]:
+    """A rank's denominator of a weighted mean over a global batch of n
+    rows: the global weight (clamped to 1) times the rank's share of the
+    rows; None (the local weight) without `rows`."""
+    if rows is None:
+        return None
+    return weight_sum.to(torch.float32).clamp(min=1.0) * ((rows.stop - rows.start) / n)
+
+
+def _take(rows: Optional[slice], *tensors):
+    return tensors if rows is None else tuple(t[rows] for t in tensors)
+
+
 def _mmf_metrics(out) -> Tuple[Tensor, Dict[str, Tensor]]:
     loss, l_mse, l_ce, w_mse, w_ce = out
     return loss, {"loss": loss, "loss_mse": l_mse, "loss_ce": l_ce,
@@ -138,16 +156,17 @@ class MMFModel(nn.Module):
 
     def packed_training_loss(self, state: MultiModal, drift_target: Tensor,
                              target_tokens: Tensor, t_jets: Tensor, segments: Tensor,
-                             jet_valid: Tensor):
+                             jet_valid: Tensor, total: Optional[Tensor] = None):
         """`training_loss` over packed rows: per-token time in `state`,
         per-jet times `t_jets` (B, J), the per-jet normalisation recovered
-        through the segment ids, empty slots weighted out by `jet_valid`."""
+        through the segment ids, empty slots weighted out by `jet_valid`;
+        `total` replaces the jet count as the denominator of the means."""
         J = jet_valid.shape[1]
         vt, logits = self.encoder(state, segments, J)
         loss_mse = packed_masked_mse(vt, drift_target, state.mask, segments, J).reshape(-1)
         loss_ce = packed_masked_ce(logits, target_tokens, state.mask, segments, J).reshape(-1)
         return self.multitask(loss_mse, loss_ce, t_jets.reshape(-1),
-                              weights=jet_valid.reshape(-1))
+                              weights=jet_valid.reshape(-1), total=total)
 
 
 class MMF:
@@ -168,9 +187,10 @@ class MMF:
         self.bridge_discrete = RandomTelegraphBridge(config.beta, config.vocab_size, thermostat)
 
     def loss_fn(self, batch, generator: Optional[torch.Generator] = None, train: bool = True,
-                module: Optional[nn.Module] = None) -> Tuple[Tensor, Dict[str, Tensor]]:
+                module: Optional[nn.Module] = None, rows: Optional[slice] = None
+                ) -> Tuple[Tensor, Dict[str, Tensor]]:
         if isinstance(batch, PackedJets):
-            return self.packed_loss_fn(batch, generator, train, module)
+            return self.packed_loss_fn(batch, generator, train, module, rows)
         module = module or self.module
         target, mask = batch.target, batch.target.mask
         t = _sample_time(generator, (len(target),), self.config.time_eps, mask.device)
@@ -184,14 +204,19 @@ class MMF:
         kt = self.bridge_discrete.sample(generator, t, k0, target.discrete)
         state = MultiModal(time=t, continuous=xt, discrete=kt, mask=mask)
         drift = self.bridge_continuous.conditional_drift(xt, x0, target.continuous)
+        if rows is not None:  # the jets are equal shares: the plain mean of the rows
+            state, drift, k1 = state[rows], drift[rows], target.discrete[rows]
+        else:
+            k1 = target.discrete
         with _dropout_mode(module, self.config.dropout, train, generator):
-            return _mmf_metrics(module.training_loss(state, drift, target.discrete))
+            return _mmf_metrics(module.training_loss(state, drift, k1))
 
     def packed_loss_fn(self, batch: PackedJets, generator: Optional[torch.Generator] = None,
-                       train: bool = True, module: Optional[nn.Module] = None
-                       ) -> Tuple[Tensor, Dict[str, Tensor]]:
+                       train: bool = True, module: Optional[nn.Module] = None,
+                       rows: Optional[slice] = None) -> Tuple[Tensor, Dict[str, Tensor]]:
         """The loss over packed rows: each jet draws its own t, the bridges
-        take per-token time."""
+        take per-token time.  With `rows`, the forward runs on those rows
+        and the means divide by their share of the batch's jet count."""
         module = module or self.module
         mask = batch.mask
         t_jets = _sample_time(generator, batch.jet_valid.shape, self.config.time_eps,
@@ -204,9 +229,15 @@ class MMF:
         kt = self.bridge_discrete.sample(generator, t_tok, k0, k1)
         state = MultiModal(time=t_tok, continuous=xt, discrete=kt, mask=mask)
         drift = self.bridge_continuous.conditional_drift(xt, x0, x1)
+        total = _rank_total(batch.jet_valid.sum(), rows, len(batch))
+        segments, jet_valid = batch.segments, batch.jet_valid
+        if rows is not None:
+            state = state[rows]
+            drift, k1, t_jets, segments, jet_valid = _take(rows, drift, k1, t_jets, segments,
+                                                           jet_valid)
         with _dropout_mode(module, self.config.dropout, train, generator):
             return _mmf_metrics(module.packed_training_loss(
-                state, drift, k1, t_jets, batch.segments, batch.jet_valid))
+                state, drift, k1, t_jets, segments, jet_valid, total))
 
     def make_solver(self, temperature: Optional[float] = None, top_k=None, top_p=None,
                     segments: Optional[Tensor] = None,
@@ -232,14 +263,14 @@ class MMF:
                  return_trajectory: bool = False,
                  segments: Optional[Tensor] = None, num_segments: Optional[int] = None,
                  generator: Optional[torch.Generator] = None,
-                 uniforms: Optional[Tensor] = None):
+                 uniforms: Optional[Tensor] = None, draw_rows=None):
         """The final state, or (final, trajectory) with `return_trajectory`
-        (`dynamics.solvers.simulate`)."""
+        (`dynamics.solvers.simulate`, which takes `draw_rows`)."""
         solver = self.make_solver(temperature, top_k, top_p, segments, num_segments)
         return simulate(solver, source, num_timesteps, self.config.time_eps,
                         generator=generator, uniforms=uniforms,
                         return_trajectory=return_trajectory,
-                        use_final_max_rates=use_final_max_rates)
+                        use_final_max_rates=use_final_max_rates, draw_rows=draw_rows)
 
 
 class CFM:
@@ -256,10 +287,12 @@ class CFM:
         self.bridge_continuous = UniformFlow(config.sigma)
 
     def loss_fn(self, batch, generator: Optional[torch.Generator] = None, train: bool = True,
-                module: Optional[nn.Module] = None) -> Tuple[Tensor, Dict[str, Tensor]]:
+                module: Optional[nn.Module] = None, rows: Optional[slice] = None
+                ) -> Tuple[Tensor, Dict[str, Tensor]]:
         """Masked MSE over the whole batch; on packed rows each jet draws
         its own t.  The normalisation counts the same real tokens packed
-        or not."""
+        or not.  With `rows`, the forward runs on those rows and the sum
+        divides by their share of the batch's count."""
         module = module or self.module
         segments = num_segments = None
         if isinstance(batch, PackedJets):
@@ -274,9 +307,14 @@ class CFM:
         if x0 is None:
             x0 = self.bridge_continuous.draw_source(generator, x1, mask)
         xt = self.bridge_continuous.sample(generator, t, x0, x1)
+        drift = self.bridge_continuous.conditional_drift(xt, x0, x1)
+        total = _rank_total(mask.sum(), rows, len(mask))
+        t, xt, mask, drift = _take(rows, t, xt, mask, drift)
+        if segments is not None:
+            (segments,) = _take(rows, segments)
         with _dropout_mode(module, self.config.dropout, train, generator):
             vt = module(MultiModal(time=t, continuous=xt, mask=mask), segments, num_segments)
-        loss = global_masked_mse(vt, self.bridge_continuous.conditional_drift(xt, x0, x1), mask)
+        loss = global_masked_mse(vt, drift, mask, total)
         return loss, {"loss": loss, "loss_mse": loss}
 
     def simulate(self, source: MultiModal, num_timesteps: int, method: str = "euler",
@@ -284,7 +322,7 @@ class CFM:
                  segments: Optional[Tensor] = None, num_segments: Optional[int] = None,
                  generator: Optional[torch.Generator] = None,
                  normals: Optional[Tensor] = None, temperature: float = 1.0,
-                 top_k=None, top_p=None, use_final_max_rates: bool = False):
+                 top_k=None, top_p=None, use_final_max_rates: bool = False, draw_rows=None):
         """Euler or Euler-Maruyama integration (the latter draws its
         normals from `generator`, or takes `normals` (steps, B, D, Fc)).
         The token arguments that `generate_packed` passes (`temperature`,
@@ -297,7 +335,7 @@ class CFM:
             method=method)
         return simulate(solver, source, num_timesteps, self.config.time_eps,
                         generator=generator, uniforms=normals,
-                        return_trajectory=return_trajectory)
+                        return_trajectory=return_trajectory, draw_rows=draw_rows)
 
 
 class MJB:
@@ -315,9 +353,10 @@ class MJB:
         self.bridge_discrete = RandomTelegraphBridge(config.beta, config.vocab_size, thermostat)
 
     def loss_fn(self, batch, generator: Optional[torch.Generator] = None, train: bool = True,
-                module: Optional[nn.Module] = None) -> Tuple[Tensor, Dict[str, Tensor]]:
+                module: Optional[nn.Module] = None, rows: Optional[slice] = None
+                ) -> Tuple[Tensor, Dict[str, Tensor]]:
         """Masked CE over the whole batch; on packed rows each jet draws its
-        own t."""
+        own t.  With `rows`, as `CFM.loss_fn`."""
         module = module or self.module
         segments = num_segments = None
         if isinstance(batch, PackedJets):
@@ -332,16 +371,21 @@ class MJB:
         if k0 is None:
             k0 = self.bridge_discrete.draw_source(generator, k1.shape, mask)
         kt = self.bridge_discrete.sample(generator, t, k0, k1)
+        total = _rank_total(mask.sum(), rows, len(mask))
+        t, kt, mask, k1 = _take(rows, t, kt, mask, k1)
+        if segments is not None:
+            (segments,) = _take(rows, segments)
         with _dropout_mode(module, self.config.dropout, train, generator):
             logits = module(MultiModal(time=t, discrete=kt, mask=mask), segments, num_segments)
-        loss = global_masked_ce(logits, k1, mask)
+        loss = global_masked_ce(logits, k1, mask, total)
         return loss, {"loss": loss, "loss_ce": loss}
 
     def simulate(self, source: MultiModal, num_timesteps: int, temperature: float = 1.0,
                  top_k=None, top_p=None, return_trajectory: bool = False,
                  segments: Optional[Tensor] = None, num_segments: Optional[int] = None,
                  generator: Optional[torch.Generator] = None,
-                 uniforms: Optional[Tensor] = None, use_final_max_rates: bool = False):
+                 uniforms: Optional[Tensor] = None, use_final_max_rates: bool = False,
+                 draw_rows=None):
         """The token steps of `Config.markov_jump_solver`.  The
         `use_final_max_rates` that `generate_packed` passes is named and
         has no effect, as in the JAX package; any other keyword raises."""
@@ -352,7 +396,7 @@ class MJB:
                                 method=self.config.markov_jump_solver)
         return simulate(solver, source, num_timesteps, self.config.time_eps,
                         generator=generator, uniforms=uniforms,
-                        return_trajectory=return_trajectory)
+                        return_trajectory=return_trajectory, draw_rows=draw_rows)
 
 
 SYSTEM_REGISTRY = {"MMF": MMF, "CFM": CFM, "MJB": MJB}

@@ -1,5 +1,5 @@
-"""The training loop on one device (PyTorch port of
-`multimodal_flows_tpu/train/trainer.py`).
+"""The training loop, on one device or over a mesh of processes (PyTorch
+port of `multimodal_flows_tpu/train/trainer.py`).
 
 A step is loss -> backward -> global-norm clip -> Adam at the schedule's
 rate for this step -> EMA, on the system's device (CUDA unless the system
@@ -30,8 +30,27 @@ With `physics_eval_every_n_epochs > 0` the trainer samples
 against the validation set (`train/physics_eval.py`), logs `val_w1_*` and
 saves a checkpoint, which fills the `best_physics` slot.
 
-Not ported, raising with a pointer to ROADMAP.md: meshes (FSDP, tensor
-parallelism).
+Meshes (`parallel/`): `Trainer(system, config, mesh="auto")` trains over
+`make_mesh_2d(tensor_parallel)` when `tensor_parallel > 1`, over
+`make_mesh()` when a process group exists (`torchrun`), and on the one
+device otherwise; `config.mesh_shape` is stored and has no effect, as in
+the JAX package.  The module takes one of three layouts in `init_state`,
+the EMA copy the same one:
+- data parallel (the default on a mesh): the module is replicated and
+  `_update` all-reduces the gradients in one flattened collective;
+- FSDP (`fsdp`): `fully_shard` per residual block and at the root, the
+  gradients reduce-scattered by FSDP2;
+- tensor parallel (`tensor_parallel > 1`): Megatron layers over the model
+  axis, the gradients all-reduced over the data axis when it has more
+  than one rank.
+Every rank holds each global batch (one shuffle from the shared seed),
+draws the bridge states at its shape and runs the forward on its share
+of the rows (`process_batch_slice`), with the loss normalised over the
+global batch (`train/systems.py`), so a step equals the one-device step
+on the whole batch.  The per-step metrics are averaged over the data axis
+in one collective at the end of a unit's epoch.  Checkpoints hold the
+full tensors whatever the layout (`parallel.tensor_parallel`); rank 0
+writes them and the metric files.
 """
 
 from __future__ import annotations
@@ -57,6 +76,16 @@ from multimodal_flows_tpu_torch.data.packing import (
     singleton_rows,
 )
 from multimodal_flows_tpu_torch.data.state import DataCoupling
+from multimodal_flows_tpu_torch.parallel import tensor_parallel as tpar
+from multimodal_flows_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    data_axis_size,
+    data_group,
+    data_rows,
+    initialized,
+    make_mesh,
+    make_mesh_2d,
+)
 from multimodal_flows_tpu_torch.train.checkpoints import CheckpointManager
 from multimodal_flows_tpu_torch.train.ema import ema_update
 from multimodal_flows_tpu_torch.train.lr_schedules import warmup_cosine_epoch_schedule
@@ -74,21 +103,24 @@ class TrainState:
     step: int                         # optimizer updates so far
 
 
-def _check_supported(cfg: Config) -> None:
-    if cfg.fsdp or cfg.tensor_parallel > 1 or cfg.mesh_shape:
-        raise NotImplementedError("meshes, FSDP and TP are not ported yet (ROADMAP.md "
-                                  "Queue 1 item 22)")
-
-
 def _seed(*parts: int) -> int:
     return int(np.random.SeedSequence(list(parts)).generate_state(1)[0])
 
 
 class Trainer:
-    """Trains `system` on its own device."""
+    """Trains `system` on its own device, over `mesh` when there is one
+    ("auto": see the module docstring; None: one device)."""
 
-    def __init__(self, system, config: Config):
-        _check_supported(config)
+    def __init__(self, system, config: Config, mesh="auto"):
+        if config.fsdp and config.tensor_parallel > 1:
+            raise ValueError("fsdp and tensor_parallel are mutually exclusive")
+        if isinstance(mesh, str) and mesh == "auto":
+            device_type = system.device.type
+            if config.tensor_parallel > 1:
+                mesh = make_mesh_2d(config.tensor_parallel, device_type)
+            else:
+                mesh = make_mesh(device_type) if initialized() else None
+        self.mesh = mesh
         self.system = system
         self.config = config
         self.device = system.device
@@ -107,9 +139,16 @@ class Trainer:
                                 betas=ADAM_BETAS, eps=ADAM_EPS, weight_decay=0.0)
 
     def init_state(self, steps_per_epoch: int) -> TrainState:
+        """The system's module in the mesh's layout (sharded in place), its
+        EMA copy in the same layout, and Adam over its parameters."""
         module = self.system.module
         ema = (copy.deepcopy(module).requires_grad_(False)
                if self.config.use_ema_weights else None)
+        if self.mesh is not None and (self.config.fsdp or self.config.tensor_parallel > 1):
+            shard = tpar.tp_sharding if self.config.tensor_parallel > 1 else tpar.fsdp_sharding
+            for m in (module, ema):
+                if m is not None:
+                    shard(m, self.mesh)
         return TrainState(module, self.make_optimizer(steps_per_epoch), ema, 0)
 
     # --------------------------------------------------------------- steps
@@ -134,8 +173,10 @@ class Trainer:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in params]
-        grad_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
-        torch._foreach_mul_(grads, torch.clamp(cfg.gradient_clip_val / grad_norm, max=1.0))
+        self._average_gradients(grads)
+        grad_norm = tpar.grad_norm(params, grads)
+        torch._foreach_mul_(tpar.local_tensors(grads),
+                            torch.clamp(cfg.gradient_clip_val / grad_norm, max=1.0))
         for group in state.optimizer.param_groups:
             group["lr"] = self.lr_schedule(state.step)
         state.optimizer.step()
@@ -144,20 +185,46 @@ class Trainer:
         state.step += 1
         return grad_norm.detach()
 
+    @torch.no_grad()
+    def _average_gradients(self, grads: List[torch.Tensor]) -> None:
+        """Data parallelism of replicated (or tensor-parallel) parameters:
+        the gradients' mean over the data axis, in one all-reduce of their
+        concatenation.  FSDP reduces its own, and a tensor-parallel mesh
+        with one data rank has nothing to do; a data-parallel mesh of one
+        rank runs the collective all the same, so that a process group of
+        one takes the path of many."""
+        n_data = data_axis_size(self.mesh)
+        if (self.mesh is None or self.config.fsdp
+                or (n_data == 1 and self.config.tensor_parallel > 1)):
+            return
+        flat = torch._utils._flatten_dense_tensors(grads)
+        torch.distributed.all_reduce(flat, group=self.mesh.get_group(DATA_AXIS))
+        flat /= n_data
+        torch._foreach_copy_(grads, torch._utils._unflatten_dense_tensors(flat, grads))
+
     def _train_step(self, state: TrainState, batch, generator: torch.Generator):
-        loss, metrics = self.system.loss_fn(batch, generator, train=True, module=state.module)
+        loss, metrics = self.system.loss_fn(batch, generator, train=True, module=state.module,
+                                            rows=data_rows(len(batch), self.mesh))
         return self._apply_gradients(state, loss, metrics)
 
     @torch.no_grad()
     def _eval_step(self, module: nn.Module, batch, generator: torch.Generator):
-        return self.system.loss_fn(batch, generator, train=False, module=module)[1]
+        return self.system.loss_fn(batch, generator, train=False, module=module,
+                                   rows=data_rows(len(batch), self.mesh))[1]
 
-    @staticmethod
-    def _fetch_metrics(metrics_seq: List[Dict[str, torch.Tensor]]) -> Dict[str, np.ndarray]:
-        """{name: (n_batches,)} of a unit's epoch, in one device -> host copy."""
+    def _fetch_metrics(self, metrics_seq: List[Dict[str, torch.Tensor]]) -> Dict[str, np.ndarray]:
+        """{name: (n_batches,)} of a unit's epoch, averaged over the data
+        axis in one collective, in one device -> host copy.  Each rank's
+        loss is its share of the global weighted mean scaled by the axis
+        size, so the plain mean over ranks is the global value."""
         names = sorted(metrics_seq[0])
         stacked = torch.stack([torch.stack([m[k].to(torch.float32) for m in metrics_seq])
-                               for k in names]).cpu().numpy()
+                               for k in names])
+        group = data_group(self.mesh)
+        if group is not None:
+            torch.distributed.all_reduce(stacked, group=group)
+            stacked /= data_axis_size(self.mesh)
+        stacked = stacked.cpu().numpy()
         return {k: stacked[i] for i, k in enumerate(names)}
 
     @staticmethod
@@ -263,6 +330,8 @@ class Trainer:
             n_rows = (len(packed) if packed is not None else 0) + len(leftover)
             jets_per_row = max(len(target) / max(n_rows, 1), 1.0)
             row_bs = max(int(round(cfg.batch_size / jets_per_row)), 1)
+            n_data = data_axis_size(self.mesh)  # rows shard over the data axis
+            row_bs = max((row_bs // n_data) * n_data, n_data)
             self._packed_row_bs = min(row_bs, cfg.batch_size)
             log.info(f"packed training: {jets_per_row:.2f} jets/row -> "
                      f"{self._packed_row_bs} rows per step (~{cfg.batch_size} jets/step)")
@@ -356,6 +425,10 @@ class Trainer:
     def fit(self, train_ds: ArrayDataset, val_ds: ArrayDataset,
             resume: Optional[str] = None) -> TrainState:
         cfg = self.config
+        n_data = data_axis_size(self.mesh)
+        if cfg.batch_size % n_data:
+            raise ValueError(f"batch_size {cfg.batch_size} must be divisible by the "
+                             f"{n_data}-device data axis")
         train_units, val_units, bs, bucket_widths = self._units(train_ds, val_ds)
         # the schedule's steps per epoch: the units' batches, or for buckets
         # (as in the JAX trainer) those of the whole set at the batch size
@@ -464,7 +537,8 @@ class Trainer:
             out = physics_eval.physics_metrics(
                 self.system, module, ref_obs, masks,
                 num_timesteps=cfg.physics_eval_num_timesteps, metadata=cfg.metadata,
-                batch_size=cfg.batch_size, seed=cfg.seed + 104729, pack_width=cfg.pack_width)
+                batch_size=cfg.batch_size, seed=cfg.seed + 104729, pack_width=cfg.pack_width,
+                mesh=self.mesh)
         except Exception as e:  # a metric never kills a long run
             log.warn(f"physics eval failed at epoch {epoch}: {e!r}")
             return {}
@@ -491,19 +565,24 @@ class Trainer:
 
     @staticmethod
     def _to_ckpt(state: TrainState, epoch: int = 0) -> dict:
-        d = {"params": state.module.state_dict(), "opt_state": state.optimizer.state_dict(),
+        """The single-device checkpoint of `state` in any layout: sharded
+        tensors are gathered (a collective: every rank calls it)."""
+        d = {"params": tpar.full_state_dict(state.module),
+             "opt_state": tpar.full_optimizer_state_dict(state.module, state.optimizer),
              "step": state.step, "epoch": epoch}
         if state.ema is not None:
-            d["ema_params"] = state.ema.state_dict()
+            d["ema_params"] = tpar.full_state_dict(state.ema)
         return d
 
     @staticmethod
     def _from_ckpt(state: TrainState, restored: dict) -> int:
-        """Restore `state` in place; returns the checkpoint's epoch."""
-        state.module.load_state_dict(restored["params"])
-        state.optimizer.load_state_dict(restored["opt_state"])
+        """Restore `state` in place from a single-device checkpoint, each
+        tensor cut to this rank's share; returns the checkpoint's epoch."""
+        tpar.load_full_state_dict(state.module, restored["params"])
+        tpar.load_full_optimizer_state_dict(state.module, state.optimizer,
+                                            restored["opt_state"])
         if state.ema is not None and "ema_params" in restored:
-            state.ema.load_state_dict(restored["ema_params"])
+            tpar.load_full_state_dict(state.ema, restored["ema_params"])
         state.step = int(restored["step"])
         return int(restored["epoch"])
 

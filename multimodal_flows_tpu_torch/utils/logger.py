@@ -5,8 +5,8 @@ and a TensorBoard event file under `tb/` (dependency-free: TFRecord
 framing and the scalar Summary protos are encoded by hand); with a
 `wandb_project` it adds a Weights & Biases sink when the `wandb` package
 is installed and warns when it is not.  `wandb` is imported where it is
-used.  One process: the multi-host broadcast of the run directory belongs
-to the meshes (ROADMAP.md Queue 1 item 22).
+used.  Over several processes (`parallel/mesh.py`) rank 0 picks the run
+directory and broadcasts it, and only rank 0 writes to the sinks.
 """
 
 from __future__ import annotations
@@ -18,6 +18,8 @@ import struct
 import time
 import warnings
 from typing import Any, Dict, List, Optional
+
+from multimodal_flows_tpu_torch.parallel.mesh import broadcast_object, is_primary
 
 
 class SimpleLogger:
@@ -53,10 +55,14 @@ def get_unique_dir(base_dir: str, exist_ok: bool = False) -> str:
 
 
 def setup_logging_dir(base_dir: str, exist_ok: bool = False) -> str:
-    """Create a unique run directory and return its path."""
-    path = get_unique_dir(base_dir, exist_ok=exist_ok)
-    os.makedirs(path, exist_ok=True)
-    return path
+    """Create a unique run directory and return its path.  Over several
+    processes rank 0 picks the name and creates it, and every rank returns
+    rank 0's path (`broadcast_object_list`), even when `base_dir` exists."""
+    path = None
+    if is_primary():
+        path = get_unique_dir(base_dir, exist_ok=exist_ok)
+        os.makedirs(path, exist_ok=True)
+    return broadcast_object(path)
 
 
 class MetricSink:
@@ -222,13 +228,17 @@ class WandbSink(MetricSink):
 class MetricsLogger:
     """Fan-out logger owning the experiment directory: every record goes to
     each sink (by default JSONL, CSV and TensorBoard, plus wandb when
-    `wandb_project` is given and the package is there)."""
+    `wandb_project` is given and the package is there).  On ranks other
+    than 0 it has no sink and writes nothing."""
 
     def __init__(self, experiment_dir: str, sinks: Optional[List[MetricSink]] = None,
                  wandb_project: Optional[str] = None,
                  wandb_name: Optional[str] = None,
                  wandb_config: Optional[Dict[str, Any]] = None):
         self.dir = experiment_dir
+        if not is_primary():
+            self.sinks = []
+            return
         os.makedirs(experiment_dir, exist_ok=True)
         if sinks is None:
             sinks = [

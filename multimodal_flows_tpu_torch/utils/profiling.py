@@ -115,8 +115,11 @@ def step_phases(trainer, state, batch, gen) -> None:
     backward between them is launched by autograd's own thread."""
     from torch.profiler import record_function
 
+    from multimodal_flows_tpu_torch.parallel.mesh import data_rows
+
     with record_function("train_forward"):
-        loss, _ = trainer.system.loss_fn(batch, gen, train=True, module=state.module)
+        loss, _ = trainer.system.loss_fn(batch, gen, train=True, module=state.module,
+                                         rows=data_rows(len(batch), trainer.mesh))
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
     with record_function("train_optimizer"):

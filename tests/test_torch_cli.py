@@ -188,13 +188,24 @@ def test_round_trip_of_the_other_systems(tmp_path, kind, model_flags):
 
 
 @pytest.mark.parametrize("flags,error,match", [
-    (["--fsdp"], NotImplementedError, "ROADMAP.md Queue 1 item 22"),
-    (["--tensor_parallel", "2"], NotImplementedError, "ROADMAP.md Queue 1 item 22"),
+    (["--fsdp"], None, None),
+    (["--tensor_parallel", "2"], ValueError, "1 devices not divisible by model=2"),
     (["--compute_dtype", "bfloat16"], NotImplementedError, "ROADMAP.md Queue 2"),
 ], ids=["fsdp", "tensor_parallel", "bfloat16"])
 def test_flags_of_what_is_not_ported_raise_before_any_file_is_written(tmp_path, flags, error,
                                                                        match):
+    """bf16 compute is not ported and raises; a tensor-parallel mesh that
+    does not fit the world size raises the JAX package's divisibility
+    error: both before any file is written.  `--fsdp` at world size 1 (no
+    process group, so no mesh) trains on the one device, as in JAX."""
     exp_dir = str(tmp_path / "experiments")
+    if error is None:
+        common = ["--dir", exp_dir, "--dir_aoj", _aoj_dir(tmp_path)]
+        _run(train_mmf.main, common + TINY + ["--max_epochs", "1"] + flags)
+        exp_id, exp = _only_experiment(exp_dir)
+        assert Config.load(exp).fsdp
+        assert os.path.exists(os.path.join(exp, "checkpoints", "last.pt"))
+        return
     with pytest.raises(error, match=match):
         train_mmf.main(["--dir", exp_dir, "--dir_aoj", str(tmp_path / "nowhere")] + TINY + flags)
     assert not os.path.exists(exp_dir)

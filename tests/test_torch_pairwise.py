@@ -383,7 +383,8 @@ def test_generate_packed_runs_each_system_on_cpu(kind, cfg_kw):
 def test_unported_modes_raise_with_roadmap_pointer():
     """The solver modes are all ported: each builds, and an unknown method
     raises ValueError as in JAX.  The toy model builds and jet substructure
-    computes.  What still raises names its ROADMAP item: meshes, bf16
+    computes.  `Config.mesh_shape` is stored and has no effect, as in the
+    JAX package.  What still raises names its ROADMAP item: bf16
     compute."""
     solvers.ContinuousSolver(None, method="euler_maruyama")
     for method in ("tauleap-bernouilli", "euler", "jump_or_stay"):
@@ -392,8 +393,10 @@ def test_unported_modes_raise_with_roadmap_pointer():
         solvers.ContinuousSolver(None, method="heun")
     with pytest.raises(ValueError, match="unknown discrete method"):
         solvers.DiscreteSolver(None, None, 9, method="tauleap-bernoulli")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 22"):
-        Trainer(None, Config(mesh_shape={"data": 2}))
+    cfg = Config(model="FlavorFormer", n_embd=16, n_inner=32, n_layer=1, n_head=2,
+                 mesh_shape={"data": 2})
+    trainer = Trainer(systems.build_system(cfg, "MJB", device="cpu"), cfg)
+    assert trainer.mesh is None and trainer.config.mesh_shape == {"data": 2}
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 2"):
         build_model(Config(model="KinFormer", compute_dtype="bfloat16"))
     assert type(build_model(Config(model="ToyMLP", dim_continuous=2))).__name__ == "ToyMLP"

@@ -269,14 +269,21 @@ def test_entry_points_run_on_cuda_unless_asked_for_the_cpu(kind):
     assert systems.build_system(cfg, kind, device="cpu").device.type == "cpu"
 
 
-@pytest.mark.parametrize("option,item", [(dict(fsdp=True), 22), (dict(tensor_parallel=2), 22)])
-def test_trainer_raises_on_unported_options(option, item):
-    """Meshes still raise; bucketed training, the physics eval and dropout
-    no longer do."""
+@pytest.mark.parametrize("option,error", [
+    (dict(fsdp=True, tensor_parallel=2), "fsdp and tensor_parallel are mutually exclusive"),
+    (dict(tensor_parallel=2), "1 devices not divisible by model=2"),
+], ids=["option0-22", "option1-22"])
+def test_trainer_raises_on_unported_options(option, error):
+    """FSDP together with tensor parallelism raises ValueError, as in the
+    JAX trainer; a tensor-parallel mesh that the world size does not divide
+    raises JAX's divisibility error.  FSDP at world size 1 (no process
+    group: no mesh) builds a one-device trainer, and bucketed training, the
+    physics eval and dropout raise nothing."""
     cfg = Config(**SMALL, **option)
     system = systems.build_system(Config(**SMALL), "MMF", device="cpu")
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 item {item}"):
+    with pytest.raises(ValueError, match=error):
         Trainer(system, cfg)
+    assert Trainer(system, Config(**SMALL, fsdp=True)).mesh is None
     Trainer(system, Config(**SMALL, bucketed_training=True, physics_eval_every_n_epochs=2,
                            dropout=0.1))
 
