@@ -125,7 +125,24 @@
      H=2, 16 a forward), and 128 jets sampled over the data mesh at 8
      steps equal to one process's on one seed.  A collective gloo refuses
      fails the run with its name.
-11. Prints one JSON line of the kernels, the card line, and the contract
+11. The bf16 compute path (compute_dtype="bfloat16"; `check_bf16_kernels`
+   and `time_bf16_kernels` right after 3 and 4, `bf16_phase` after 5):
+   - the bf16 forms of K1 (segments, key mask) and K2 (bias + segments,
+     bias, key mask + bias, key mask; an fp32 and a bf16 bias; head-major
+     Tq != Tk, odd head size) against their bf16 plain versions (atol
+     1e-2, rtol 1e-2), with gradients; both timed at the packed-row shapes
+     beside the bf16 plain version, scaled_dot_product_attention in bf16
+     and the bound at 2 bytes an element and the dense bf16 rate;
+   - the flagship MMF in bf16 at full width: `generate_packed` on the jets
+     and noise of 5 (the bf16 K1 in both forms, no fp32 kernel), the
+     samples' W1 in pT, eta, phi and multiplicity against the fp32 samples,
+     the bf16 sampler against the port's bf16 CPU sampler on shared noise;
+     5 steps on a fixed packed batch (the loss falls, the bf16 K1 16
+     launches a forward) and the step timed as in 6; the packed loss's
+     bf16 drift from fp32 on shared states;
+   - the co-occurrence MMF in bf16: `generate_packed` and 5 training steps
+     (the bf16 K2, bias + segments and bias).
+12. Prints one JSON line of the kernels, the card line, and the contract
    line {"ok": true, "device": {...}} last.  Any failure exits non-zero.
 
 Against earlier versions of this script the two MMF sampling paths run 50
@@ -365,33 +382,41 @@ def _case_inputs(shape, form, dev, seed=0):
     return q, k, v, km, seg, bias, real
 
 
-def _held(name, out, ref, real) -> float:
-    """max abs error over the real query rows; raises past the tolerance."""
+def _held(name, out, ref, real, atol=ATOL, rtol=RTOL) -> float:
+    """max abs error over the real query rows (in fp32); raises past the
+    tolerance or when the output's dtype is not the plain version's."""
     torch.cuda.synchronize()
+    if out.dtype != ref.dtype:
+        raise AssertionError(f"{name}: output {out.dtype}, plain version {ref.dtype}")
+    out, ref = out.float(), ref.float()
     if not torch.isfinite(out).all():
         raise AssertionError(f"{name}: non-finite output")
     err = (out - ref).abs()[real]
-    bad = err > ATOL + RTOL * ref.abs()[real]
+    bad = err > atol + rtol * ref.abs()[real]
     max_err = float(err.max())
-    print(f"{name}: max_abs_err {max_err:.3e} (atol {ATOL}, rtol {RTOL}, "
+    print(f"{name}: max_abs_err {max_err:.3e} (atol {atol}, rtol {rtol}, "
           f"{int(real.sum())} real rows)")
     if bad.any():
         raise AssertionError(f"{name}: {int(bad.sum())} values out of tolerance")
     return max_err
 
 
-def _grads_held(name, fns, leaves):
+def _grads_held(name, fns, leaves, upstream=None, atol=GRAD_ATOL, rtol=GRAD_RTOL):
     """Compare the autograd gradients of fns[0] (a kernel) and fns[1] (its
-    plain version) of sum(out**2) with respect to `leaves`."""
+    plain version) of sum(out**2), or of sum(out * upstream) when given,
+    with respect to `leaves`."""
     grads = []
     for fn in fns:
         ls = [t.clone().requires_grad_(True) for t in leaves]
-        (fn(*ls) ** 2).sum().backward()
+        out = fn(*ls)
+        (out ** 2 if upstream is None else out.float() * upstream).sum().backward()
         grads.append([t.grad for t in ls])
     for i, (a, b) in enumerate(zip(*grads)):
-        err = float((a - b).abs().max())
-        print(f"{name} grad of input {i} {tuple(a.shape)} vs plain: max_abs_err {err:.3e}")
-        if a.shape != b.shape or not torch.allclose(a, b, atol=GRAD_ATOL, rtol=GRAD_RTOL):
+        err = float((a.float() - b.float()).abs().max())
+        print(f"{name} grad of input {i} {tuple(a.shape)} {a.dtype} vs plain: max_abs_err "
+              f"{err:.3e}")
+        if (a.shape != b.shape or a.dtype != b.dtype
+                or not torch.allclose(a.float(), b.float(), atol=atol, rtol=rtol)):
             raise AssertionError(f"{name} gradient {i} out of tolerance")
 
 
@@ -462,30 +487,35 @@ def check_k2(dev) -> float:
 # product
 HBM_BYTES_PER_S = 3.35e12
 KERNEL_FLOP_PER_S = 495e12 / 3
+# dense bf16 tensor cores: one pass per product in the bf16 kernels
+BF16_FLOP_PER_S = 989e12
 
 
-def _roofline(nbytes: int, flops: int):
-    """(ms, what bounds it): `nbytes` at the HBM rate against `flops` at the
-    3xTF32 rate, whichever is longer."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / KERNEL_FLOP_PER_S * 1e3
+def _roofline(nbytes: int, flops: int, flop_per_s: float = KERNEL_FLOP_PER_S):
+    """(ms, what bounds it): `nbytes` at the HBM rate against `flops` at
+    `flop_per_s` (the 3xTF32 rate unless given), whichever is longer."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / flop_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def _bound(q: torch.Tensor, real_pairs: int, extra_bytes: int):
     """(ms, what bounds it): the least time for the kernel's work on these
-    inputs: q, k, v read and the output written once plus `extra_bytes`
-    (segments or key mask, the bias of the pairs used) at the HBM rate,
-    against QK^T and PV over
-    the (query, key) pairs that this data needs (real tokens of one jet)
-    at the 3xTF32 rate, whichever is longer."""
-    return _roofline(4 * q.numel() * 4 + extra_bytes, 4 * q.shape[-1] * real_pairs)
+    inputs: q, k, v read and the output written once (at q's element size)
+    plus `extra_bytes` (segments or key mask, the bias of the pairs used) at
+    the HBM rate, against QK^T and PV over the (query, key) pairs that this
+    data needs (real tokens of one jet) at the kernel's tensor-core rate
+    (3xTF32 for fp32, bf16 dense for bf16), whichever is longer."""
+    rate = BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else KERNEL_FLOP_PER_S
+    return _roofline(4 * q.numel() * q.element_size() + extra_bytes,
+                     4 * q.shape[-1] * real_pairs, rate)
 
 
-def _library_call(q, k, v, H, ref, real, name, **sdpa_kw):
+def _library_call(q, k, v, H, ref, real, name, atol=1e-4, **sdpa_kw):
     """One PyTorch call of the same function: scaled_dot_product_attention
     over head-major views of q (B, Tq, C) and k/v (B, Tk, C) with the
-    equivalent additive float mask (`attn_mask`, made beforehand) or
-    `is_causal`; checked against the plain version once."""
+    equivalent additive float mask (`attn_mask`, made beforehand, in q's
+    dtype for bf16) or `is_causal`; checked against the plain version once
+    (within `atol`: 1e-4 in fp32, a bf16 ulp or two in bf16)."""
     B, T, C = q.shape
 
     def heads(t):
@@ -497,9 +527,9 @@ def _library_call(q, k, v, H, ref, real, name, **sdpa_kw):
         return torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, **sdpa_kw)
 
     out = call().transpose(1, 2).reshape(B, T, C)
-    err = float((out - ref).abs()[real].max())
-    print(f"{name}: scaled_dot_product_attention vs plain max_abs_err {err:.3e} (atol 1e-4)")
-    if err > 1e-4:
+    err = float((out.float() - ref.float()).abs()[real].max())
+    print(f"{name}: scaled_dot_product_attention vs plain max_abs_err {err:.3e} (atol {atol})")
+    if err > atol:
         raise AssertionError(f"{name}: the library call does not compute the kernel's function")
     return call
 
@@ -675,9 +705,11 @@ def _reset_counts():
 
 
 def _counts():
-    """The launch counts of both kernels by form, and the attention calls
-    that took the plain version for dropout."""
+    """The launch counts of both kernels by form, fp32 (K1, K2) and bf16
+    (K1_bf16, K2_bf16), and the attention calls that took the plain version
+    for dropout."""
     return {"K1": dict(k1.LAUNCHES), "K2": dict(k2.LAUNCHES),
+            "K1_bf16": dict(k1.LAUNCHES_BF16), "K2_bf16": dict(k2.LAUNCHES_BF16),
             "plain_dropout": dict(attention.PLAIN_DROPOUT_CALLS)}
 
 
@@ -690,9 +722,10 @@ def _only(form, n) -> dict:
     return {f: n if f == form else 0 for f in k2.LAUNCHES}
 
 
-def drive(name, system, mult, steps, expect):
+def drive(name, system, mult, steps, expect, counters=("K1", "K2")):
     """One serving path: counts set to 0, `generate_packed`, counts read.
-    `expect(k1_launches, k2_launches)` returns what is wrong, or ''."""
+    `expect(k1_launches, k2_launches)` (the `counters` of the system's
+    dtype) returns what is wrong, or ''."""
     cfg = system.config
     pad_masks = _pad_masks(mult, cfg.max_num_particles)
     kw = dict(pack_width=128, batch_size=128, seed=0)
@@ -702,7 +735,7 @@ def drive(name, system, mult, steps, expect):
     res = generate_packed(system, pad_masks, num_timesteps=steps, **kw)
     launches = _counts()
     print(f"{name}: launches {launches}")
-    wrong = expect(launches["K1"], launches["K2"])
+    wrong = expect(launches[counters[0]], launches[counters[1]])
     if wrong:
         raise AssertionError(f"{name}: {wrong}")
 
@@ -726,9 +759,11 @@ def drive(name, system, mult, steps, expect):
     return launches, res
 
 
-def sampler_vs_cpu(name, system, cfg_kw, dev, steps=8, rows=8):
+def sampler_vs_cpu(name, system, cfg_kw, dev, steps=8, rows=8, atol=1e-4, tokens_equal=0.99):
     """The MMF sampler on the card and on the CPU (plain attention), same
-    weights, source, segments and uniforms."""
+    weights, source, segments and uniforms (continuous within `atol`, at
+    least `tokens_equal` of the real sites' tokens equal); returns the
+    continuous error and the tokens' share."""
     cfg = system.config
     cpu_system = build_system(Config(**cfg_kw), system.name, device="cpu",
                               generator=torch.Generator().manual_seed(0))
@@ -750,9 +785,11 @@ def sampler_vs_cpu(name, system, cfg_kw, dev, steps=8, rows=8):
     err = float((outs[0].continuous - outs[1].continuous).abs()[real].max())
     same = float((outs[0].discrete[..., 0] == outs[1].discrete[..., 0])[real].float().mean())
     print(f"{name} sampler card vs CPU, {steps} steps x {rows} packed rows: continuous "
-          f"max_abs_err {err:.3e} (atol 1e-4), tokens equal on {same:.4f} of real sites (>= 0.99)")
-    if err > 1e-4 or same < 0.99:
+          f"max_abs_err {err:.3e} (atol {atol}), tokens equal on {same:.4f} of real sites "
+          f"(>= {tokens_equal})")
+    if err > atol or same < tokens_equal:
         raise AssertionError(f"{name}: the sampler on the card disagrees with the CPU sampler")
+    return err, same
 
 
 def _split_dataset(rng, mult, D=150):
@@ -776,6 +813,20 @@ def _first_batch(trainer, train_ds):
     return trainer._pack_units(train_ds)[0].coupling[np.arange(trainer._packed_row_bs)]
 
 
+def _bridge_states(batch, time_eps, seed=3):
+    """Per-jet times, the bridge state (host arrays of `MultiModal` fields)
+    and the drift target of a packed batch, drawn from `seed`: what two
+    sides share when their losses are compared."""
+    rng = np.random.default_rng(seed)
+    m = batch.mask
+    t_jets = rng.uniform(time_eps, 1.0, batch.jet_valid.shape).astype(np.float32)
+    states = dict(time=np.take_along_axis(t_jets, np.clip(batch.segments, 0, None), axis=1),
+                  continuous=(rng.normal(size=m.shape[:2] + (3,)) * m).astype(np.float32),
+                  discrete=(rng.integers(1, 9, size=m.shape) * m).astype(np.int32), mask=m)
+    drift = (rng.normal(size=m.shape[:2] + (3,)) * m).astype(np.float32)
+    return t_jets, states, drift
+
+
 def train_card_vs_cpu(dev, train_ds):
     """The flagship's packed training loss and every parameter gradient on
     the card and on the CPU (plain attention), same weights, one packed
@@ -786,13 +837,7 @@ def train_card_vs_cpu(dev, train_ds):
                                     generator=torch.Generator().manual_seed(0)))
              for side, d in (("card", dev), ("cpu", torch.device("cpu")))}
     batch = _first_batch(Trainer(sides["card"][1], cfg), train_ds)
-    rng = np.random.default_rng(3)
-    m = batch.mask
-    t_jets = rng.uniform(cfg.time_eps, 1.0, batch.jet_valid.shape).astype(np.float32)
-    states = dict(time=np.take_along_axis(t_jets, np.clip(batch.segments, 0, None), axis=1),
-                  continuous=(rng.normal(size=m.shape[:2] + (3,)) * m).astype(np.float32),
-                  discrete=(rng.integers(1, 9, size=m.shape) * m).astype(np.int32), mask=m)
-    drift = (rng.normal(size=m.shape[:2] + (3,)) * m).astype(np.float32)
+    t_jets, states, drift = _bridge_states(batch, cfg.time_eps)
     loss, grads = {}, {}
     for side, (d, system) in sides.items():
         b = batch.to(d)
@@ -985,11 +1030,12 @@ def time_training(dev, trainer, state, train_ds, n=20, n_prof=5, label="flagship
                 memcpy_per_step=sum(c for name, _, c in prof.kernels if "Memcpy" in name))
 
 
-def train_coocc(dev, train_ds, steps=5):
+def train_coocc(dev, train_ds, steps=5, cfg_kw=TRAIN_COOCC, k2_counter="K2"):
     """5 train steps of the co-occurrence MMF: K2 in its bias + segments
     form, forward and (through the plain version) backward with the bias's
-    gradient; K1 never."""
-    cfg = Config(**TRAIN_COOCC)
+    gradient; K1 never.  `k2_counter` names K2's counter of the config's
+    dtype ("K2_bf16" for a bf16 config); no other counter may move."""
+    cfg = Config(**cfg_kw)
     system = build_system(cfg, "MMF", device=dev, generator=torch.Generator().manual_seed(0))
     trainer = Trainer(system, cfg)
     state = trainer.init_state(steps)
@@ -1005,10 +1051,12 @@ def train_coocc(dev, train_ds, steps=5):
     launches = _counts()
     losses = torch.stack([m["loss"] for m in metrics]).cpu().numpy()
     wue = system.module.encoder.coocc.wue.weight
-    print(f"co-occurrence training, {steps} steps: losses {np.round(losses, 5).tolist()}; "
-          f"launches {launches}")
+    print(f"co-occurrence training ({cfg.compute_dtype}), {steps} steps: losses "
+          f"{np.round(losses, 5).tolist()}; launches {launches}")
+    others = sum(_total(c) for name, c in launches.items()
+                 if name not in (k2_counter, "plain_dropout"))
     if not (len(losses) == steps and np.isfinite(losses).all()
-            and launches["K2"]["bias_segments"] and not sum(launches["K1"].values())):
+            and launches[k2_counter]["bias_segments"] and not others):
         raise AssertionError("co-occurrence training: a loss is not finite, K2 did not run "
                              "as bias + segments, or K1 ran")
     if wue.grad is None or not torch.isfinite(wue.grad).all() or not wue.grad.abs().sum():
@@ -2155,6 +2203,225 @@ def mesh_phase(dev, train_ds, val_ds, out_dir):
                                  wall_s=wall)
 
 
+# ------------------------------------------------------------------ bf16
+#
+# The bf16 compute path (compute_dtype="bfloat16"): the bf16 forms of K1
+# and K2 against their bf16 plain versions, their times, and the flagship
+# and co-occurrence MMF sampled and trained in bf16 at full width.
+
+BF16 = torch.bfloat16
+# a bf16 kernel against its bf16 plain version: both compute fp32 scores
+# from the same bf16 inputs; the kernel rounds the unnormalised
+# probabilities to bf16 where the plain version rounds the normalised ones,
+# and both round the output: outputs of order 1 one or two bf16 ulp (2^-8
+# relative) apart
+BF16_ATOL, BF16_RTOL = 1e-2, 1e-2
+# gradients: both sides recompute through the same bf16 plain version from
+# the same inputs and a fixed upstream gradient (equal bit for bit on the
+# card; the tolerance allows the backward's own atomics)
+BF16_GRAD_ATOL, BF16_GRAD_RTOL = 1e-2, 1e-2
+# the library call in bf16 against the bf16 plain version: a few ulp
+BF16_LIBRARY_ATOL = 3e-2
+# the bf16 sampler on the card against the port's bf16 sampler on the CPU,
+# 8 steps on shared noise: cuBLAS and the CPU round the same bf16 products
+# summed in another order, and K1 rounds its probabilities before the
+# division: an activation may land one bf16 ulp apart and move the drift
+# by that (3.7e-4 measured on an NVIDIA H100, PERF.md); a token may flip
+# where a uniform falls in that rounding
+BF16_SAMPLER_ATOL, BF16_TOKENS_EQUAL = 5e-3, 0.99
+FLAGSHIP_BF16 = dict(FLAGSHIP, compute_dtype="bfloat16")
+COOCC_BF16 = dict(COOCC, compute_dtype="bfloat16")
+TRAIN_BF16 = dict(TRAIN, compute_dtype="bfloat16")
+TRAIN_COOCC_BF16 = dict(TRAIN_COOCC, compute_dtype="bfloat16")
+# the flagship's shapes (packed rows, the wide jets' key mask, the bucketed
+# training batch), the tiling's edges (head size 9 and 36, T=33, scattered
+# ids); K2 with an fp32 and a bf16 bias
+K1_BF16_CASES = [((128, 128, 128, 4), "segments"), ((128, 128, 256, 4), "segments"),
+                 ((16, 150, 256, 4), "key_mask"), ((64, 48, 128, 4), "key_mask"),
+                 ((8, 33, 128, 4), "segments"), ((16, 150, 36, 4), "key_mask"),
+                 ((16, 128, 128, 4), "scattered")]
+K2_BF16_CASES = [((128, 128, 128, 4), "bias_segments"), ((128, 128, 256, 4), "bias_segments"),
+                 ((16, 150, 256, 4), "pair_mask_bias"), ((16, 128, 36, 4), "bias_segments"),
+                 ((16, 128, 128, 4), "bias_scattered")]
+
+
+def check_bf16_kernels(dev) -> dict:
+    """The bf16 forms of K1 (segments, key mask) and K2 (bias + segments,
+    bias, key mask + bias, key mask; head-major with Tq != Tk and an odd
+    head size) against their bf16 plain versions, and their gradients."""
+    worst = {"K1": 0.0, "K2": 0.0}
+    tol = dict(atol=BF16_ATOL, rtol=BF16_RTOL)
+    for shape, form in K1_BF16_CASES:
+        q, k, v, km, seg, _, real = _case_inputs(shape, form, dev)
+        q, k, v, H = q.to(BF16), k.to(BF16), v.to(BF16), shape[3]
+        worst["K1"] = max(worst["K1"], _held(
+            f"K1 bf16 vs plain {shape} {form}", k1.btc_attention(q, k, v, H, km, seg),
+            attention_btc_reference(q, k, v, H, km, seg), real, **tol))
+    for shape, form in K2_BF16_CASES:
+        q, k, v, km, seg, bias, real = _case_inputs(shape, form, dev)
+        q, k, v, H = q.to(BF16), k.to(BF16), v.to(BF16), shape[3]
+        for b in (bias, bias.to(BF16)):
+            worst["K2"] = max(worst["K2"], _held(
+                f"K2 bf16 vs plain {shape} {form} bias {tuple(b.shape)} {b.dtype}",
+                k2.set_attention_btc(q, k, v, H, km, b, seg),
+                attention_btc_reference(q, k, v, H, km, seg, b), real, **tol))
+    for shape in ((16, 4, 150, 64, 64), (8, 3, 20, 150, 9)):
+        q, k, v, km, bias = _head_major_inputs(shape, True, dev)
+        q, k, v = q.to(BF16), k.to(BF16), v.to(BF16)
+        real = torch.ones(q.shape[:3], dtype=torch.bool, device=dev)
+        for name, b in (("key_mask + (B,1,Tq,Tk) bias", bias), ("key_mask", None)):
+            worst["K2"] = max(worst["K2"], _held(
+                f"K2 bf16 vs plain head-major {shape} {name}",
+                k2.set_attention(q, k, v, km, b), attention_reference(q, k, v, km, b),
+                real, **tol))
+    grad_tol = dict(atol=BF16_GRAD_ATOL, rtol=BF16_GRAD_RTOL)
+    q, k, v, _, seg, _, _ = _case_inputs(TRAIN_K1_GRAD_SHAPE, "segments", dev, seed=4)
+    up = torch.randn(q.shape, device=dev)
+    _grads_held(f"K1 bf16 at the training batch {TRAIN_K1_GRAD_SHAPE} segments",
+                [lambda a, b, c: k1.btc_attention(a, b, c, 4, None, seg),
+                 lambda a, b, c: attention_btc_reference(a, b, c, 4, None, seg)],
+                [t.to(BF16) for t in (q, k, v)], upstream=up, **grad_tol)
+    q, k, v, _, seg, bias, _ = _case_inputs((85, 128, 128, 4), "bias_segments", dev, seed=6)
+    up = torch.randn(q.shape, device=dev)
+    _grads_held("K2 bf16 at the co-occurrence training batch (85, 128, 128, 4) bias + segments",
+                [lambda a, b, c, d: k2.set_attention_btc(a, b, c, 4, None, d, seg),
+                 lambda a, b, c, d: attention_btc_reference(a, b, c, 4, None, seg, d)],
+                [q.to(BF16), k.to(BF16), v.to(BF16), bias], upstream=up, **grad_tol)
+    return worst
+
+
+def time_bf16_kernels(dev) -> dict:
+    """{(kernel, shape): times} of the bf16 forms at the packed-row shapes:
+    K1 in its segment form, K2 with a bf16 (B, H, T, T) bias + segments,
+    each beside its bf16 plain version, scaled_dot_product_attention in
+    bf16 with the same float mask (in bf16) and its bound: the bytes at 2
+    an element (q, k, v, out and the bias of same-jet pairs) against the
+    same-jet FLOPs at the dense bf16 rate."""
+    result = {}
+    with torch.no_grad():
+        for shape in TIMED:
+            q, k, v, _, seg, bias, real = _case_inputs(shape, "bias_segments", dev)
+            q, k, v, bias, H = q.to(BF16), k.to(BF16), v.to(BF16), bias.to(BF16), shape[3]
+            same = seg[:, None, :, None] == seg[:, None, None, :]
+            pairs = int((same[:, 0] & real[:, :, None]).sum())
+            cross = torch.where(same, 0.0, -1e9)
+            forms = {
+                "K1": ("segments, bf16", lambda: k1.btc_attention(q, k, v, H, None, seg),
+                       lambda: attention_btc_reference(q, k, v, H, None, seg),
+                       cross.to(BF16), 4 * seg.numel()),
+                "K2": (f"bf16 bias {tuple(bias.shape)} + segments, bf16",
+                       lambda: k2.set_attention_btc(q, k, v, H, None, bias, seg),
+                       lambda: attention_btc_reference(q, k, v, H, None, seg, bias),
+                       (bias.float() + cross).to(BF16), 4 * seg.numel() + 2 * H * pairs),
+            }
+            for name, (form, kernel, plain, mask, extra) in forms.items():
+                library = _library_call(q, k, v, H, plain(), real, f"{name} bf16 {shape}",
+                                        atol=BF16_LIBRARY_ATOL, attn_mask=mask)
+                ms, plain_ms, library_ms = median_device_ms([kernel, plain, library])
+                bound_ms, bound_by = _bound(q, pairs, extra)
+                t = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                         bound_by=bound_by)
+                _print_time(name, shape, form, t)
+                result[name, shape] = t
+    return result
+
+
+def _jet_w1(a: MultiModal, b: MultiModal) -> dict:
+    """W1 between two samples of the same jets: pT, eta and phi over the real
+    particles, and the per-jet flavor multiplicity (tokens > 0)."""
+    from multimodal_flows_tpu_torch.utils.metrics import flavor_multiplicities, wasserstein1d
+
+    real = a.mask[..., 0].cpu().numpy() > 0
+    xa, xb = a.continuous.cpu().numpy()[real], b.continuous.cpu().numpy()[real]
+    w1 = {name: wasserstein1d(xa[:, i], xb[:, i]) for i, name in enumerate(("pt", "eta", "phi"))}
+    w1["multiplicity"] = wasserstein1d(flavor_multiplicities(a)["multiplicity"],
+                                       flavor_multiplicities(b)["multiplicity"])
+    return w1
+
+
+def bf16_loss_drift(dev, train_ds) -> dict:
+    """The flagship's packed training loss in bf16 and in fp32 on the card,
+    the same weights, batch and bridge states: the relative drift."""
+    losses = {}
+    for name, cfg_kw in (("fp32", TRAIN), ("bf16", TRAIN_BF16)):
+        cfg = Config(**cfg_kw)
+        system = build_system(cfg, "MMF", device=dev, generator=torch.Generator().manual_seed(0))
+        batch = _first_batch(Trainer(system, cfg), train_ds)
+        t_jets, states, drift = _bridge_states(batch, cfg.time_eps)
+        b = batch.to(dev)
+        state = MultiModal(**{f: torch.from_numpy(a) for f, a in states.items()}).to(dev)
+        with torch.no_grad():
+            out = system.module.packed_training_loss(
+                state, torch.from_numpy(drift).to(dev), b.discrete,
+                torch.from_numpy(t_jets).to(dev), b.segments, b.jet_valid)
+        losses[name] = float(out[0])
+    rel = abs(losses["bf16"] - losses["fp32"]) / abs(losses["fp32"])
+    print(f"flagship packed training loss, bf16 {losses['bf16']:.7f} vs fp32 "
+          f"{losses['fp32']:.7f}: relative drift {rel:.3e}")
+    if not np.isfinite(losses["bf16"]):
+        raise AssertionError("the bf16 training loss is not finite")
+    return dict(losses, relative_drift=rel)
+
+
+def bf16_phase(dev, mult, fp32_sample, train_ds):
+    """The bf16 compute path at the flagship's width, each path driven with
+    the counts set to 0 just before it and read just after: `generate_packed`
+    of the flagship MMF (the bf16 K1, both forms) on the jets and noise of
+    the fp32 run, its samples' W1 against the fp32 samples; the bf16
+    sampler against the port's bf16 CPU sampler; the packed train step on a
+    fixed batch (the loss falls, the bf16 K1 16 launches a forward) and its
+    time; the loss's bf16 drift; the co-occurrence MMF sampled and trained 5
+    steps (the bf16 K2).  No fp32 kernel may launch."""
+    t0 = time.perf_counter()
+    res = {}
+    only_bf16 = lambda l: _total(l["K1"]) + _total(l["K2"]) == 0  # noqa: E731
+
+    flagship = _system("MMF", FLAGSHIP_BF16, dev)
+    launches, gen = drive(
+        "flagship MMF bf16", flagship, mult, SAMPLING_STEPS,
+        lambda l1, l2: ("did not run both bf16 K1 forms" if not (l1["segments"] and l1["key_mask"])
+                        else "launched the bf16 K2" if _total(l2) else ""),
+        counters=("K1_bf16", "K2_bf16"))
+    if not only_bf16(launches):
+        raise AssertionError("flagship MMF bf16: an fp32 kernel ran")
+    res["sampling"] = dict(launches_k1=_total(launches["K1_bf16"]), wall_s=gen.wall_time_s,
+                           jets_per_s=gen.jets_per_sec,
+                           w1_vs_fp32=_jet_w1(gen.sample, fp32_sample))
+    print(f"flagship MMF bf16 samples vs fp32 on the same noise: W1 {res['sampling']['w1_vs_fp32']}")
+    res["sampler_vs_cpu"] = sampler_vs_cpu("flagship MMF bf16", flagship, FLAGSHIP_BF16, dev,
+                                           atol=BF16_SAMPLER_ATOL, tokens_equal=BF16_TOKENS_EQUAL)
+    del flagship
+
+    trainer, state, train_launches = fit_fixed_batch(dev, train_ds, steps=5,
+                                                     name="flagship MMF bf16", cfg_kw=TRAIN_BF16)
+    blocks = 2 * FLAGSHIP["n_layer"] + FLAGSHIP["n_layer_fused"]
+    if train_launches["K1_bf16"] != {"segments": 5 * blocks, "key_mask": 0, "none": 0} \
+            or not only_bf16(train_launches):
+        raise AssertionError(f"flagship bf16 training: the bf16 K1 did not run {blocks} times "
+                             f"a forward in its segment form, or an fp32 kernel ran")
+    res["train_step"] = time_training(dev, trainer, state, train_ds, label="flagship MMF, bf16")
+    res["launches_training"] = _total(train_launches["K1_bf16"])
+    del trainer, state
+    res["loss_drift"] = bf16_loss_drift(dev, train_ds)
+
+    coocc = _system("MMF", COOCC_BF16, dev)
+    coocc_launches, _ = drive(
+        "co-occurrence MMF bf16", coocc, mult, SAMPLING_STEPS,
+        lambda l1, l2: ("did not run the bf16 K2 as bias + segments and as bias"
+                        if not (l2["bias_segments"] and l2["bias"])
+                        else "launched the bf16 K1" if _total(l1) else ""),
+        counters=("K1_bf16", "K2_bf16"))
+    if not only_bf16(coocc_launches):
+        raise AssertionError("co-occurrence MMF bf16: an fp32 kernel ran")
+    del coocc
+    coocc_train = train_coocc(dev, train_ds, cfg_kw=TRAIN_COOCC_BF16, k2_counter="K2_bf16")
+    res["coocc_launches"] = _total(coocc_launches["K2_bf16"])
+    res["coocc_launches_training"] = _total(coocc_train["K2_bf16"])
+    res["wall_s"] = time.perf_counter() - t0
+    print(f"bf16 phase: {res['wall_s']:.1f} s")
+    return res
+
+
 def _system(kind, cfg_kw, dev):
     system = build_system(Config(**cfg_kw), kind, device=dev,
                           generator=torch.Generator().manual_seed(0))
@@ -2209,7 +2476,9 @@ def main() -> None:
 
     _build_all()
     err = {"K1": check_k1(dev), "K2": max(check_k2(dev), check_k2_gpt(dev))}
+    bf16_err = check_bf16_kernels(dev)
     times = time_kernels(dev)
+    bf16_times = time_bf16_kernels(dev)
     gpt_times = time_gpt_attention(dev)
 
     train_ds, val_ds = _train_data(np.random.default_rng(5))
@@ -2223,7 +2492,7 @@ def main() -> None:
     mult = _jets(rng, 512, 4)
 
     flagship = _system("MMF", FLAGSHIP, dev)
-    main_launches, _ = drive(
+    main_launches, flagship_gen = drive(
         "flagship MMF", flagship, mult, SAMPLING_STEPS,
         lambda l1, l2: ("did not run both K1 forms" if not (l1["segments"] and l1["key_mask"])
                         else "launched K2" if sum(l2.values()) else ""))
@@ -2246,6 +2515,9 @@ def main() -> None:
         drive(name, system, _jets(rng, n, 2), steps,
               lambda l1, l2: "did not run K2" if not sum(l2.values()) else "")
         del system
+
+    bf16 = bf16_phase(dev, mult, flagship_gen.sample, train_ds)
+    print(json.dumps({"bf16": {"card": card, **bf16}}))
 
     train_card_vs_cpu(dev, train_ds)
     fit_fixed_batch(dev, train_ds)
@@ -2311,10 +2583,10 @@ def main() -> None:
                                    "dropout_forward_attention_ms": dropout_attention,
                                    "physics_eval": physics}}))
 
-    def timed(name):
+    def timed(name, times=times, tag=""):
         out = {}
         for shape, suffix in ((TIMED[0], ""), (TIMED[1], "_c256")):
-            out.update({k + suffix: v for k, v in times[name, shape].items()})
+            out.update({k + tag + suffix: v for k, v in times[name, shape].items()})
         return out
 
     print(json.dumps({"kernels": [
@@ -2336,6 +2608,9 @@ def main() -> None:
          "launches_mesh_forward": {k: v["forward_k1_launches"]
                                    for k, v in mesh["layouts"].items()},
          "max_abs_err": err["K1"], **timed("K1"),
+         "launches_bf16_sampling": bf16["sampling"]["launches_k1"],
+         "launches_bf16_training": bf16["launches_training"],
+         "max_abs_err_bf16": bf16_err["K1"], **timed("K1", bf16_times, "_bf16"),
          **{f"tp_c{shape[2]}_{form}": tp_times["K1", shape, form]
             for shape in TP_SHAPES for form in ("segments", "key_mask")}},
         {"name": "set_attention (K2, timed at B=128 T=128 H=4 bias + segments, "
@@ -2351,6 +2626,9 @@ def main() -> None:
          "launches_gpt_training": _total(gpt_train_launches["K2"]),
          "launches_gpt_sampling": _total(gpt_sample_launches["K2"]),
          "max_abs_err": err["K2"], **timed("K2"),
+         "launches_bf16_sampling": bf16["coocc_launches"],
+         "launches_bf16_training": bf16["coocc_launches_training"],
+         "max_abs_err_bf16": bf16_err["K2"], **timed("K2", bf16_times, "_bf16"),
          **{f"gpt_{shape}": t for shape, t in gpt_times.items()},
          **{f"tp_c{shape[2]}_bias_segments": tp_times["K2", shape, "segments"]
             for shape in TP_SHAPES}},

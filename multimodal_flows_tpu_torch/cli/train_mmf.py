@@ -13,7 +13,9 @@ package loads in both), the same `system:<kind>` tag and resume overrides
 `cuda`): the run raises without a CUDA device unless `--device cpu` is
 given.  `--attn_impl` and `--remat` steer XLA in the JAX package; here they
 are stored in the config and have no effect.  `--compute_dtype bfloat16`
-raises with its ROADMAP.md pointer.  Under `torchrun` every process trains
+trains the transformer encoders in bf16 (parameters fp32, each layer cast
+at use, K1 and K2 in bf16 on the card), as the JAX package's flag does;
+EPiC and GPT ignore it there and here.  Under `torchrun` every process trains
 on its rank's device (NCCL on `cuda:LOCAL_RANK`, gloo with `--device cpu`)
 over the mesh of `Trainer(mesh="auto")`: data parallel, FSDP (`--fsdp`) or
 tensor parallel (`--tensor_parallel N`); rank 0 mints the experiment id
@@ -219,8 +221,8 @@ def split_jets(jets: MultiModal, config: Config,
 def build_trainer(config: Config, kind: str, device="cuda") -> Trainer:
     """The `kind` system on `device` (weights from `config.seed`) inside
     its trainer, over the mesh of the process group when there is one.
-    Raises for what is not ported (bf16), on the default device without
-    CUDA, and when the world size does not divide by `tensor_parallel`.  For GPT the sequences hold every
+    Raises on the default device without CUDA, and when the world size
+    does not divide by `tensor_parallel`.  For GPT the sequences hold every
     particle: `max_seq_length` is set to `max_num_particles` first, as the
     JAX script's `make_datasets` does."""
     if kind == "GPT":
@@ -246,8 +248,8 @@ def main(argv=None):
     if config.attn_impl is not None or config.remat:
         log.info("--attn_impl and --remat are stored for the JAX package and have no "
                  "effect in the PyTorch port")
-    # before any file is read or written: what is not ported, a missing
-    # CUDA device and a mesh that does not fit, raise here
+    # before any file is read or written: a missing CUDA device and a mesh
+    # that does not fit raise here
     trainer = build_trainer(config, kind, device)
 
     resume = None

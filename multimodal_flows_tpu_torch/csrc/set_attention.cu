@@ -32,6 +32,10 @@
 // under segments the cross-jet tiles, and their bias, are skipped.  The
 // Pallas block of 8 jets x all heads per grid step is a TPU device (its
 // grid runs in order) and is not carried over.
+// bf16 (`set_attention_bf16_fwd`): q, k, v and out bf16 with the same
+// strides, the bias fp32 or bf16 (a bf16 bias halves its 33.5 MB), the
+// core's bf16 path (one bf16 mma.sync pass per product, fp32 scores and
+// softmax, P rounded to bf16).
 // Limits: Tq, Tk <= 256, Dh <= 128 (the wrapper raises beyond them).
 
 #include "set_attention_core.cuh"
@@ -70,6 +74,51 @@ extern "C" int set_attention_fwd(const float* q, const float* k, const float* v,
   if (bias == nullptr) return core::launch<false, false>(p, B, H, stream);
   return segments != nullptr ? core::launch<true, true>(p, B, H, stream)
                              : core::launch<true, false>(p, B, H, stream);
+}
+
+namespace {
+
+template <typename BiasT>
+int launch_bf16(const void* q, const void* k, const void* v, const float* key_mask,
+                const BiasT* bias, const int* segments, void* out, const long long* strides,
+                int B, int H, int Tq, int Tk, int hs, float scale, void* stream) {
+  using core::bf16;
+  const core::ParamsT<bf16, BiasT> p{static_cast<const bf16*>(q), strides_at(strides),
+                                     static_cast<const bf16*>(k), strides_at(strides + 4),
+                                     static_cast<const bf16*>(v), strides_at(strides + 8),
+                                     key_mask,                     bias,
+                                     strides_at(strides + 12),     segments,
+                                     static_cast<bf16*>(out),      strides_at(strides + 16),
+                                     Tq,                           Tk,
+                                     hs,                           scale};
+  if constexpr (std::is_same_v<BiasT, float>) {  // the bias-free form, once
+    if (bias == nullptr) return core::launch<false, false>(p, B, H, stream);
+  }
+  return segments != nullptr ? core::launch<true, true>(p, B, H, stream)
+                             : core::launch<true, false>(p, B, H, stream);
+}
+
+}  // namespace
+
+// The bf16 form: q, k, v and out are __nv_bfloat16, the bias __nv_bfloat16
+// when `bias_bf16` is nonzero and fp32 otherwise, the key mask fp32;
+// otherwise as set_attention_fwd.
+extern "C" int set_attention_bf16_fwd(const void* q, const void* k, const void* v,
+                                      const float* key_mask, const void* bias, int bias_bf16,
+                                      const int* segments, void* out,
+                                      const long long* strides, int B, int H, int Tq, int Tk,
+                                      int hs, float scale, void* stream) {
+  if (B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0 || Tq > core::kMaxT || Tk > core::kMaxT ||
+      hs <= 0 || hs > core::kMaxHs ||
+      (segments != nullptr && (Tq != Tk || bias == nullptr))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (bias != nullptr && bias_bf16) {
+    return launch_bf16(q, k, v, key_mask, static_cast<const core::bf16*>(bias), segments, out,
+                       strides, B, H, Tq, Tk, hs, scale, stream);
+  }
+  return launch_bf16(q, k, v, key_mask, static_cast<const float*>(bias), segments, out,
+                     strides, B, H, Tq, Tk, hs, scale, stream);
 }
 
 extern "C" const char* set_attention_error_string(int code) {

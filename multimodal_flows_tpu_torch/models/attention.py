@@ -28,6 +28,17 @@ returns updated copies; the port saves the copies) and its query attends to
 the cached positions <= pos under an additive (B, seq_len) key mask.  The
 call returns (y, (k_cache, v_cache, pos)).
 
+Compute dtype (`dtype`, the encoders' `Config.compute_dtype`): `c_attn`,
+`c_query`, `c_proj`, the qk-LayerNorm and the MLP compute in it
+(`models.blocks.Dense`), so in bf16 the attention gets bf16 q, k and v
+(K1 and K2 in bf16 on CUDA) and returns bf16.  The KV-cache branch is the
+GPT baseline's, which is fp32 as in the JAX package.
+
+Under a mesh the probability-dropout mask is drawn at the global shape
+(`ops.attention.dropout_keep`): a data-parallel rank keeps its rows
+(`dropout_rows`, set with the generator), a tensor-parallel rank its
+heads, so the ranks drop what one device would.
+
 Tensor parallelism (`parallel.tensor_parallel.tp_sharding`) leaves each
 rank `n_head` of the heads: `c_attn` yields their q, k and v, the attention
 and the qk-LayerNorm (per head) run on them alone, and the row-parallel
@@ -40,12 +51,12 @@ never from `n_embd`, so the same code runs whole and sharded.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
 
-from multimodal_flows_tpu_torch.models.blocks import MLP, Dropout, LayerNorm
+from multimodal_flows_tpu_torch.models.blocks import MLP, Dense, Dropout, LayerNorm
 from multimodal_flows_tpu_torch.ops.attention import (
     multihead_attention,
     multihead_attention_btc,
@@ -57,23 +68,34 @@ Tensor = torch.Tensor
 class SelfAttention(nn.Module):
     """Fused-QKV multi-head self attention with qk-LayerNorm.  `dropout`
     is the residual dropout after `c_proj`; `attn_dropout` (None: the same
-    rate) the probability dropout of the attention."""
+    rate) the probability dropout of the attention; `dtype` the compute
+    dtype of the projections and the qk-LayerNorm."""
 
     def __init__(self, n_embd: int, n_head: int, bias: bool = True,
                  qk_layernorm: bool = True, dropout: float = 0.0,
-                 attn_dropout: Optional[float] = None):
+                 attn_dropout: Optional[float] = None, dtype: torch.dtype = torch.float32):
         super().__init__()
         if n_embd % n_head:
             raise ValueError(f"n_embd={n_embd} is not a multiple of n_head={n_head}")
         self.n_embd, self.n_head = n_embd, n_head
         self.head_size = hs = n_embd // n_head
-        self.c_attn = nn.Linear(n_embd, 3 * n_embd, bias=bias)
-        self.q_layernorm = LayerNorm(hs, bias) if qk_layernorm else None
-        self.k_layernorm = LayerNorm(hs, bias) if qk_layernorm else None
-        self.c_proj = nn.Linear(n_embd, n_embd, bias=bias)
+        self.tp_group = None  # the model group once sharded (tp_sharding)
+        self.c_attn = Dense(n_embd, 3 * n_embd, bias=bias, dtype=dtype)
+        self.q_layernorm = LayerNorm(hs, bias, dtype) if qk_layernorm else None
+        self.k_layernorm = LayerNorm(hs, bias, dtype) if qk_layernorm else None
+        self.c_proj = Dense(n_embd, n_embd, bias=bias, dtype=dtype)
         self.attn_dropout = float(dropout if attn_dropout is None else attn_dropout)
         self.dropout_generator: Optional[torch.Generator] = None
+        self.dropout_rows: Optional[Tuple[slice, int]] = None
         self.resid_drop = Dropout(dropout)
+
+    def _dropout_heads(self) -> Optional[Tuple[slice, int]]:
+        """Under tensor parallelism, this rank's heads of all of them."""
+        if self.tp_group is None:
+            return None
+        r = torch.distributed.get_rank(self.tp_group)
+        H = self.n_head
+        return slice(r * H, (r + 1) * H), H * torch.distributed.get_world_size(self.tp_group)
 
     def forward(self, x: Tensor, attn_bias: Optional[Tensor] = None,
                 key_mask: Optional[Tensor] = None,
@@ -95,10 +117,12 @@ class SelfAttention(nn.Module):
             y = multihead_attention_btc(q.contiguous(), k_cache, v_cache, H, None,
                                         causal.expand(B, Tc).contiguous())
             return self.c_proj(y), (k_cache, v_cache, pos)
+        rate = self.attn_dropout if self.training else 0.0
         y = multihead_attention_btc(q.contiguous(), k.contiguous(), v.contiguous(), H,
-                                    attn_bias, key_mask,
-                                    dropout_rate=self.attn_dropout if self.training else 0.0,
-                                    generator=self.dropout_generator, segments=segments)
+                                    attn_bias, key_mask, dropout_rate=rate,
+                                    generator=self.dropout_generator, segments=segments,
+                                    dropout_rows=self.dropout_rows,
+                                    dropout_heads=self._dropout_heads() if rate > 0 else None)
         return self.resid_drop(self.c_proj(y))
 
 
@@ -106,21 +130,23 @@ class CrossAttention(nn.Module):
     """Query from x, keys and values from z, in head layout
     (B, H, T, hs), with qk-LayerNorm there.  `dropout` is the residual
     dropout after `c_proj`; the probabilities are not dropped, as in the
-    JAX package."""
+    JAX package.  `dtype` is the compute dtype of the projections and the
+    qk-LayerNorm."""
 
     def __init__(self, n_embd: int, n_head: int, bias: bool = True,
-                 qk_layernorm: bool = True, dropout: float = 0.0):
+                 qk_layernorm: bool = True, dropout: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if n_embd % n_head:
             raise ValueError(f"n_embd={n_embd} is not a multiple of n_head={n_head}")
         self.n_embd, self.n_head = n_embd, n_head
         self.head_size = hs = n_embd // n_head
         self.tp_group = None  # the model group once sharded (tp_sharding)
-        self.c_query = nn.Linear(n_embd, n_embd, bias=bias)
-        self.c_attn = nn.Linear(n_embd, 2 * n_embd, bias=bias)
-        self.q_layernorm = LayerNorm(hs, bias) if qk_layernorm else None
-        self.k_layernorm = LayerNorm(hs, bias) if qk_layernorm else None
-        self.c_proj = nn.Linear(n_embd, n_embd, bias=bias)
+        self.c_query = Dense(n_embd, n_embd, bias=bias, dtype=dtype)
+        self.c_attn = Dense(n_embd, 2 * n_embd, bias=bias, dtype=dtype)
+        self.q_layernorm = LayerNorm(hs, bias, dtype) if qk_layernorm else None
+        self.k_layernorm = LayerNorm(hs, bias, dtype) if qk_layernorm else None
+        self.c_proj = Dense(n_embd, n_embd, bias=bias, dtype=dtype)
         self.resid_drop = Dropout(dropout)
 
     def forward(self, x: Tensor, z: Tensor, attn_bias: Optional[Tensor] = None) -> Tensor:
@@ -150,18 +176,20 @@ class SelfAttnBlock(nn.Module):
 
     `attn_dropout` and `activation` exist for the GPT baseline's GPT2
     semantics (attn_pdrop apart from resid_pdrop, `gelu_new`); the set
-    encoders keep the defaults.  With `kv_cache` the block returns
-    (x, kv_cache), as `SelfAttention` does."""
+    encoders keep the defaults and pass their compute `dtype`.  With
+    `kv_cache` the block returns (x, kv_cache), as `SelfAttention` does."""
 
     def __init__(self, n_embd: int, n_head: int, n_inner: Optional[int] = None,
                  bias: bool = True, qk_layernorm: bool = True, dropout: float = 0.0,
-                 attn_dropout: Optional[float] = None, activation: str = "gelu"):
+                 attn_dropout: Optional[float] = None, activation: str = "gelu",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.ln1 = LayerNorm(n_embd, bias)
-        self.attn = SelfAttention(n_embd, n_head, bias, qk_layernorm, dropout, attn_dropout)
-        self.ln2 = LayerNorm(n_embd, bias)
+        self.ln1 = LayerNorm(n_embd, bias, dtype)
+        self.attn = SelfAttention(n_embd, n_head, bias, qk_layernorm, dropout, attn_dropout,
+                                  dtype)
+        self.ln2 = LayerNorm(n_embd, bias, dtype)
         self.ffw = MLP(n_embd, n_inner if n_inner is not None else 4 * n_embd, bias=bias,
-                       dropout=dropout, activation=activation)
+                       dropout=dropout, activation=activation, dtype=dtype)
 
     def forward(self, x: Tensor, attn_bias: Optional[Tensor] = None,
                 key_mask: Optional[Tensor] = None,

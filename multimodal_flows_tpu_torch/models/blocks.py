@@ -7,23 +7,55 @@ timestep embedding, the toy model's log-spaced Fourier time features, the
 compact additive key mask and the additive pair mask.  `init_weights` reproduces the JAX
 initialisation: Linear and Embedding weights N(0, 0.02), biases zero,
 LayerNorm scale 1 and bias 0.
+
+Compute dtype (`Config.compute_dtype`, flax's `dtype=`): parameters stay
+fp32 and each layer casts at use.  `Dense` casts its input, weight and
+bias to its dtype, rounds the product to it and then adds the bias in it,
+as flax's `Dense(dtype=)` does; `embed` gathers from the table cast to the
+dtype (flax's `Embed(dtype=)`); `LayerNorm` normalises in fp32 and returns
+its dtype; `gelu` in bf16 rounds after each operation of JAX's
+`0.5 x erfc(-x sqrt(1/2))`.  At fp32 every one of them is the plain fp32
+layer.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from multimodal_flows_tpu_torch.ops.attention import dropout_keep
+
 Tensor = torch.Tensor
+
+#: sqrt(1/2) rounded to bf16, the constant of JAX's exact GELU in bf16
+_SQRT_HALF_BF16 = 0.70703125
+
+
+def compute_dtype(name: str) -> torch.dtype:
+    """`Config.compute_dtype` ("float32" or "bfloat16") as a torch dtype."""
+    if name not in ("float32", "bfloat16"):
+        raise ValueError(f"compute_dtype must be 'float32' or 'bfloat16', got {name!r}")
+    return torch.bfloat16 if name == "bfloat16" else torch.float32
+
+
+def gelu(x: Tensor) -> Tensor:
+    """Exact GELU.  In fp32 `F.gelu`; in bf16 JAX's `0.5 x erfc(-x
+    sqrt(1/2))` rounded to bf16 after each operation, as the JAX package's
+    bf16 forward computes it (a single rounding differs in the last bit on
+    about 40% of the values)."""
+    if x.dtype == torch.float32:
+        return F.gelu(x)
+    return (0.5 * x) * torch.special.erfc(x * -_SQRT_HALF_BF16)
+
 
 #: named activations (the GPT baseline's `activation`; GPT2's `gelu_new` is
 #: the tanh approximation of GELU)
 ACTIVATIONS = {
-    "gelu": F.gelu,
+    "gelu": gelu,
     "gelu_new": lambda x: F.gelu(x, approximate="tanh"),
     "relu": F.relu,
     "silu": F.silu,
@@ -40,31 +72,71 @@ def activation_fn(name: str):
 class Dropout(nn.Module):
     """Dropout whose mask comes from an explicit generator: active in
     train mode (`module.train()`), the identity in eval mode.  The keep
-    mask is drawn from `dropout_generator` on the input's device (from
-    torch's default generator while it is None) and the kept values are
-    scaled by 1 / (1 - p).  `set_dropout_generator` sets the generator of
-    every dropout site of a module."""
+    mask is drawn in fp32 from `dropout_generator` on the input's device
+    (from torch's default generator while it is None), at the global
+    batch's shape when `dropout_rows` (this rank's rows, the global row
+    count) is set, and the kept values are scaled by 1 / (1 - p) in the
+    input's dtype.  `set_dropout_generator` sets both for every dropout
+    site of a module."""
 
     def __init__(self, p: float = 0.0):
         super().__init__()
         self.p = float(p)
         self.dropout_generator: Optional[torch.Generator] = None
+        self.dropout_rows: Optional[Tuple[slice, int]] = None
 
     def forward(self, x: Tensor) -> Tensor:
         if not self.training or self.p == 0.0:
             return x
-        keep = torch.rand(x.shape, generator=self.dropout_generator, dtype=x.dtype,
-                          device=x.device) >= self.p
+        keep = dropout_keep(x.shape, self.p, self.dropout_generator, x.device,
+                            self.dropout_rows)
         return x * keep.to(x.dtype) / (1.0 - self.p)
 
 
-def set_dropout_generator(module: nn.Module, generator: Optional[torch.Generator]) -> None:
+def set_dropout_generator(module: nn.Module, generator: Optional[torch.Generator],
+                          rows: Optional[Tuple[slice, int]] = None) -> None:
     """Give every dropout site of `module` (the `Dropout` layers and the
     attention-probability dropout of the attention modules) the generator
-    its masks are drawn from; it must live on the module's device."""
+    its masks are drawn from; it must live on the module's device.  `rows`
+    (this rank's slice of the batch, the global row count) makes every site
+    draw its mask at the global batch's shape and keep this rank's rows, so
+    that data-parallel ranks drop what one device would; None: the local
+    shape is the global one."""
     for m in module.modules():
         if hasattr(m, "dropout_generator"):
             m.dropout_generator = generator
+            m.dropout_rows = rows
+
+
+class Dense(nn.Linear):
+    """`nn.Linear` computing in `dtype` (flax's `Dense(dtype=)`): fp32
+    parameters; the input, weight and bias cast at use; the product
+    rounded to `dtype` before the bias is added in it.  At fp32 it is
+    `nn.Linear` (on an input cast to fp32)."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(in_features, out_features, bias=bias)
+        self.compute_dtype = dtype
+
+    def forward(self, x: Tensor) -> Tensor:
+        return dense(x, self.weight, self.bias, self.compute_dtype)
+
+
+def dense(x: Tensor, weight: Tensor, bias: Optional[Tensor], dtype: torch.dtype) -> Tensor:
+    """x W^T + b computed in `dtype` as `Dense` does."""
+    if dtype == torch.float32:
+        return F.linear(x.to(dtype), weight, bias)
+    y = F.linear(x.to(dtype), weight.to(dtype))
+    return y if bias is None else y + bias.to(dtype)
+
+
+def embed(table: nn.Embedding, ids: Tensor, dtype: torch.dtype = torch.float32) -> Tensor:
+    """Rows `ids` of the embedding table cast to `dtype` (flax's
+    `Embed(dtype=)`: the table is cast, then gathered)."""
+    if dtype == torch.float32:
+        return table(ids.long())
+    return F.embedding(ids.long(), table.weight.to(dtype))
 
 
 class MLP(nn.Module):
@@ -72,11 +144,13 @@ class MLP(nn.Module):
     names `c_fc`, `c_proj`)."""
 
     def __init__(self, n_embd: int, n_inner: int, n_out: Optional[int] = None,
-                 bias: bool = True, dropout: float = 0.0, activation: str = "gelu"):
+                 bias: bool = True, dropout: float = 0.0, activation: str = "gelu",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.c_fc = nn.Linear(n_embd, n_inner, bias=bias)
+        self.c_fc = Dense(n_embd, n_inner, bias=bias, dtype=dtype)
         self.act = activation_fn(activation)
-        self.c_proj = nn.Linear(n_inner, n_out if n_out is not None else n_embd, bias=bias)
+        self.c_proj = Dense(n_inner, n_out if n_out is not None else n_embd, bias=bias,
+                            dtype=dtype)
         self.drop = Dropout(dropout)
 
     def forward(self, x: Tensor) -> Tensor:
@@ -84,16 +158,20 @@ class MLP(nn.Module):
 
 
 class LayerNorm(nn.Module):
-    """LayerNorm over the last dim, eps 1e-5, optional bias, fp32 stats."""
+    """LayerNorm over the last dim, eps 1e-5 unless given, optional bias,
+    computed in fp32 and returned in `dtype` (None: the input's), as
+    flax's `LayerNorm(dtype=, param_dtype=float32)` does."""
 
-    def __init__(self, n: int, bias: bool = True):
+    def __init__(self, n: int, bias: bool = True, dtype: Optional[torch.dtype] = None,
+                 eps: float = 1e-5):
         super().__init__()
         self.weight = nn.Parameter(torch.ones(n))
         self.bias = nn.Parameter(torch.zeros(n)) if bias else None
+        self.dtype, self.eps = dtype, eps
 
     def forward(self, x: Tensor) -> Tensor:
         return F.layer_norm(x.to(torch.float32), self.weight.shape, self.weight,
-                            self.bias, 1e-5).to(x.dtype)
+                            self.bias, self.eps).to(self.dtype or x.dtype)
 
 
 @torch.no_grad()
@@ -126,9 +204,11 @@ def timestep_embedding(timesteps: Tensor, embedding_dim: int,
     return emb
 
 
-def time_token_embedding(time: Tensor, embedding_dim: int) -> Tensor:
-    """Per-jet (B,) time -> (B, 1, E); per-token (B, T) time -> (B, T, E)."""
-    emb = timestep_embedding(time, embedding_dim)
+def time_token_embedding(time: Tensor, embedding_dim: int,
+                         dtype: torch.dtype = torch.float32) -> Tensor:
+    """Per-jet (B,) time -> (B, 1, E); per-token (B, T) time -> (B, T, E),
+    computed in fp32 and cast to `dtype`."""
+    emb = timestep_embedding(time, embedding_dim).to(dtype)
     return emb[:, None, :] if time.ndim == 1 else emb
 
 

@@ -15,8 +15,15 @@ The pad mask enters as a compact key mask, as (B, T) segment ids on
 packed rows, or, with a pairwise bias, folded into that bias as the
 additive pair mask.  `Config.dropout` acts in train mode only
 (`module.train()`): on the embeddings here, and inside the blocks on the
-attention probabilities, the attention output and the MLP output.  bf16
-compute is not ported yet.
+attention probabilities, the attention output and the MLP output.
+
+`Config.compute_dtype="bfloat16"` runs every layer in bf16 where the JAX
+package's `dtype=` does (`models.blocks`: `Dense`, `embed`, `LayerNorm`,
+`gelu`): the input kinematics are cast at the input, the time embedding
+is cast after its fp32 sines, the attention takes bf16 q/k/v (K1 and K2 in
+bf16 on CUDA) and the pairwise biases come out fp32 as in JAX.  Parameters
+stay fp32.  The heads' final `proj` computes in fp32, so the drift and the
+logits that reach the solver and the losses are fp32.
 """
 
 from __future__ import annotations
@@ -25,15 +32,18 @@ import math
 from typing import Optional, Sequence
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from multimodal_flows_tpu_torch.config import Config
 from multimodal_flows_tpu_torch.data.state import MultiModal
 from multimodal_flows_tpu_torch.models.attention import SelfAttnBlock
 from multimodal_flows_tpu_torch.models.blocks import (
+    Dense,
     Dropout,
     LayerNorm,
+    compute_dtype,
+    embed,
+    gelu,
     key_mask_bias,
     pair_mask_bias,
     time_token_embedding,
@@ -43,53 +53,61 @@ Tensor = torch.Tensor
 
 
 class _EmbedMLP(nn.Module):
-    """Linear/Embed -> exact GELU -> Linear feature embedder."""
+    """Linear/Embed -> exact GELU -> Linear feature embedder, in `dtype`."""
 
     def __init__(self, n_hidden: int, n_out: int, *, n_in: Optional[int] = None,
-                 vocab_size: Optional[int] = None, bias: bool = True):
+                 vocab_size: Optional[int] = None, bias: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         if vocab_size is not None:
             self.embed = nn.Embedding(vocab_size, n_hidden)
         else:
-            self.fc = nn.Linear(n_in, n_hidden, bias=bias)
-        self.proj = nn.Linear(n_hidden, n_out, bias=bias)
+            self.fc = Dense(n_in, n_hidden, bias=bias, dtype=dtype)
+        self.proj = Dense(n_hidden, n_out, bias=bias, dtype=dtype)
 
     def forward(self, x: Tensor) -> Tensor:
-        h = self.embed(x.long()) if hasattr(self, "embed") else self.fc(x)
-        return self.proj(F.gelu(h))
+        h = embed(self.embed, x, self.dtype) if hasattr(self, "embed") else self.fc(x)
+        return self.proj(gelu(h))
 
 
 class _Head(nn.Module):
-    """Linear -> exact GELU -> Linear output head, projection in fp32."""
+    """Linear (in `dtype`) -> exact GELU -> Linear output head, the final
+    projection in fp32 whatever `dtype` is (the JAX package's `_Head`)."""
 
-    def __init__(self, n_embd: int, n_inner: int, n_out: int, bias: bool = True):
+    def __init__(self, n_embd: int, n_inner: int, n_out: int, bias: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.fc = nn.Linear(n_embd, n_inner, bias=bias)
-        self.proj = nn.Linear(n_inner, n_out, bias=bias)
+        self.fc = Dense(n_embd, n_inner, bias=bias, dtype=dtype)
+        self.proj = Dense(n_inner, n_out, bias=bias, dtype=torch.float32)
 
     def forward(self, x: Tensor) -> Tensor:
-        return self.proj(F.gelu(self.fc(x)).to(torch.float32))
+        return self.proj(gelu(self.fc(x)))
 
 
 class _CoOccurrenceBias(nn.Module):
     """Symmetric token co-occurrence bias via triangle-number pair ids.
     The (n_pairs, E) table is projected to the H heads first (45 rows at
-    V = 9), then gathered: no (B, D, D, E) tensor.  Returns (B, H, D, D)
-    fp32, a view whose key axis has stride 1 (what K2 reads along).  Under
-    tensor parallelism `wue_proj` is column-parallel over the heads, so H
-    is this rank's share and the bias comes out contiguous."""
+    V = 9), then gathered: no (B, D, D, E) tensor.  The table and its
+    projection compute in `dtype`; the bias is returned as (B, H, D, D)
+    fp32, as in JAX, a view whose key axis has stride 1 (what K2 reads
+    along).  Under tensor parallelism `wue_proj` is column-parallel over
+    the heads, so H is this rank's share and the bias comes out
+    contiguous."""
 
-    def __init__(self, vocab_size: int, n_embd: int, n_head: int):
+    def __init__(self, vocab_size: int, n_embd: int, n_head: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         n_pairs = vocab_size * (vocab_size + 1) // 2
         self.wue = nn.Embedding(n_pairs, n_embd)
-        self.wue_proj = nn.Linear(n_embd, n_head)
+        self.wue_proj = Dense(n_embd, n_head, dtype=dtype)
 
     def forward(self, tokens: Tensor) -> Tensor:                      # tokens (B, D)
         i, j = tokens[:, :, None].long(), tokens[:, None, :].long()
         lo, hi = torch.minimum(i, j), torch.maximum(i, j)
         pair_idx = hi * (hi + 1) // 2 + lo                             # (B, D, D)
-        table = self.wue_proj(self.wue.weight).to(torch.float32)       # (P, H)
+        table = self.wue_proj(self.wue.weight.to(self.wue_proj.compute_dtype))
+        table = table.to(torch.float32)                                # (P, H)
         return table.t()[:, pair_idx].transpose(0, 1)                  # (B, H, D, D)
 
 
@@ -117,33 +135,31 @@ class ParticleFormer(nn.Module):
     def __init__(self, config: Config):
         super().__init__()
         cfg = config
-        if cfg.compute_dtype != "float32":
-            raise NotImplementedError("bf16 compute is not ported yet (ROADMAP.md Queue 2)")
         self.config = cfg
+        self.dtype = dt = compute_dtype(cfg.compute_dtype)
         half = cfg.n_embd // 2
         head_inner = cfg.n_inner or 4 * half
 
         if cfg.use_coocurrence:
-            self.coocc = _CoOccurrenceBias(cfg.vocab_size, cfg.n_embd, cfg.n_head)
-        self.wxe = _EmbedMLP(cfg.n_embd, half, n_in=cfg.dim_continuous, bias=cfg.bias)
-        self.ln1_x = LayerNorm(half)
-        self.wye = _EmbedMLP(cfg.n_embd, half, vocab_size=cfg.vocab_size, bias=cfg.bias)
-        self.ln1_y = LayerNorm(half)
+            self.coocc = _CoOccurrenceBias(cfg.vocab_size, cfg.n_embd, cfg.n_head, dt)
+        self.wxe = _EmbedMLP(cfg.n_embd, half, n_in=cfg.dim_continuous, bias=cfg.bias, dtype=dt)
+        self.ln1_x = LayerNorm(half, dtype=dt)
+        self.wye = _EmbedMLP(cfg.n_embd, half, vocab_size=cfg.vocab_size, bias=cfg.bias,
+                             dtype=dt)
+        self.ln1_y = LayerNorm(half, dtype=dt)
         for s in ("x", "y"):
             for i in range(cfg.n_layer):
-                self.add_module(f"block_{s}_{i}", SelfAttnBlock(
-                    half, cfg.n_head, cfg.n_inner, cfg.bias, cfg.qk_layernorm, cfg.dropout))
-        self.ln2_x = LayerNorm(half)
-        self.ln2_y = LayerNorm(half)
-        self.time_expand = nn.Linear(half, cfg.n_embd)
+                self.add_module(f"block_{s}_{i}", _block(cfg, half, dt))
+        self.ln2_x = LayerNorm(half, dtype=dt)
+        self.ln2_y = LayerNorm(half, dtype=dt)
+        self.time_expand = Dense(half, cfg.n_embd, dtype=dt)
         self.drop = Dropout(cfg.dropout)
         for i in range(cfg.n_layer_fused):
-            self.add_module(f"block_fuse_{i}", SelfAttnBlock(
-                cfg.n_embd, cfg.n_head, cfg.n_inner, cfg.bias, cfg.qk_layernorm, cfg.dropout))
-        self.ln3_x = LayerNorm(half)
-        self.ln3_y = LayerNorm(half)
-        self.head_x = _Head(half, head_inner, cfg.dim_continuous, cfg.bias)
-        self.head_y = _Head(half, head_inner, cfg.vocab_size, cfg.bias)
+            self.add_module(f"block_fuse_{i}", _block(cfg, cfg.n_embd, dt))
+        self.ln3_x = LayerNorm(half, dtype=dt)
+        self.ln3_y = LayerNorm(half, dtype=dt)
+        self.head_x = _Head(half, head_inner, cfg.dim_continuous, cfg.bias, dt)
+        self.head_y = _Head(half, head_inner, cfg.vocab_size, cfg.bias, dt)
 
     def forward(self, state: MultiModal, segments: Optional[Tensor] = None,
                 num_segments: Optional[int] = None):  # num_segments: EPiC only
@@ -155,9 +171,9 @@ class ParticleFormer(nn.Module):
         coocc = self.coocc(state.discrete[..., 0]) if cfg.use_coocurrence else None
         bias, key_mask, segments = _mask_inputs(state, segments, coocc)
 
-        time_emb = time_token_embedding(state.time, half)            # (B,1|T,half)
+        time_emb = time_token_embedding(state.time, half, self.dtype)  # (B,1|T,half)
 
-        x = self.drop(self.ln1_x(self.wxe(state.continuous.to(torch.float32))) + time_emb)
+        x = self.drop(self.ln1_x(self.wxe(state.continuous.to(self.dtype))) + time_emb)
         x_skip = x
         for blk in _blocks(self, "block_x", cfg.n_layer):
             x = blk(x, bias, key_mask, segments) + time_emb
@@ -191,30 +207,29 @@ class FusedParticleFormer(nn.Module):
     def __init__(self, config: Config):
         super().__init__()
         cfg = config
-        if cfg.compute_dtype != "float32":
-            raise NotImplementedError("bf16 compute is not ported yet (ROADMAP.md Queue 2)")
         self.config = cfg
+        self.dtype = dt = compute_dtype(cfg.compute_dtype)
         half = cfg.n_embd // 2
         head_inner = cfg.n_inner or 2 * cfg.n_embd
-        self.wxe = _EmbedMLP(cfg.n_embd, half, n_in=cfg.dim_continuous, bias=cfg.bias)
-        self.ln1_x = LayerNorm(half)
-        self.wye = _EmbedMLP(cfg.n_embd, half, vocab_size=cfg.vocab_size, bias=cfg.bias)
-        self.ln1_y = LayerNorm(half)
+        self.wxe = _EmbedMLP(cfg.n_embd, half, n_in=cfg.dim_continuous, bias=cfg.bias, dtype=dt)
+        self.ln1_x = LayerNorm(half, dtype=dt)
+        self.wye = _EmbedMLP(cfg.n_embd, half, vocab_size=cfg.vocab_size, bias=cfg.bias,
+                             dtype=dt)
+        self.ln1_y = LayerNorm(half, dtype=dt)
         self.drop = Dropout(cfg.dropout)
         for i in range(cfg.n_layer):
-            self.add_module(f"block_{i}", SelfAttnBlock(
-                cfg.n_embd, cfg.n_head, cfg.n_inner, cfg.bias, cfg.qk_layernorm, cfg.dropout))
-        self.ln2 = LayerNorm(cfg.n_embd)
-        self.head_x = _Head(half, head_inner, cfg.dim_continuous, cfg.bias)
-        self.head_y = _Head(half, head_inner, cfg.vocab_size, cfg.bias)
+            self.add_module(f"block_{i}", _block(cfg, cfg.n_embd, dt))
+        self.ln2 = LayerNorm(cfg.n_embd, dtype=dt)
+        self.head_x = _Head(half, head_inner, cfg.dim_continuous, cfg.bias, dt)
+        self.head_y = _Head(half, head_inner, cfg.vocab_size, cfg.bias, dt)
 
     def forward(self, state: MultiModal, segments: Optional[Tensor] = None,
                 num_segments: Optional[int] = None):  # num_segments: EPiC only
         cfg = self.config
         _, key_mask, segments = _mask_inputs(state, segments, None)
-        x = self.ln1_x(self.wxe(state.continuous.to(torch.float32)))
+        x = self.ln1_x(self.wxe(state.continuous.to(self.dtype)))
         y = self.ln1_y(self.wye(state.discrete[..., 0]))
-        time_emb = time_token_embedding(state.time, cfg.n_embd)
+        time_emb = time_token_embedding(state.time, cfg.n_embd, self.dtype)
         z = self.drop(torch.cat([x, y], dim=-1) + time_emb)
         z_skip = z
         for blk in _blocks(self, "block", cfg.n_layer):
@@ -223,10 +238,15 @@ class FusedParticleFormer(nn.Module):
         return self.head_x(x), self.head_y(y)
 
 
-def _pos_embedding(wpe: nn.Embedding, width: int) -> Tensor:
-    """Rows 0..width-1 of the learned position table: slots are first-n
-    filled, so they are the right rows at any (bucket) width."""
-    return wpe.weight[:width][None, :, :]
+def _pos_embedding(wpe: nn.Embedding, width: int, dtype: torch.dtype) -> Tensor:
+    """Rows 0..width-1 of the learned position table in `dtype`: slots are
+    first-n filled, so they are the right rows at any (bucket) width."""
+    return wpe.weight[:width][None, :, :].to(dtype)
+
+
+def _block(cfg: Config, width: int, dtype: torch.dtype) -> SelfAttnBlock:
+    return SelfAttnBlock(width, cfg.n_head, cfg.n_inner, cfg.bias, cfg.qk_layernorm,
+                         cfg.dropout, dtype=dtype)
 
 
 class FlavorFormer(nn.Module):
@@ -236,22 +256,22 @@ class FlavorFormer(nn.Module):
     def __init__(self, config: Config):
         super().__init__()
         cfg = config
-        if cfg.compute_dtype != "float32":
-            raise NotImplementedError("bf16 compute is not ported yet (ROADMAP.md Queue 2)")
         self.config = cfg
+        self.dtype = dt = compute_dtype(cfg.compute_dtype)
         if cfg.use_pairwise:
             self.lambda_u = nn.Parameter(torch.zeros(()))
-            self.pairwise = _CoOccurrenceBias(cfg.vocab_size, cfg.n_embd, cfg.n_head)
-        self.wte = _EmbedMLP(cfg.n_embd, cfg.n_embd, vocab_size=cfg.vocab_size, bias=cfg.bias)
-        self.ln1 = LayerNorm(cfg.n_embd)
+            self.pairwise = _CoOccurrenceBias(cfg.vocab_size, cfg.n_embd, cfg.n_head, dt)
+        self.wte = _EmbedMLP(cfg.n_embd, cfg.n_embd, vocab_size=cfg.vocab_size, bias=cfg.bias,
+                             dtype=dt)
+        self.ln1 = LayerNorm(cfg.n_embd, dtype=dt)
         if cfg.use_pos_emb:
             self.wpe = nn.Embedding(cfg.max_num_particles, cfg.n_embd)
         for i in range(cfg.n_layer):
-            self.add_module(f"block_{i}", SelfAttnBlock(
-                cfg.n_embd, cfg.n_head, cfg.n_inner, cfg.bias, cfg.qk_layernorm, cfg.dropout))
-        self.ln2 = LayerNorm(cfg.n_embd)
+            self.add_module(f"block_{i}", _block(cfg, cfg.n_embd, dt))
+        self.ln2 = LayerNorm(cfg.n_embd, dtype=dt)
         self.drop = Dropout(cfg.dropout)
-        self.head = _Head(cfg.n_embd, cfg.n_inner or 4 * cfg.n_embd, cfg.vocab_size, cfg.bias)
+        self.head = _Head(cfg.n_embd, cfg.n_inner or 4 * cfg.n_embd, cfg.vocab_size, cfg.bias,
+                          dt)
 
     def forward(self, state: MultiModal, segments: Optional[Tensor] = None,
                 num_segments: Optional[int] = None) -> Tensor:  # num_segments: EPiC only
@@ -264,9 +284,9 @@ class FlavorFormer(nn.Module):
         bias, key_mask, segments = _mask_inputs(state, segments, u_bias)
 
         tok = self.ln1(self.wte(tokens))
-        time_emb = time_token_embedding(state.time, cfg.n_embd)
+        time_emb = time_token_embedding(state.time, cfg.n_embd, self.dtype)
         if cfg.use_pos_emb:
-            tok = tok + _pos_embedding(self.wpe, tok.shape[1])
+            tok = tok + _pos_embedding(self.wpe, tok.shape[1], self.dtype)
         f = self.drop(tok + time_emb)
         for blk in _blocks(self, "block", cfg.n_layer):
             f = blk(f, bias, key_mask, segments) + time_emb
@@ -310,26 +330,26 @@ class KinFormer(nn.Module):
     def __init__(self, config: Config):
         super().__init__()
         cfg = config
-        if cfg.compute_dtype != "float32":
-            raise NotImplementedError("bf16 compute is not ported yet (ROADMAP.md Queue 2)")
         self.config = cfg
+        self.dtype = dt = compute_dtype(cfg.compute_dtype)
         if cfg.use_pairwise:
             self.lambda_u = nn.Parameter(torch.zeros(()))
-            self.wue_fc = nn.Linear(2, cfg.n_embd)
-            self.wue_ln = nn.LayerNorm(cfg.n_embd, eps=1e-6)  # flax nn.LayerNorm's eps
-            self.wue_proj_fc = nn.Linear(cfg.n_embd, cfg.n_embd, bias=cfg.bias)
-            self.wue_proj_out = nn.Linear(cfg.n_embd, cfg.n_head, bias=cfg.bias)
-        self.wxe = _EmbedMLP(cfg.n_embd, cfg.n_embd, n_in=cfg.dim_continuous, bias=cfg.bias)
-        self.ln1 = LayerNorm(cfg.n_embd)
+            self.wue_fc = Dense(2, cfg.n_embd, dtype=dt)
+            # flax's bare nn.LayerNorm: eps 1e-6
+            self.wue_ln = LayerNorm(cfg.n_embd, dtype=dt, eps=1e-6)
+            self.wue_proj_fc = Dense(cfg.n_embd, cfg.n_embd, bias=cfg.bias, dtype=dt)
+            self.wue_proj_out = Dense(cfg.n_embd, cfg.n_head, bias=cfg.bias, dtype=dt)
+        self.wxe = _EmbedMLP(cfg.n_embd, cfg.n_embd, n_in=cfg.dim_continuous, bias=cfg.bias,
+                             dtype=dt)
+        self.ln1 = LayerNorm(cfg.n_embd, dtype=dt)
         if cfg.use_pos_emb:
             self.wpe = nn.Embedding(cfg.max_num_particles, cfg.n_embd)
         for i in range(cfg.n_layer):
-            self.add_module(f"block_{i}", SelfAttnBlock(
-                cfg.n_embd, cfg.n_head, cfg.n_inner, cfg.bias, cfg.qk_layernorm, cfg.dropout))
-        self.ln2 = LayerNorm(cfg.n_embd)
+            self.add_module(f"block_{i}", _block(cfg, cfg.n_embd, dt))
+        self.ln2 = LayerNorm(cfg.n_embd, dtype=dt)
         self.drop = Dropout(cfg.dropout)
         self.head = _Head(cfg.n_embd, cfg.n_inner or 4 * cfg.n_embd, cfg.dim_continuous,
-                          cfg.bias)
+                          cfg.bias, dt)
 
     def _lund_bias(self, state: MultiModal) -> Tensor:
         """lambda_u * pair-MLP(Lund observables), (B, H, D, D)."""
@@ -339,12 +359,13 @@ class KinFormer(nn.Module):
                              meta.get("std", [1.0] * cfg.dim_continuous))
 
         def stage1(u):
-            return self.wue_ln(F.gelu(self.wue_fc(u)))
+            return self.wue_ln(gelu(self.wue_fc(u)))
 
         D = U.shape[1]
         c = cfg.pair_chunk if cfg.pair_chunk and cfg.pair_chunk > 0 else D
+        U = U.to(self.dtype)
         Ut = U.transpose(1, 2)
-        outs = [self.wue_proj_out(F.gelu(self.wue_proj_fc(
+        outs = [self.wue_proj_out(gelu(self.wue_proj_fc(
                     0.5 * (stage1(U[:, a:a + c]) + stage1(Ut[:, a:a + c])))))
                 for a in range(0, D, c)]
         u = torch.cat(outs, dim=1)                                     # (B, D, D, H)
@@ -359,10 +380,10 @@ class KinFormer(nn.Module):
         lund = self._lund_bias(state) if cfg.use_pairwise else None
         bias, key_mask, segments = _mask_inputs(state, segments, lund)
 
-        x = self.ln1(self.wxe(state.continuous.to(torch.float32)))
-        time_emb = time_token_embedding(state.time, cfg.n_embd)
+        x = self.ln1(self.wxe(state.continuous.to(self.dtype)))
+        time_emb = time_token_embedding(state.time, cfg.n_embd, self.dtype)
         if cfg.use_pos_emb:
-            x = x + _pos_embedding(self.wpe, x.shape[1])
+            x = x + _pos_embedding(self.wpe, x.shape[1], self.dtype)
         h = self.drop(x + time_emb)
         h_skip = h
         for blk in _blocks(self, "block", cfg.n_layer):

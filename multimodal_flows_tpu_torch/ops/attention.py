@@ -19,7 +19,17 @@
   `Config.dropout`) goes to the plain version on every device, by design:
   the JAX package sends attention with probability dropout to its XLA
   path, never to a Pallas kernel, and the kernels here have no dropout.
-  `PLAIN_DROPOUT_CALLS` counts those calls.
+  `PLAIN_DROPOUT_CALLS` counts those calls.  The keep mask is drawn in
+  fp32 (`dropout_keep`), at the global shape under a mesh: the rows of a
+  data-parallel rank and the heads of a tensor-parallel rank are cut from
+  the mask one device would draw.
+- bf16 (the encoders' `compute_dtype="bfloat16"`): q, k and v in bf16, as
+  `_xla_attention` / `_xla_attention_btc` take them.  The scores are
+  accumulated in fp32 from the bf16 products (`preferred_element_type=
+  float32`), the key mask, the bias (fp32 or bf16) and the softmax are
+  fp32, the probabilities are rounded to bf16 for the product with v,
+  which accumulates in fp32 and returns bf16.  CUDA tensors go to the bf16
+  forms of K1 and K2.  At fp32 the casts are no-ops.
 
 The JAX sampler's clamped unnormalized softmax is a TPU shortcut and is
 not ported: every path computes the exact max-subtracted softmax.
@@ -27,7 +37,7 @@ not ported: every path computes the exact max-subtracted softmax.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -42,12 +52,36 @@ def reset_plain_dropout_calls() -> None:
         PLAIN_DROPOUT_CALLS[form] = 0
 
 
+def dropout_keep(shape, rate: float, generator: Optional[torch.Generator], device,
+                 rows: Optional[Tuple[slice, int]] = None,
+                 heads: Optional[Tuple[slice, int]] = None) -> Tensor:
+    """Bernoulli(1 - rate) keep mask (bool) of `shape`, from fp32 uniforms
+    drawn from `generator` on `device`.  Under a mesh the uniforms are drawn
+    at the global shape and this rank's share is kept: `rows` (its slice of
+    dim 0, the global size of dim 0) for a data-parallel rank, `heads` (its
+    slice of dim 1, the global size of dim 1) for a tensor-parallel rank's
+    attention probabilities.  So every rank consumes the generator as one
+    device does, and the ranks together drop what one device drops."""
+    full = list(shape)
+    if rows is not None:
+        full[0] = rows[1]
+    if heads is not None:
+        full[1] = heads[1]
+    u = torch.rand(full, generator=generator, dtype=torch.float32, device=device)
+    if rows is not None:
+        u = u[rows[0]]
+    if heads is not None:
+        u = u[:, heads[0]]
+    return u >= rate
+
+
 def _prob_dropout(probs: Tensor, dropout_rate: float,
-                  generator: Optional[torch.Generator]) -> Tensor:
-    """Bernoulli(1 - rate) keep mask on the softmax output, drawn from
-    `generator` on the tensor's device, with inverted scaling."""
-    keep = torch.rand(probs.shape, generator=generator, dtype=probs.dtype,
-                      device=probs.device) >= dropout_rate
+                  generator: Optional[torch.Generator],
+                  rows: Optional[Tuple[slice, int]] = None,
+                  heads: Optional[Tuple[slice, int]] = None) -> Tensor:
+    """The keep mask of `dropout_keep` on the softmax output, with inverted
+    scaling."""
+    keep = dropout_keep(probs.shape, dropout_rate, generator, probs.device, rows, heads)
     return probs * keep.to(probs.dtype) / (1.0 - dropout_rate)
 
 
@@ -58,9 +92,10 @@ def attention_reference(q: Tensor, k: Tensor, v: Tensor,
     """softmax(q k^T / sqrt(Dh) + key_mask + bias) v over head-major
     q (B, H, Tq, Dh), k/v (B, H, Tk, Dh); key_mask (B, Tk) additive, bias
     additive and broadcastable to (B, H, Tq, Tk).  With `dropout_rate` > 0
-    the probabilities are dropped with a mask from `generator`."""
+    the probabilities are dropped with a mask from `generator`.  bf16 q/k/v
+    give fp32 scores and a bf16 output (see the module docstring)."""
     scale = 1.0 / float(q.shape[-1]) ** 0.5
-    scores = torch.einsum("bhqd,bhkd->bhqk", q, k).to(torch.float32) * scale
+    scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
     if key_mask is not None:
         scores = scores + key_mask[:, None, None, :].to(torch.float32)
     if bias is not None:
@@ -68,14 +103,16 @@ def attention_reference(q: Tensor, k: Tensor, v: Tensor,
     probs = torch.softmax(scores, dim=-1)
     if dropout_rate > 0.0:
         probs = _prob_dropout(probs, dropout_rate, generator)
-    return torch.einsum("bhqk,bhkd->bhqd", probs.to(v.dtype), v)
+    return torch.einsum("bhqk,bhkd->bhqd", probs.to(v.dtype).float(), v.float()).to(v.dtype)
 
 
 def attention_btc_reference(q: Tensor, k: Tensor, v: Tensor, n_head: int,
                             key_mask: Optional[Tensor] = None,
                             segments: Optional[Tensor] = None,
                             bias: Optional[Tensor] = None, dropout_rate: float = 0.0,
-                            generator: Optional[torch.Generator] = None) -> Tensor:
+                            generator: Optional[torch.Generator] = None, *,
+                            dropout_rows: Optional[Tuple[slice, int]] = None,
+                            dropout_heads: Optional[Tuple[slice, int]] = None) -> Tensor:
     """softmax(q k^T / sqrt(hs) + key_mask + bias) v per head, heads packed
     in C.
 
@@ -84,7 +121,9 @@ def attention_btc_reference(q: Tensor, k: Tensor, v: Tensor, n_head: int,
     restrict attention to same-segment pairs: a cross-segment score is
     replaced by -1e9, after the key mask and the bias are added.  With
     `dropout_rate` > 0 the probabilities are dropped with a mask from
-    `generator`.
+    `generator` (`dropout_keep`: `dropout_rows` / `dropout_heads` under a
+    mesh).  bf16 q/k/v give fp32 scores and a bf16 output (see the module
+    docstring).
     """
     B, T, C = q.shape
     Tk = k.shape[1]
@@ -93,7 +132,7 @@ def attention_btc_reference(q: Tensor, k: Tensor, v: Tensor, n_head: int,
     q4 = q.reshape(B, T, n_head, hs)
     k4 = k.reshape(B, Tk, n_head, hs)
     v4 = v.reshape(B, Tk, n_head, hs)
-    scores = torch.einsum("bqhd,bkhd->bhqk", q4, k4).to(torch.float32) * scale
+    scores = torch.einsum("bqhd,bkhd->bhqk", q4.float(), k4.float()) * scale
     if key_mask is not None:
         scores = scores + key_mask[:, None, None, :].to(scores.dtype)
     if bias is not None:
@@ -103,9 +142,9 @@ def attention_btc_reference(q: Tensor, k: Tensor, v: Tensor, n_head: int,
         scores = torch.where(same, scores, -1e9)
     probs = torch.softmax(scores, dim=-1)
     if dropout_rate > 0.0:
-        probs = _prob_dropout(probs, dropout_rate, generator)
-    out = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v4)
-    return out.reshape(B, T, C)
+        probs = _prob_dropout(probs, dropout_rate, generator, dropout_rows, dropout_heads)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype).float(), v4.float())
+    return out.reshape(B, T, C).to(v.dtype)
 
 
 def multihead_attention(q: Tensor, k: Tensor, v: Tensor,
@@ -113,8 +152,8 @@ def multihead_attention(q: Tensor, k: Tensor, v: Tensor,
                         key_mask: Optional[Tensor] = None, *,
                         dropout_rate: float = 0.0,
                         generator: Optional[torch.Generator] = None) -> Tensor:
-    """Attention over head-major (B, H, T, Dh) q/k/v with an additive key
-    mask and bias: the K2 kernel on CUDA tensors, the reference on CPU
+    """Attention over head-major (B, H, T, Dh) q/k/v (fp32 or bf16) with an
+    additive key mask and bias: the K2 kernel on CUDA tensors, the reference on CPU
     tensors; the reference on both when `dropout_rate` > 0."""
     if dropout_rate > 0.0:
         PLAIN_DROPOUT_CALLS["head_major"] += 1
@@ -133,15 +172,19 @@ def multihead_attention_btc(q: Tensor, k: Tensor, v: Tensor, n_head: int,
                             key_mask: Optional[Tensor] = None, *,
                             dropout_rate: float = 0.0,
                             generator: Optional[torch.Generator] = None,
-                            segments: Optional[Tensor] = None) -> Tensor:
+                            segments: Optional[Tensor] = None,
+                            dropout_rows: Optional[Tuple[slice, int]] = None,
+                            dropout_heads: Optional[Tuple[slice, int]] = None) -> Tensor:
     """Attention over token-major q (B, Tq, C), k/v (B, Tk, C) with heads
-    packed in C: on CUDA tensors the K2 kernel with a bias or with Tq !=
-    Tk, the K1 kernel otherwise; on CPU tensors the reference; the
-    reference on both when `dropout_rate` > 0."""
+    packed in C, fp32 or bf16: on CUDA tensors the K2 kernel with a bias or
+    with Tq != Tk, the K1 kernel otherwise; on CPU tensors the reference;
+    the reference on both when `dropout_rate` > 0 (its mask cut from the
+    global one by `dropout_rows` / `dropout_heads`)."""
     if dropout_rate > 0.0:
         PLAIN_DROPOUT_CALLS["token_major"] += 1
         return attention_btc_reference(q, k, v, n_head, key_mask, segments, bias,
-                                       dropout_rate, generator)
+                                       dropout_rate, generator, dropout_rows=dropout_rows,
+                                       dropout_heads=dropout_heads)
     if q.device.type == "cuda":
         if bias is not None or k.shape[1] != q.shape[1]:
             from multimodal_flows_tpu_torch.ops.set_attention import set_attention_btc

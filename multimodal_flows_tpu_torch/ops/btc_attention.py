@@ -2,10 +2,13 @@
 
 Replaces the Pallas TPU kernel `_btc_kernel`
 (`multimodal_flows_tpu/ops/pallas_attention.py:201-257`): token-major
-segment-masked set attention, q/k/v (B, T, C) fp32 with the heads packed
-in C.  The source file says what bounds the kernel on the card; its design
-is the shared core `csrc/set_attention_core.cuh` (3xTF32 tensor cores at
-fp32 parity, cp.async key/value tiles, cross-jet key tiles skipped).
+segment-masked set attention, q/k/v (B, T, C) fp32 or bf16 with the heads
+packed in C, the output in their dtype (the Pallas kernel takes the input
+dtype and returns `v.dtype`).  The source file says what bounds the kernel
+on the card; its design is the shared core `csrc/set_attention_core.cuh`
+(fp32: 3xTF32 tensor cores at fp32 parity; bf16: one bf16 tensor-core
+pass, fp32 softmax; cp.async key/value tiles, cross-jet key tiles
+skipped).
 
 Build: `ops/cuda_build.py` compiles the source with nvcc for `sm_90a` at
 first use and loads it with ctypes; nothing is compiled at import.
@@ -13,8 +16,9 @@ first use and loads it with ctypes; nothing is compiled at import.
 The wrapper takes CUDA tensors only and launches the kernel or raises;
 the plain version (`ops/attention.py:attention_btc_reference`) serves CPU
 tensors through `multihead_attention_btc`.  The backward recomputes
-through the plain version, as the JAX custom VJP `_btc_vjp_bwd` recomputes
-through XLA; a backward kernel is ROADMAP.md Queue 2 item 3.
+through the plain version in the input dtype, as the JAX custom VJP
+`_btc_vjp_bwd` recomputes through XLA; a backward kernel is ROADMAP.md
+Queue 2 item 3.
 """
 
 from __future__ import annotations
@@ -33,22 +37,27 @@ Tensor = torch.Tensor
 MAX_T = 256
 MAX_HEAD_SIZE = 128
 
-#: launches of the kernel by form, counted where the launch succeeds
+#: launches of the kernel by form, counted where the launch succeeds: fp32
+#: q/k/v in LAUNCHES, bf16 in LAUNCHES_BF16
 LAUNCHES = {"segments": 0, "key_mask": 0, "none": 0}
+LAUNCHES_BF16 = dict(LAUNCHES)
+DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    lib.btc_attention_fwd.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
-        ctypes.c_float, ctypes.c_void_p]
-    lib.btc_attention_fwd.restype = ctypes.c_int
+    for fn in (lib.btc_attention_fwd, lib.btc_attention_bf16_fwd):
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_float,
+                                                                   ctypes.c_void_p]
+        fn.restype = ctypes.c_int
 
 
 _LIB = CudaLibrary("btc_attention.cu", _declare)
 
 
 def reset_launch_counts() -> None:
-    for form in LAUNCHES:
-        LAUNCHES[form] = 0
+    for counts in (LAUNCHES, LAUNCHES_BF16):
+        for form in counts:
+            counts[form] = 0
 
 
 def library_path() -> Path:
@@ -71,8 +80,10 @@ def _check(q: Tensor, k: Tensor, v: Tensor, n_head: int,
     for name, t in (("k", k), ("v", v)):
         if t.shape != q.shape:
             raise ValueError(f"{name} shape {tuple(t.shape)} != q shape {tuple(q.shape)}")
-    for name, t, dtype in (("q", q, torch.float32), ("k", k, torch.float32),
-                           ("v", v, torch.float32), ("key_mask", key_mask, torch.float32),
+    if q.dtype not in DTYPES:
+        raise ValueError(f"q must be one of {DTYPES}, got {q.dtype}")
+    for name, t, dtype in (("q", q, q.dtype), ("k", k, q.dtype),
+                           ("v", v, q.dtype), ("key_mask", key_mask, torch.float32),
                            ("segments", segments, torch.int32)):
         if t is None:
             continue
@@ -98,16 +109,18 @@ def _launch(q: Tensor, k: Tensor, v: Tensor, n_head: int,
     B, T, C = q.shape
     out = torch.empty_like(q)
     scale = 1.0 / float(C // n_head) ** 0.5
+    bf16 = q.dtype == torch.bfloat16
+    fwd = lib.btc_attention_bf16_fwd if bf16 else lib.btc_attention_fwd
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.btc_attention_fwd(
+        rc = fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if key_mask is None else key_mask.data_ptr(),
             None if segments is None else segments.data_ptr(),
             out.data_ptr(), B, T, C, n_head, scale, stream)
     _LIB.check(rc)
     form = "segments" if segments is not None else "key_mask" if key_mask is not None else "none"
-    LAUNCHES[form] += 1
+    (LAUNCHES_BF16 if bf16 else LAUNCHES)[form] += 1
     return out
 
 
@@ -131,6 +144,7 @@ class _BtcAttention(torch.autograd.Function):
 def btc_attention(q: Tensor, k: Tensor, v: Tensor, n_head: int,
                   key_mask: Optional[Tensor] = None,
                   segments: Optional[Tensor] = None) -> Tensor:
-    """K1 forward on CUDA tensors: q/k/v (B, T, C) fp32 contiguous,
-    key_mask (B, T) fp32 additive, segments (B, T) int32 (pads -1)."""
+    """K1 forward on CUDA tensors: q/k/v (B, T, C) contiguous, all fp32 or
+    all bf16 (the output in their dtype), key_mask (B, T) fp32 additive,
+    segments (B, T) int32 (pads -1)."""
     return _BtcAttention.apply(q, k, v, key_mask, segments, n_head)

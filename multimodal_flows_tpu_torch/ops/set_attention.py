@@ -16,6 +16,8 @@ The port uses it for two callers:
   a (1, 1, T, T) causal bias, and its KV-cache decode, one query against
   the (B, seq_len, C) caches under a (B, seq_len) causal key mask.
 
+Both take fp32 or bf16 q/k/v (the output in their dtype, as the Pallas
+kernel returns `v.dtype`); with bf16 q/k/v the bias may be fp32 or bf16.
 Both hand the kernel strided views, so neither layout is copied, and a
 broadcast bias (a zero stride) is never expanded.  The source file says
 what bounds the kernel on the card; its design is the core it shares with
@@ -50,22 +52,30 @@ Tensor = torch.Tensor
 MAX_T = 256
 MAX_HEAD_SIZE = 128
 
-#: launches of the kernel by form, counted where the launch succeeds
+#: launches of the kernel by form, counted where the launch succeeds: fp32
+#: q/k/v in LAUNCHES, bf16 in LAUNCHES_BF16
 LAUNCHES = {"bias_segments": 0, "bias": 0, "bias_key_mask": 0, "key_mask": 0, "none": 0}
+LAUNCHES_BF16 = dict(LAUNCHES)
+DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    lib.set_attention_fwd.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [
-        ctypes.c_float, ctypes.c_void_p]
+    tail = [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+    lib.set_attention_fwd.argtypes = [ctypes.c_void_p] * 8 + tail
     lib.set_attention_fwd.restype = ctypes.c_int
+    # q, k, v, key_mask, bias, bias_bf16, segments, out, strides, ...
+    lib.set_attention_bf16_fwd.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int]
+                                           + [ctypes.c_void_p] * 3 + tail)
+    lib.set_attention_bf16_fwd.restype = ctypes.c_int
 
 
 _LIB = CudaLibrary("set_attention.cu", _declare)
 
 
 def reset_launch_counts() -> None:
-    for form in LAUNCHES:
-        LAUNCHES[form] = 0
+    for counts in (LAUNCHES, LAUNCHES_BF16):
+        for form in counts:
+            counts[form] = 0
 
 
 def library_path() -> Path:
@@ -96,15 +106,18 @@ def _check(q4: Tensor, k4: Tensor, v4: Tensor, key_mask: Optional[Tensor],
     if k4.shape != (B, H, Tk, hs) or v4.shape != k4.shape:
         raise ValueError(f"k {tuple(k4.shape)} and v {tuple(v4.shape)} do not match "
                          f"q {tuple(q4.shape)}")
-    for name, t, dtype in (("q", q4, torch.float32), ("k", k4, torch.float32),
-                           ("v", v4, torch.float32), ("key_mask", key_mask, torch.float32),
-                           ("bias", bias, torch.float32), ("segments", segments, torch.int32)):
+    if q4.dtype not in DTYPES:
+        raise ValueError(f"q must be one of {DTYPES}, got {q4.dtype}")
+    bias_dtypes = DTYPES if q4.dtype == torch.bfloat16 else (torch.float32,)
+    for name, t, dtypes in (("q", q4, (q4.dtype,)), ("k", k4, (q4.dtype,)),
+                            ("v", v4, (q4.dtype,)), ("key_mask", key_mask, (torch.float32,)),
+                            ("bias", bias, bias_dtypes), ("segments", segments, (torch.int32,))):
         if t is None:
             continue
         if t.device != q4.device:
             raise ValueError(f"{name} is on {t.device}, q on {q4.device}")
-        if t.dtype != dtype:
-            raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+        if t.dtype not in dtypes:
+            raise ValueError(f"{name} must be one of {dtypes}, got {t.dtype}")
     if key_mask is not None and (key_mask.shape != (B, Tk) or not key_mask.is_contiguous()):
         raise ValueError(f"key_mask must be contiguous (B, Tk) = {(B, Tk)}, "
                          f"got {tuple(key_mask.shape)}")
@@ -134,16 +147,21 @@ def _launch(q4: Tensor, k4: Tensor, v4: Tensor, key_mask: Optional[Tensor],
     strides = [*q4.stride(), *k4.stride(), *v4.stride(),
                *(bias4.stride() if bias4 is not None else (0, 0, 0, 0)), *out4.stride()]
     packed = (ctypes.c_longlong * 20)(*strides)
+    bf16 = q4.dtype == torch.bfloat16
+    pointers = [q4.data_ptr(), k4.data_ptr(), v4.data_ptr(),
+                None if key_mask is None else key_mask.data_ptr(),
+                None if bias4 is None else bias4.data_ptr()]
+    if bf16:
+        fwd = lib.set_attention_bf16_fwd
+        pointers.append(int(bias4 is not None and bias4.dtype == torch.bfloat16))
+    else:
+        fwd = lib.set_attention_fwd
     with torch.cuda.device(q4.device):
         stream = torch.cuda.current_stream(q4.device).cuda_stream
-        rc = lib.set_attention_fwd(
-            q4.data_ptr(), k4.data_ptr(), v4.data_ptr(),
-            None if key_mask is None else key_mask.data_ptr(),
-            None if bias4 is None else bias4.data_ptr(),
-            None if segments is None else segments.data_ptr(),
-            out4.data_ptr(), packed, B, H, Tq, Tk, hs, 1.0 / float(hs) ** 0.5, stream)
+        rc = fwd(*pointers, None if segments is None else segments.data_ptr(),
+                 out4.data_ptr(), packed, B, H, Tq, Tk, hs, 1.0 / float(hs) ** 0.5, stream)
     _LIB.check(rc)
-    LAUNCHES[_form(key_mask, bias, segments)] += 1
+    (LAUNCHES_BF16 if bf16 else LAUNCHES)[_form(key_mask, bias, segments)] += 1
 
 
 def _heads(x: Tensor, n_head: int) -> Tensor:
@@ -190,8 +208,9 @@ class _SetAttention(torch.autograd.Function):
 def set_attention(q: Tensor, k: Tensor, v: Tensor, key_mask: Optional[Tensor] = None,
                   bias: Optional[Tensor] = None) -> Tensor:
     """K2 on head-major CUDA tensors: q (B, H, Tq, Dh), k/v (B, H, Tk, Dh)
-    fp32 of any strides, key_mask (B, Tk) fp32 additive, bias fp32
-    additive and broadcastable to (B, H, Tq, Tk).  Returns (B, H, Tq, Dh)."""
+    of any strides, all fp32 or all bf16, key_mask (B, Tk) fp32 additive,
+    bias additive and broadcastable to (B, H, Tq, Tk), fp32 (or bf16 with
+    bf16 q/k/v).  Returns (B, H, Tq, Dh) in q's dtype."""
     if q.dim() != 4:
         raise ValueError(f"q must be (B, H, T, Dh), got {tuple(q.shape)}")
     return _SetAttention.apply(q, k, v, key_mask, bias, None, None)
@@ -200,10 +219,11 @@ def set_attention(q: Tensor, k: Tensor, v: Tensor, key_mask: Optional[Tensor] = 
 def set_attention_btc(q: Tensor, k: Tensor, v: Tensor, n_head: int,
                       key_mask: Optional[Tensor] = None, bias: Optional[Tensor] = None,
                       segments: Optional[Tensor] = None) -> Tensor:
-    """K2 on token-major CUDA tensors: q (B, Tq, C), k/v (B, Tk, C) fp32 with
-    the heads packed in C, key_mask (B, Tk), bias broadcastable to
-    (B, H, Tq, Tk), segments (B, T) int32 (pads -1, needs a bias and
-    Tq == Tk).  Returns (B, Tq, C)."""
+    """K2 on token-major CUDA tensors: q (B, Tq, C), k/v (B, Tk, C), all fp32
+    or all bf16, with the heads packed in C, key_mask (B, Tk) fp32, bias
+    broadcastable to (B, H, Tq, Tk) (fp32, or bf16 with bf16 q/k/v),
+    segments (B, T) int32 (pads -1, needs a bias and Tq == Tk).  Returns
+    (B, Tq, C) in q's dtype."""
     if q.dim() != 3:
         raise ValueError(f"q must be (B, T, C), got {tuple(q.shape)}")
     if n_head <= 0 or q.shape[-1] % n_head:

@@ -21,7 +21,12 @@ parameters and leave the collectives to XLA's partitioner).
   co-occurrence and Lund biases, `_TP_HEADS`) are column-parallel over the
   same heads, so K2 gets a contiguous (B, H/tp, T, T) bias.  A column / row
   pair is sharded together or not at all: where a dimension does not
-  divide, it stays replicated, as JAX falls back.
+  divide, it stays replicated, as JAX falls back.  The parallel layers
+  compute in the dtype of the layer they replace (`models.blocks.Dense`):
+  in bf16 the row-parallel partial products are rounded to bf16 and
+  all-reduced in bf16, as XLA's partitioner reduces a bf16 dot.  FSDP2
+  needs no mixed-precision policy: its parameters stay fp32 and the
+  modules cast after the all-gather, as JAX casts at use.
 
 A sharded parameter carries its layout: a DTensor under FSDP, a
 `tp_split` attribute under TP.  `full_state_dict` / `load_full_state_dict`
@@ -39,9 +44,9 @@ from typing import Dict, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
-import torch.nn.functional as F
 from torch import nn
 
+from multimodal_flows_tpu_torch.models.blocks import Dense, dense
 from multimodal_flows_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS
 
 Tensor = torch.Tensor
@@ -53,6 +58,15 @@ _TP_ROW = ("c_proj", "proj")
 #: Linear layers that project to one value per attention head: sharded
 #: over the heads with the attention
 _TP_HEADS = ("wue_proj", "wue_proj_out")
+
+
+def _is_linear(layer) -> bool:
+    """A plain Linear layer (not EPiC's `WNLinear`, which stays replicated)."""
+    return type(layer) in (nn.Linear, Dense)
+
+
+def _dtype(linear: nn.Linear) -> torch.dtype:
+    return getattr(linear, "compute_dtype", torch.float32)
 
 
 # ------------------------------------------------------------ collectives
@@ -122,36 +136,37 @@ def _shard_param(t: Tensor, split: TPSplit) -> nn.Parameter:
 
 class ColumnParallelLinear(nn.Module):
     """The output features `index[rank]` of a Linear: y = x W[idx]^T +
-    b[idx], its input through `copy_to_region`."""
+    b[idx] in the layer's compute dtype, its input through
+    `copy_to_region`."""
 
     def __init__(self, linear: nn.Linear, index: List[Tensor], group):
         super().__init__()
         split = TPSplit(0, index, group)
-        self.group = group
+        self.group, self.compute_dtype = group, _dtype(linear)
         self.in_features, self.out_features = linear.in_features, len(index[split.rank])
         self.weight = _shard_param(linear.weight, split)
         self.bias = None if linear.bias is None else _shard_param(linear.bias, split)
 
     def forward(self, x: Tensor) -> Tensor:
-        return F.linear(copy_to_region(x, self.group), self.weight, self.bias)
+        return dense(copy_to_region(x, self.group), self.weight, self.bias, self.compute_dtype)
 
 
 class RowParallelLinear(nn.Module):
     """The input features `index[rank]` of a Linear: the partial product
-    x_local W[:, idx]^T all-reduced, then the (replicated) bias added
-    once."""
+    x_local W[:, idx]^T (in the layer's compute dtype) all-reduced, then the
+    (replicated) bias added once in that dtype."""
 
     def __init__(self, linear: nn.Linear, index: List[Tensor], group):
         super().__init__()
         split = TPSplit(1, index, group)
-        self.group = group
+        self.group, self.compute_dtype = group, _dtype(linear)
         self.in_features, self.out_features = len(index[split.rank]), linear.out_features
         self.weight = _shard_param(linear.weight, split)
         self.bias = None if linear.bias is None else nn.Parameter(linear.bias.detach().clone())
 
     def forward(self, x: Tensor) -> Tensor:
-        y = reduce_from_region(F.linear(x, self.weight), self.group)
-        return y if self.bias is None else y + self.bias
+        y = reduce_from_region(dense(x, self.weight, None, self.compute_dtype), self.group)
+        return y if self.bias is None else y + self.bias.to(self.compute_dtype)
 
 
 def _contiguous(n: int, tp: int) -> List[Tensor]:
@@ -209,8 +224,8 @@ def tp_sharding(module: nn.Module, mesh) -> nn.Module:
             heads_sharded = True
             continue
         children = dict(parent.named_children())
-        col = next((n for n in _TP_COL if type(children.get(n)) is nn.Linear), None)
-        row = next((n for n in _TP_ROW if type(children.get(n)) is nn.Linear), None)
+        col = next((n for n in _TP_COL if _is_linear(children.get(n))), None)
+        row = next((n for n in _TP_ROW if _is_linear(children.get(n))), None)
         if col and row:
             width = children[col].out_features
             if width == children[row].in_features and width % tp == 0:
@@ -221,7 +236,7 @@ def tp_sharding(module: nn.Module, mesh) -> nn.Module:
         for parent in list(module.modules()):
             for name in _TP_HEADS:
                 layer = getattr(parent, name, None)
-                if type(layer) is nn.Linear and layer.out_features % tp == 0:
+                if _is_linear(layer) and layer.out_features % tp == 0:
                     setattr(parent, name, ColumnParallelLinear(
                         layer, _contiguous(layer.out_features, tp), group))
             gate = getattr(parent, "lambda_u", None)  # scales the per-head bias

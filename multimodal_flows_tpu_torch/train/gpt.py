@@ -68,11 +68,12 @@ class GPT:
         if tokens.ndim == 3:
             tokens = tokens[..., 0]
         tokens = tokens.long()
-        total = _rank_total((tokens[:, 1:] != self.pad_token).sum(), rows, len(tokens))
+        n = len(tokens)
+        total = _rank_total((tokens[:, 1:] != self.pad_token).sum(), rows, n)
         if rows is not None:
             tokens = tokens[rows]
         rate = max(cfg.dropout_att, cfg.dropout_emb, cfg.dropout_res)
-        with _dropout_mode(module, rate, train, generator):
+        with _dropout_mode(module, rate, train, generator, rows, n):
             logits = module(tokens)
         # predict token t+1 from the prefix <= t
         logp = F.log_softmax(logits[:, :-1].to(torch.float32), dim=-1)

@@ -24,8 +24,14 @@ tests hold against the JAX package on shared states.
 Dropout: with `train` and `Config.dropout > 0` the loss runs its forward
 in train mode (`module.train()`), every dropout mask drawn from
 `generator`; with `train=False`, and at `dropout == 0`, the forward is the
-deterministic one.  The attention of a dropout forward takes the plain
-path by design (`ops/attention.py`).
+deterministic one.  With `rows` every mask is drawn at the global batch's
+shape and cut to the rank's rows (`models.blocks.set_dropout_generator`),
+so the ranks drop what one device drops on the whole batch.  The
+attention of a dropout forward takes the plain path by design
+(`ops/attention.py`).
+
+The losses and the solvers see fp32 whatever `Config.compute_dtype` is:
+the encoders' heads project in fp32.
 """
 
 from __future__ import annotations
@@ -82,17 +88,20 @@ def _placed(module: nn.Module, device: torch.device,
 
 @contextlib.contextmanager
 def _dropout_mode(module: nn.Module, rate: float, train: bool,
-                  generator: Optional[torch.Generator]):
+                  generator: Optional[torch.Generator], rows: Optional[slice] = None,
+                  n: int = 0):
     """The forward inside runs with dropout when `train and rate > 0` (train
     mode, the masks from `generator`) and without it otherwise (eval mode);
     the module's mode is restored after.  At `rate == 0` the mode makes no
     difference and is left alone.  `rate` is the largest dropout rate of
-    the module (`Config.dropout` for the flow systems)."""
+    the module (`Config.dropout` for the flow systems).  With `rows` (this
+    rank's rows of a global batch of `n`) the masks are drawn at the global
+    shape and cut to those rows."""
     if rate <= 0:
         yield
         return
     was_training = module.training
-    set_dropout_generator(module, generator)
+    set_dropout_generator(module, generator, None if rows is None else (rows, n))
     module.train(train)
     try:
         yield
@@ -208,7 +217,7 @@ class MMF:
             state, drift, k1 = state[rows], drift[rows], target.discrete[rows]
         else:
             k1 = target.discrete
-        with _dropout_mode(module, self.config.dropout, train, generator):
+        with _dropout_mode(module, self.config.dropout, train, generator, rows, len(target)):
             return _mmf_metrics(module.training_loss(state, drift, k1))
 
     def packed_loss_fn(self, batch: PackedJets, generator: Optional[torch.Generator] = None,
@@ -235,7 +244,7 @@ class MMF:
             state = state[rows]
             drift, k1, t_jets, segments, jet_valid = _take(rows, drift, k1, t_jets, segments,
                                                            jet_valid)
-        with _dropout_mode(module, self.config.dropout, train, generator):
+        with _dropout_mode(module, self.config.dropout, train, generator, rows, len(batch)):
             return _mmf_metrics(module.packed_training_loss(
                 state, drift, k1, t_jets, segments, jet_valid, total))
 
@@ -308,11 +317,12 @@ class CFM:
             x0 = self.bridge_continuous.draw_source(generator, x1, mask)
         xt = self.bridge_continuous.sample(generator, t, x0, x1)
         drift = self.bridge_continuous.conditional_drift(xt, x0, x1)
-        total = _rank_total(mask.sum(), rows, len(mask))
+        n = len(mask)
+        total = _rank_total(mask.sum(), rows, n)
         t, xt, mask, drift = _take(rows, t, xt, mask, drift)
         if segments is not None:
             (segments,) = _take(rows, segments)
-        with _dropout_mode(module, self.config.dropout, train, generator):
+        with _dropout_mode(module, self.config.dropout, train, generator, rows, n):
             vt = module(MultiModal(time=t, continuous=xt, mask=mask), segments, num_segments)
         loss = global_masked_mse(vt, drift, mask, total)
         return loss, {"loss": loss, "loss_mse": loss}
@@ -371,11 +381,12 @@ class MJB:
         if k0 is None:
             k0 = self.bridge_discrete.draw_source(generator, k1.shape, mask)
         kt = self.bridge_discrete.sample(generator, t, k0, k1)
-        total = _rank_total(mask.sum(), rows, len(mask))
+        n = len(mask)
+        total = _rank_total(mask.sum(), rows, n)
         t, kt, mask, k1 = _take(rows, t, kt, mask, k1)
         if segments is not None:
             (segments,) = _take(rows, segments)
-        with _dropout_mode(module, self.config.dropout, train, generator):
+        with _dropout_mode(module, self.config.dropout, train, generator, rows, n):
             logits = module(MultiModal(time=t, discrete=kt, mask=mask), segments, num_segments)
         loss = global_masked_ce(logits, k1, mask, total)
         return loss, {"loss": loss, "loss_ce": loss}

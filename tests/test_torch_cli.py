@@ -190,21 +190,36 @@ def test_round_trip_of_the_other_systems(tmp_path, kind, model_flags):
 @pytest.mark.parametrize("flags,error,match", [
     (["--fsdp"], None, None),
     (["--tensor_parallel", "2"], ValueError, "1 devices not divisible by model=2"),
-    (["--compute_dtype", "bfloat16"], NotImplementedError, "ROADMAP.md Queue 2"),
+    (["--compute_dtype", "bfloat16"], None, None),
 ], ids=["fsdp", "tensor_parallel", "bfloat16"])
 def test_flags_of_what_is_not_ported_raise_before_any_file_is_written(tmp_path, flags, error,
                                                                        match):
-    """bf16 compute is not ported and raises; a tensor-parallel mesh that
-    does not fit the world size raises the JAX package's divisibility
-    error: both before any file is written.  `--fsdp` at world size 1 (no
-    process group, so no mesh) trains on the one device, as in JAX."""
+    """A tensor-parallel mesh that does not fit the world size raises the
+    JAX package's divisibility error before any file is written.  `--fsdp`
+    at world size 1 (no process group, so no mesh) trains on the one
+    device, as in JAX.  bf16 compute is ported: `--compute_dtype bfloat16`
+    trains, its saved config keeps the dtype, and the sampling entry point
+    samples with it (finite kinematics, tokens in range)."""
     exp_dir = str(tmp_path / "experiments")
     if error is None:
         common = ["--dir", exp_dir, "--dir_aoj", _aoj_dir(tmp_path)]
         _run(train_mmf.main, common + TINY + ["--max_epochs", "1"] + flags)
         exp_id, exp = _only_experiment(exp_dir)
-        assert Config.load(exp).fsdp
+        cfg = Config.load(exp)
         assert os.path.exists(os.path.join(exp, "checkpoints", "last.pt"))
+        if "--fsdp" in flags:
+            assert cfg.fsdp
+            return
+        assert cfg.compute_dtype == "bfloat16"
+        records = [json.loads(line) for line in open(os.path.join(exp, "metrics.jsonl"))]
+        assert np.isfinite(records[-1]["train_loss"]) and np.isfinite(records[-1]["val_loss"])
+        _run(sample_mmf.main, common + ["-id", exp_id, "--num_jets", "20", "--batch_size", "16",
+                                        "--num_timesteps", "3", "--checkpoint", "last",
+                                        "--device", "cpu"])
+        (res_dir,) = glob.glob(os.path.join(exp, "generation_results*"))
+        sample = MultiModal.load_from(os.path.join(res_dir, "generated_sample.h5"))
+        assert len(sample) == 20 and torch.isfinite(sample.continuous).all()
+        assert ((sample.discrete >= 0) & (sample.discrete < cfg.vocab_size)).all()
         return
     with pytest.raises(error, match=match):
         train_mmf.main(["--dir", exp_dir, "--dir_aoj", str(tmp_path / "nowhere")] + TINY + flags)

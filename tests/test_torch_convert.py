@@ -74,9 +74,12 @@ def test_config_yaml_round_trips_between_packages(tmp_path):
 
 
 def test_unported_model_raises_with_roadmap_pointer():
-    """Every model of the JAX registry builds, ToyMLP included; bf16
-    compute still raises with its ROADMAP pointer, an unknown name without
-    one."""
+    """Every model of the JAX registry builds, ToyMLP included; an unknown
+    name raises without a ROADMAP pointer.  bf16 compute no longer raises:
+    a bf16 config of each transformer encoder builds, and the flagship's
+    and the FusedParticleFormer's bf16 trees (fp32 parameters, as flax's
+    `param_dtype`) convert by the same rules and load strictly into fp32
+    parameters."""
     small = dict(n_embd=16, n_inner=32, n_layer=1, n_head=2, max_num_particles=6)
     assert type(build_model(Config(model="FusedParticleFormer", **small))).__name__ == \
         "FusedParticleFormer"
@@ -89,9 +92,17 @@ def test_unported_model_raises_with_roadmap_pointer():
     with pytest.raises(KeyError, match="unknown model 'NoSuchFormer'") as raised:
         build_model(Config(model="NoSuchFormer"))
     assert "ROADMAP" not in str(raised.value)
+    for model in ("ParticleFormer", "FusedParticleFormer", "FlavorFormer", "KinFormer"):
+        assert type(build_model(Config(model=model, compute_dtype="bfloat16", **small))
+                    ).__name__ == model
     for model in ("ParticleFormer", "FusedParticleFormer"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_model(Config(model=model, compute_dtype="bfloat16"))
+        cfg = dict(FLAGSHIP, model=model, compute_dtype="bfloat16")
+        tree = _shape_tree(JaxMMF(JaxConfig(**cfg)))["encoder"]
+        assert {a.dtype for a in jax.tree.leaves(tree)} == {np.dtype(np.float32)}
+        encoder = build_model(Config(**cfg))
+        load_flax_params(encoder, tree)
+        assert {p.dtype for p in encoder.parameters()} == {torch.float32}
+        assert len(list(encoder.parameters())) == len(jax.tree.leaves(tree))
 
 
 def _shape_tree(system):

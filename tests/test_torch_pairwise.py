@@ -384,8 +384,8 @@ def test_unported_modes_raise_with_roadmap_pointer():
     """The solver modes are all ported: each builds, and an unknown method
     raises ValueError as in JAX.  The toy model builds and jet substructure
     computes.  `Config.mesh_shape` is stored and has no effect, as in the
-    JAX package.  What still raises names its ROADMAP item: bf16
-    compute."""
+    JAX package.  KinFormer computes in bf16 as JAX's does (bf16 no longer
+    raises)."""
     solvers.ContinuousSolver(None, method="euler_maruyama")
     for method in ("tauleap-bernouilli", "euler", "jump_or_stay"):
         solvers.DiscreteSolver(None, None, 9, method=method, top_p=0.9)
@@ -397,8 +397,22 @@ def test_unported_modes_raise_with_roadmap_pointer():
                  mesh_shape={"data": 2})
     trainer = Trainer(systems.build_system(cfg, "MJB", device="cpu"), cfg)
     assert trainer.mesh is None and trainer.config.mesh_shape == {"data": 2}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 2"):
-        build_model(Config(model="KinFormer", compute_dtype="bfloat16"))
+    # bf16 compute is ported: KinFormer with its Lund bias in bf16 matches
+    # JAX's bf16 forward op for op (the same roundings; fp32 sums in another
+    # order), far closer than JAX's bf16 forward is to its fp32 one
+    kin16 = dict(KIN, compute_dtype="bfloat16")
+    jsys, params, _, tsys = _system_pair("CFM", kin16)
+    x, k, mask = _jets(4, [12, 3, 7, 5], seed=3)
+    js, ps = _states(np.linspace(0.2, 0.8, 4).astype(np.float32), x, k, mask)
+    ref = jax.jit(lambda s: jsys.module.apply(params, s)).lower(js).compile(
+        compiler_options={"xla_allow_excess_precision": False})(js)
+    ref32 = jax.jit(lambda s: jsystems.CFM(JaxConfig(**KIN)).module.apply(params, s))(js)
+    with torch.no_grad():
+        out = tsys.module(ps)
+    real = mask[..., 0] > 0
+    err = float(np.abs(out.numpy()[real] - np.asarray(ref)[real]).max())
+    gap = float(np.abs(np.asarray(ref)[real] - np.asarray(ref32)[real]).max())
+    assert out.dtype == torch.float32 and err <= 1e-3 and err < gap, (err, gap)
     assert type(build_model(Config(model="ToyMLP", dim_continuous=2))).__name__ == "ToyMLP"
     rng = np.random.default_rng(0)
     jets = MultiModal(continuous=torch.from_numpy(rng.uniform(0.1, 1, (2, 4, 3))).float(),

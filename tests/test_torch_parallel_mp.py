@@ -17,7 +17,12 @@ same numpy inputs and seeds.
   of seven encoders against the unsharded module (EPiC has no column /
   row pair and stays replicated); one step against one process; the
   checkpoint gathered to full tensors and cut back, both ways; a flax
-  tree refused by a sharded module.
+  tree refused by a sharded module;
+- dropout under a mesh: a data-parallel step and a `tensor_parallel=2`
+  step with dropout 0.1 against the one-process dropout step from the same
+  generator seed (every mask drawn at the global shape: the data ranks'
+  rows, the model ranks' heads); a bf16 `tensor_parallel=2` step against
+  the one-process bf16 step.
 """
 
 import copy
@@ -59,6 +64,16 @@ GRAD_RTOL, GRAD_FLOOR = 1e-5, 1e-9
 TP_GRAD_FLOOR = 1e-6
 # weights after one or a few Adam updates of size ~lr
 WEIGHT_ATOL = 1e-5
+# bf16 under TP: the row-parallel layers round each rank's partial product
+# to bf16 and all-reduce in bf16 (as XLA reduces a bf16 dot), one device
+# rounds the whole product once: the loss moves by a few bf16 ulp of the
+# activations it sums, the gradients by a few ulp of their scale; Adam's
+# first step is lr * sign(g) where |g| is far above its eps, so a weight
+# moves by up to 2 lr where a gradient within that rounding of 0 flips sign,
+# and Adam's g / (|g| + eps) amplifies the rounding of gradients near its
+# eps (4.5% of the weights beyond WEIGHT_ATOL measured; loss rel 5.7e-6,
+# grad norm rel 2.8e-4)
+BF16_TP_LOSS_RTOL, BF16_TP_GRAD_NORM_RTOL, BF16_TP_WEIGHTS_EQUAL = 1e-4, 2e-3, 0.9
 FORWARD_ATOL = 1e-5
 TOKENS_EQUAL = 0.999
 
@@ -350,6 +365,28 @@ def _tp_worker(rank, store, out):
         dist.destroy_process_group()
 
 
+TRAIN_DROPOUT = dict(TRAIN, dropout=0.1)
+TRAIN_BF16 = dict(TRAIN, compute_dtype="bfloat16")
+
+
+def _dropout_worker(rank, store, out):
+    """Steps from `_one_step`'s draw seed under a mesh: data parallel and
+    tensor_parallel=2 with dropout, tensor_parallel=2 in bf16."""
+    _join(rank, store)
+    try:
+        res = {}
+        for name, kw in (("dp", TRAIN_DROPOUT), ("tp", dict(TRAIN_DROPOUT, tensor_parallel=2)),
+                         ("tp_bf16", dict(TRAIN_BF16, tensor_parallel=2))):
+            cfg = Config(**kw)
+            trainer = Trainer(_system(cfg), cfg)
+            res[name] = _one_step(trainer, _step_batch())[:3]
+            res[name + "_mesh"] = (mesh.data_axis_size(trainer.mesh),
+                                   mesh.model_axis_size(trainer.mesh))
+        _save("_dropout_worker", rank, out, res)
+    finally:
+        dist.destroy_process_group()
+
+
 # ------------------------------------------------------ the parent's side
 
 
@@ -541,3 +578,57 @@ def test_tp_step_and_checkpoints_equal_one_process(tp_run, single_step):
         _assert_weights(r["round_trip"], r["after"], atol=0)
         _assert_weights(r["from_single"], r["single_after"], atol=0)
         assert r["flax_refused"]
+
+
+@pytest.fixture(scope="module")
+def dropout_run(tmp_path_factory):
+    return _spawn(_dropout_worker, tmp_path_factory.mktemp("dropout"))
+
+
+def _single(cfg_kw):
+    cfg = Config(**cfg_kw)
+    return _one_step(Trainer(_system(cfg), cfg, mesh=None), _step_batch())[:3]
+
+
+def test_dropout_steps_under_a_mesh_equal_one_process(dropout_run):
+    """With dropout 0.1 every rank draws each mask at the global shape from
+    the shared generator and keeps its share: the data-parallel step (the
+    ranks' rows) and the tensor_parallel=2 step (the ranks' heads of the
+    attention-probability masks) equal the one-process dropout step, to
+    the tolerances of the dropout-free steps.  Drawing at the local shape,
+    the ranks of one data axis would drop the same pattern on different
+    jets, and a model rank's masks would differ from the unsharded ones."""
+    metrics, after, ema_after = _single(TRAIN_DROPOUT)
+    ranks = dropout_run
+    assert [r["dp_mesh"] for r in ranks] == [(2, 1)] * 2
+    assert [r["tp_mesh"] for r in ranks] == [(1, 2)] * 2
+    np.testing.assert_allclose(np.mean([r["dp"][0]["loss"] for r in ranks]), metrics["loss"],
+                               rtol=LOSS_RTOL)
+    for r in ranks:
+        for name in ("dp", "tp"):
+            step, w, ema = r[name]
+            if name == "tp":
+                np.testing.assert_allclose(step["loss"], metrics["loss"], rtol=LOSS_RTOL)
+            np.testing.assert_allclose(step["grad_norm"], metrics["grad_norm"], rtol=1e-5)
+            _assert_weights(w, after)
+            _assert_weights(ema, ema_after)
+
+
+def test_bf16_tensor_parallel_step_equals_one_process(dropout_run):
+    """A bf16 step at tensor_parallel=2 against the one-process bf16 step:
+    the loss and the gradient norm within the bf16 rounding of the
+    row-parallel all-reduce; the weights after the update equal on most
+    entries, and within Adam's step where a gradient near 0 rounded apart."""
+    metrics, after, _ = _single(TRAIN_BF16)
+    for r in dropout_run:
+        step, w, _ = r["tp_bf16"]
+        np.testing.assert_allclose(step["loss"], metrics["loss"], rtol=BF16_TP_LOSS_RTOL)
+        np.testing.assert_allclose(step["grad_norm"], metrics["grad_norm"],
+                                   rtol=BF16_TP_GRAD_NORM_RTOL)
+        assert w.keys() == after.keys()
+        lr = TRAIN["lr"]
+        off = sum(int(((w[k] - after[k]).abs() > WEIGHT_ATOL).sum()) for k in after)
+        assert off <= (1 - BF16_TP_WEIGHTS_EQUAL) * sum(t.numel() for t in after.values())
+        for k in after:  # Adam's first step moves a weight by at most ~lr
+            torch.testing.assert_close(w[k], after[k], atol=2 * lr + WEIGHT_ATOL, rtol=0,
+                                       msg=k)
