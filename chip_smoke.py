@@ -8,8 +8,9 @@
    at once: K1 (`multimodal_flows_tpu_torch/csrc/btc_attention.cu`) and K2
    (`csrc/set_attention.cu`), both around the shared core
    `csrc/set_attention_core.cuh`; prints each build's time, the compiler's
-   register / shared-memory report and the number of tensor-core (HMMA)
-   instructions `cuobjdump -sass` finds in each library (0 fails).
+   register / shared-memory report and the number of tensor-core
+   instructions `cuobjdump -sass` finds in each library: HMMA (`mma.sync`,
+   the fp32 forms) and HGMMA (`wgmma`, the bf16 forms); 0 of either fails.
 3. Holds each kernel against its plain PyTorch version on the card, fp32,
    on the shapes the sampler and the trainer give it and on the edges of
    the kernels' tiling (head sizes not a multiple of 8, T not a multiple of
@@ -94,15 +95,20 @@
      native library if the host compiler builds it, else the numpy version.
 9. The GPT baseline at the training CLI's defaults with `--system GPT`
    (n_embd 256, 5 layers, 4 heads, sequences of 152, batch 256):
-   - K2 at its two GPT shapes against the plain version (held in 3): the
-     full forward's causal bias form (1, 1, 152, 152) with the q/k/v
-     gradients, and the decode's key-mask form (one query against 152
-     cached keys) at positions 0, 75 and 151; both timed as in 4, the
-     library call with `is_causal` and with the float key mask;
+   - K2 at its GPT shapes against the plain version (held in 3): the full
+     forward's causal form (the causal term in the kernel, the key
+     tiles past each warp's rows skipped) with the q/k/v gradients and at
+     the edges of its tiling (T 1, 17, 63, 64, 65, 152, 256; head sizes 64
+     and 9; a key mask), with its largest difference from the bias form
+     (1, 1, 152, 152) printed; the bias form itself with gradients; the
+     decode's key-mask form (one query against 152 cached keys) at
+     positions 0, 75 and 151; the causal form, the bias form, the library
+     call with `is_causal` and the plain version timed in turns as in 4,
+     the decode with the float key mask;
    - the KV-cached decode against the full forward at every position, and
      the card against the CPU on shared weights (logits, loss, greedy and
      Gumbel-injected generation);
-   - `cli.train_mmf.train` with `--system GPT`, 2 epochs: K2's bias form
+   - `cli.train_mmf.train` with `--system GPT`, 2 epochs: K2's causal form
      exactly 5 launches a forward, K1 and every other form 0, `last`
      reloads to the logged val loss; 30 steps on a fixed batch (the loss
      falls) and the step's time (`utils/profiling.py`);
@@ -130,9 +136,14 @@
    - the bf16 forms of K1 (segments, key mask) and K2 (bias + segments,
      bias, key mask + bias, key mask; an fp32 and a bf16 bias; head-major
      Tq != Tk, odd head size) against their bf16 plain versions (atol
-     1e-2, rtol 1e-2), with gradients; both timed at the packed-row shapes
-     beside the bf16 plain version, scaled_dot_product_attention in bf16
-     and the bound at 2 bytes an element and the dense bf16 rate;
+     1e-2, rtol 1e-2), with gradients, and at the edges of the TMA / wgmma
+     core (T 256 at head size 128, Tk off its 64-key tiles, a
+     (B, 1, T, T) bias, a bias whose rows miss TMA's 16-byte rule); each
+     case prints its host plan (q/k/v by TMA or staged, the bias by TMA or
+     per fragment, the shared memory) and every path must have run; both
+     timed at the packed-row shapes beside the bf16 plain version,
+     scaled_dot_product_attention in bf16 and the bound at 2 bytes an
+     element and the dense bf16 rate;
    - the flagship MMF in bf16 at full width: `generate_packed` on the jets
      and noise of 5 (the bf16 K1 in both forms, no fp32 kernel), the
      samples' W1 in pT, eta, phi and multiplicity against the fp32 samples,
@@ -315,6 +326,13 @@ GPT_ARGV = ["--system", "GPT", "--max_epochs", "2"]
 GPT_JETS, GPT_SAMPLED_JETS, GPT_VS_CPU_ROWS = 1024, 512, 32
 GPT_SHAPE = (256, 152, 256, 4)
 GPT_DECODE_POS = (0, 75, 151)
+# K2's causal form (B, T, C, H), with or without a key mask of trailing
+# pads (every query keeps key 0): GPT's shape, then the edges of its
+# 32-key tiles and 64-row blocks at head size 64 and 9
+K2_CAUSAL_CASES = [(GPT_SHAPE, False), (GPT_SHAPE, True), ((8, 1, 256, 4), False),
+                   ((8, 17, 256, 4), True), ((8, 63, 256, 4), False), ((8, 64, 256, 4), True),
+                   ((8, 65, 256, 4), False), ((4, 256, 256, 4), True), ((8, 17, 36, 4), False),
+                   ((8, 65, 36, 4), True), ((8, 152, 36, 4), False)]
 # the decode against the teacher-forced forward, as tests/test_gpt.py holds
 # JAX; the card against the CPU on shared weights (fp32, TF32 off, sums in
 # another order); the tokens drawn from equal noise may part where two
@@ -652,13 +670,40 @@ def check_k2_gpt(dev) -> float:
     return worst
 
 
+def check_k2_causal(dev) -> float:
+    """K2's causal form against the plain version with the causal
+    bias, at GPT's shape with the q/k/v gradients and at the edges of its
+    tiling (K2_CAUSAL_CASES); at GPT's shape also the largest difference
+    from K2's bias form on the same inputs (the same scores, so 0 or a few
+    ulp where the compiler contracts otherwise)."""
+    worst = 0.0
+    for shape, masked in K2_CAUSAL_CASES:
+        B, T, C, H = shape
+        q, k, v, km, _, _, real = _case_inputs(shape, "key_mask" if masked else "none", dev,
+                                               seed=T)
+        bias = _causal_bias(T, dev)
+        name = f"K2 causal vs plain {shape} {'key_mask' if masked else 'no mask'}"
+        out = k2.set_attention_btc(q, k, v, H, km, causal=True)
+        worst = max(worst, _held(name, out, attention_btc_reference(q, k, v, H, km, None, bias),
+                                 real))
+        if shape == GPT_SHAPE and not masked:
+            diff = float((out - k2.set_attention_btc(q, k, v, H, None, bias)).abs().max())
+            print(f"K2 causal vs K2 bias form {shape}: max_abs_diff {diff:.3e}")
+            _grads_held(f"K2 causal at the GPT forward {shape}",
+                        [lambda a, b, c: k2.set_attention_btc(a, b, c, H, causal=True),
+                         lambda a, b, c: attention_btc_reference(a, b, c, H, None, None, bias)],
+                        [q, k, v])
+    return worst
+
+
 def time_gpt_attention(dev):
-    """{"full", "decode", "decode_pos75"}: K2, its plain version and
+    """{"full_causal", "full", "decode", "decode_pos75"}: K2 (its causal
+    form and its bias form for the full forward), its plain version and
     scaled_dot_product_attention (is_causal for the full forward, the float
     key mask for a decode call) at the GPT shapes, with their bounds: the
-    full forward's q, k, v, out and bias once against the causal pairs'
-    FLOPs; a decode call's q, out, key mask and the cache rows <= pos (the
-    keys this data needs) against their FLOPs."""
+    full forward's q, k, v and out (and the bias form's bias) once against
+    the causal pairs' FLOPs; a decode call's q, out, key mask and the cache
+    rows <= pos (the keys this data needs) against their FLOPs."""
     B, T, C, H = GPT_SHAPE
     result = {}
     with torch.no_grad():
@@ -666,13 +711,17 @@ def time_gpt_attention(dev):
         real = torch.ones((B, T), dtype=torch.bool, device=dev)
         plain = lambda: attention_btc_reference(q, k, v, H, None, None, bias)  # noqa: E731
         library = _library_call(q, k, v, H, plain(), real, "K2 GPT forward", is_causal=True)
-        ms, plain_ms, library_ms = median_device_ms(
-            [lambda: k2.set_attention_btc(q, k, v, H, None, bias), plain, library])
-        bound_ms, bound_by = _roofline(4 * (4 * q.numel() + bias.numel()),
-                                       4 * C * B * T * (T + 1) // 2)
-        result["full"] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                              bound_ms=bound_ms, bound_by=bound_by)
-        _print_time("K2", GPT_SHAPE, "GPT forward, causal bias", result["full"])
+        causal_ms, ms, plain_ms, library_ms = median_device_ms(
+            [lambda: k2.set_attention_btc(q, k, v, H, causal=True),
+             lambda: k2.set_attention_btc(q, k, v, H, None, bias), plain, library])
+        flops = 4 * C * B * T * (T + 1) // 2
+        for key, form, t, nbytes in (
+                ("full_causal", "GPT forward, causal form", causal_ms, 4 * 4 * q.numel()),
+                ("full", "GPT forward, causal bias", ms, 4 * (4 * q.numel() + bias.numel()))):
+            bound_ms, bound_by = _roofline(nbytes, flops)
+            result[key] = dict(ms=t, plain_ms=plain_ms, library_ms=library_ms,
+                               bound_ms=bound_ms, bound_by=bound_by)
+            _print_time("K2", GPT_SHAPE, form, result[key])
         for pos, key in ((T - 1, "decode"), (75, "decode_pos75")):
             q1, kc, vc, km = _gpt_decode_inputs(pos, dev)
             plain = lambda: attention_btc_reference(q1, kc, vc, H, km)  # noqa: E731
@@ -1744,7 +1793,7 @@ def _gpt_card_vs_cpu(dev, system, cpu, ids):
 def gpt_phase(dev, out_dir):
     """The GPT baseline at the training CLI's defaults with `--system GPT`:
     the decode against the full forward on the card, the card against the
-    CPU, the training entry point's compute half (K2's bias form exactly 5
+    CPU, the training entry point's compute half (K2's causal form exactly 5
     launches a forward, nothing else), 30 steps on a fixed batch, the step's
     time, then the sampling entry point's GPT compute half on the
     checkpoint (K2's key-mask form exactly 5 x 151 launches a batch) and the
@@ -1804,8 +1853,9 @@ def gpt_phase(dev, out_dir):
             np.isfinite(r["train_loss"]) and np.isfinite(r["val_loss"]) for r in records),
         "last reloaded gives the logged val_loss (rel 1e-5)":
             abs(reloaded - records[-1]["val_loss"]) <= 1e-5 * abs(records[-1]["val_loss"]),
-        f"K2 bias form {n_layer} launches a forward, every other form 0":
-            train_forwards > 0 and train_launches["K2"] == _only("bias", n_layer * train_forwards),
+        f"K2 causal form {n_layer} launches a forward, every other form 0":
+            train_forwards > 0
+            and train_launches["K2"] == _only("causal", n_layer * train_forwards),
         "K1 never, no plain dropout call": not _total(train_launches["K1"])
             and not _total(train_launches["plain_dropout"]),
     }
@@ -1838,7 +1888,7 @@ def gpt_phase(dev, out_dir):
     print(f"GPT, fixed batch, 30 steps: loss {losses[0]:.5f} -> {losses[-1]:.5f} (last 5 mean "
           f"{losses[-5:].mean():.5f}); launches {fixed_launches}")
     if not (np.isfinite(losses).all() and losses[-5:].mean() < losses[0]
-            and fixed_launches["K2"] == _only("bias", 30 * n_layer)
+            and fixed_launches["K2"] == _only("causal", 30 * n_layer)
             and not _total(fixed_launches["K1"])):
         raise AssertionError("GPT: the loss on a fixed batch did not fall, or K2 did not run "
                              "5 times a step")
@@ -2235,45 +2285,98 @@ TRAIN_BF16 = dict(TRAIN, compute_dtype="bfloat16")
 TRAIN_COOCC_BF16 = dict(TRAIN_COOCC, compute_dtype="bfloat16")
 # the flagship's shapes (packed rows, the wide jets' key mask, the bucketed
 # training batch), the tiling's edges (head size 9 and 36, T=33, scattered
-# ids); K2 with an fp32 and a bf16 bias
+# ids); K2 with an fp32 and a bf16 bias.  Then the edges of the TMA /
+# wgmma core: T = 256 at head size 128, Tk not a multiple of its
+# 64-key tiles (100, 150), an odd head size at T = 100, a (B, 1, T, T)
+# pair bias that TMA reads (T = 128) and one it cannot (T = 150, rows of
+# 600 bytes); a bias whose row stride misses TMA's 16-byte rule is
+# BF16_STRIDED_BIAS
 K1_BF16_CASES = [((128, 128, 128, 4), "segments"), ((128, 128, 256, 4), "segments"),
                  ((16, 150, 256, 4), "key_mask"), ((64, 48, 128, 4), "key_mask"),
                  ((8, 33, 128, 4), "segments"), ((16, 150, 36, 4), "key_mask"),
-                 ((16, 128, 128, 4), "scattered")]
+                 ((16, 128, 128, 4), "scattered"),
+                 ((4, 256, 512, 4), "segments"), ((8, 100, 36, 4), "key_mask"),
+                 ((4, 256, 512, 4), "key_mask")]
 K2_BF16_CASES = [((128, 128, 128, 4), "bias_segments"), ((128, 128, 256, 4), "bias_segments"),
                  ((16, 150, 256, 4), "pair_mask_bias"), ((16, 128, 36, 4), "bias_segments"),
-                 ((16, 128, 128, 4), "bias_scattered")]
+                 ((16, 128, 128, 4), "bias_scattered"),
+                 ((4, 256, 512, 4), "bias_segments"), ((8, 100, 36, 4), "bias_scattered"),
+                 ((16, 128, 256, 4), "pair_mask"), ((16, 150, 128, 4), "pair_mask")]
+# head-major (B, H, Tq, Tk, Dh) with a (B, 1, Tq, Tk) bias: the CrossAttention
+# shape, an odd head size with Tq != Tk both ways, head size 128 with Tk
+# off the tiles, and a bias TMA reads (Tk = 128)
+K2_BF16_HEAD_MAJOR = [(16, 4, 150, 64, 64), (8, 3, 20, 150, 9), (4, 2, 70, 130, 128),
+                      (8, 4, 64, 128, 64)]
+# the packed rows with a bias whose rows are 129 values apart (a view of a
+# wider tensor): the kernel reads it per fragment from global memory
+BF16_STRIDED_BIAS = (32, 128, 256, 4)
+
+
+def _plan_of(q, k, v, H=None, bias=None) -> str:
+    """The bf16 core's host plan of a call, for the record: which operands
+    go by TMA and the shared memory."""
+    views = [t if H is None else k2._heads(t, H) for t in (q, k, v)]
+    bias4 = None
+    if bias is not None:
+        B, Hh, Tq, _ = views[0].shape
+        bias4 = bias.expand(B, Hh, Tq, views[1].shape[2])
+    plan = k2.bf16_plan(*views, bias4)
+    return (f"[q/k/v {'TMA' if plan.qkv_tma else 'staged'}, bias "
+            f"{'none' if bias is None else 'TMA' if plan.bias_tma else 'per fragment'}, "
+            f"{plan.smem_bytes} B shared]")
 
 
 def check_bf16_kernels(dev) -> dict:
     """The bf16 forms of K1 (segments, key mask) and K2 (bias + segments,
     bias, key mask + bias, key mask; head-major with Tq != Tk and an odd
-    head size) against their bf16 plain versions, and their gradients."""
+    head size) against their bf16 plain versions, and their gradients; each
+    case prints the host plan it ran under, and both bias paths and both
+    q/k/v paths must have run."""
     worst = {"K1": 0.0, "K2": 0.0}
     tol = dict(atol=BF16_ATOL, rtol=BF16_RTOL)
+    plans = set()
     for shape, form in K1_BF16_CASES:
         q, k, v, km, seg, _, real = _case_inputs(shape, form, dev)
         q, k, v, H = q.to(BF16), k.to(BF16), v.to(BF16), shape[3]
+        plan = _plan_of(q, k, v, H)
         worst["K1"] = max(worst["K1"], _held(
-            f"K1 bf16 vs plain {shape} {form}", k1.btc_attention(q, k, v, H, km, seg),
+            f"K1 bf16 vs plain {shape} {form} {plan}", k1.btc_attention(q, k, v, H, km, seg),
             attention_btc_reference(q, k, v, H, km, seg), real, **tol))
     for shape, form in K2_BF16_CASES:
         q, k, v, km, seg, bias, real = _case_inputs(shape, form, dev)
         q, k, v, H = q.to(BF16), k.to(BF16), v.to(BF16), shape[3]
         for b in (bias, bias.to(BF16)):
+            plan = _plan_of(q, k, v, H, b)
+            plans.add(plan.split(", ")[1])
             worst["K2"] = max(worst["K2"], _held(
-                f"K2 bf16 vs plain {shape} {form} bias {tuple(b.shape)} {b.dtype}",
+                f"K2 bf16 vs plain {shape} {form} bias {tuple(b.shape)} {b.dtype} {plan}",
                 k2.set_attention_btc(q, k, v, H, km, b, seg),
                 attention_btc_reference(q, k, v, H, km, seg, b), real, **tol))
-    for shape in ((16, 4, 150, 64, 64), (8, 3, 20, 150, 9)):
+    for shape in K2_BF16_HEAD_MAJOR:
         q, k, v, km, bias = _head_major_inputs(shape, True, dev)
         q, k, v = q.to(BF16), k.to(BF16), v.to(BF16)
         real = torch.ones(q.shape[:3], dtype=torch.bool, device=dev)
         for name, b in (("key_mask + (B,1,Tq,Tk) bias", bias), ("key_mask", None)):
+            plan = _plan_of(q, k, v, None, b)
+            plans.add(plan.split(", ")[0])
             worst["K2"] = max(worst["K2"], _held(
-                f"K2 bf16 vs plain head-major {shape} {name}",
+                f"K2 bf16 vs plain head-major {shape} {name} {plan}",
                 k2.set_attention(q, k, v, km, b), attention_reference(q, k, v, km, b),
                 real, **tol))
+    q, k, v, _, seg, _, real = _case_inputs(BF16_STRIDED_BIAS, "bias_segments", dev)
+    B, T, C, H = BF16_STRIDED_BIAS
+    wide = torch.randn((B, H, T, T + 1), device=dev)
+    q, k, v, b = q.to(BF16), k.to(BF16), v.to(BF16), wide[..., :T]
+    plan = _plan_of(q, k, v, H, b)
+    plans.add(plan.split(", ")[1])
+    worst["K2"] = max(worst["K2"], _held(
+        f"K2 bf16 vs plain {BF16_STRIDED_BIAS} bias rows {T + 1} apart + segments {plan}",
+        k2.set_attention_btc(q, k, v, H, None, b, seg),
+        attention_btc_reference(q, k, v, H, None, seg, b), real, **tol))
+    paths = {"[q/k/v TMA", "[q/k/v staged", "bias TMA", "bias per fragment"}
+    if not paths <= plans:
+        raise AssertionError(f"the bf16 checks ran the paths {sorted(plans)}, not all of "
+                             f"{sorted(paths)}")
     grad_tol = dict(atol=BF16_GRAD_ATOL, rtol=BF16_GRAD_RTOL)
     q, k, v, _, seg, _, _ = _case_inputs(TRAIN_K1_GRAD_SHAPE, "segments", dev, seed=4)
     up = torch.randn(q.shape, device=dev)
@@ -2436,16 +2539,18 @@ def _cuobjdump() -> str:
     return found or str(Path(cuda_build._nvcc()).with_name("cuobjdump"))
 
 
-def _hmma_count(so: Path) -> int:
-    """Tensor-core (HMMA) instructions in a library's device code."""
+def _tensor_core_counts(so: Path) -> dict:
+    """Tensor-core instructions in a library's device code: HMMA
+    (`mma.sync`, the fp32 forms) and HGMMA (`wgmma`, the bf16 forms)."""
     sass = subprocess.run([_cuobjdump(), "-sass", str(so)], capture_output=True, text=True,
-                          check=True).stdout
-    return sum("HMMA" in line for line in sass.splitlines())
+                          check=True).stdout.splitlines()
+    return {op: sum(f" {op}." in line for line in sass) for op in ("HMMA", "HGMMA")}
 
 
-def _build_all():
+def _build_all() -> dict:
     """Build both kernels at once, one nvcc each; print the reports and
-    each library's HMMA count, and fail if one has none."""
+    each library's HMMA and HGMMA counts, and fail if one has none of
+    either.  Returns the build seconds by kernel."""
     def timed(mod):
         t0 = time.perf_counter()
         mod.build()
@@ -2458,10 +2563,13 @@ def _build_all():
         log = mod.library_path().with_suffix(".log")
         if log.exists():
             print(log.read_text().strip())
-        hmma = _hmma_count(mod.library_path())
-        print(f"{name}: {hmma} HMMA instructions in {mod.library_path().name}")
-        if hmma == 0:
-            raise AssertionError(f"{name} has no tensor-core instruction")
+        counts = _tensor_core_counts(mod.library_path())
+        print(f"{name}: {counts['HMMA']} HMMA (mma.sync, fp32) and {counts['HGMMA']} HGMMA "
+              f"(wgmma, bf16) instructions in {mod.library_path().name}")
+        if not (counts["HMMA"] and counts["HGMMA"]):
+            raise AssertionError(f"{name} lacks the tensor-core instructions of one of its "
+                                 f"forms: {counts}")
+    return {"K1": seconds[0], "K2": seconds[1]}
 
 
 def main() -> None:
@@ -2474,8 +2582,9 @@ def main() -> None:
     dev = torch.device("cuda:0")
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    _build_all()
-    err = {"K1": check_k1(dev), "K2": max(check_k2(dev), check_k2_gpt(dev))}
+    build_s = _build_all()
+    err = {"K1": check_k1(dev),
+           "K2": max(check_k2(dev), check_k2_gpt(dev), check_k2_causal(dev))}
     bf16_err = check_bf16_kernels(dev)
     times = time_kernels(dev)
     bf16_times = time_bf16_kernels(dev)
@@ -2607,7 +2716,7 @@ def main() -> None:
          "launches_cli_sampling": _total(cli_sample_launches["K1"]),
          "launches_mesh_forward": {k: v["forward_k1_launches"]
                                    for k, v in mesh["layouts"].items()},
-         "max_abs_err": err["K1"], **timed("K1"),
+         "max_abs_err": err["K1"], "build_s": build_s["K1"], **timed("K1"),
          "launches_bf16_sampling": bf16["sampling"]["launches_k1"],
          "launches_bf16_training": bf16["launches_training"],
          "max_abs_err_bf16": bf16_err["K1"], **timed("K1", bf16_times, "_bf16"),
@@ -2624,8 +2733,9 @@ def main() -> None:
          "launches_epic": _total(epic_launches["K2"]) + _total(epic_train_launches["K2"]),
          "launches_cli": _total(cli_train_launches["K2"]) + _total(cli_sample_launches["K2"]),
          "launches_gpt_training": _total(gpt_train_launches["K2"]),
+         "launches_gpt_training_by_form": gpt_train_launches["K2"],
          "launches_gpt_sampling": _total(gpt_sample_launches["K2"]),
-         "max_abs_err": err["K2"], **timed("K2"),
+         "max_abs_err": err["K2"], "build_s": build_s["K2"], **timed("K2"),
          "launches_bf16_sampling": bf16["coocc_launches"],
          "launches_bf16_training": bf16["coocc_launches_training"],
          "max_abs_err_bf16": bf16_err["K2"], **timed("K2", bf16_times, "_bf16"),

@@ -23,8 +23,9 @@
 // 128-lane MXU (an H*T x H*T score matrix with a block penalty); on Hopper
 // that is H times the work, so it is not carried over.
 // bf16 (`btc_attention_bf16_fwd`): q/k/v/out (B, T, C) bf16, the core's
-// bf16 path (one bf16 mma.sync pass per product, fp32 scores and softmax,
-// P rounded to bf16): half the bytes, 33.5 MB at C = 256, 10 us.
+// bf16 path (a block's TMA loads in flight together, `wgmma` products,
+// fp32 scores and softmax, P rounded to bf16): half the bytes, 33.5 MB at
+// C = 256, 10 us.
 // Limits: T <= 256, hs <= 128 (the wrapper raises beyond them).
 
 #include "set_attention_core.cuh"
@@ -50,11 +51,13 @@ extern "C" int btc_attention_fwd(const float* q, const float* k, const float* v,
 }
 
 // The bf16 form: q, k, v and out are __nv_bfloat16 (B, T, C), the key mask
-// fp32; otherwise as btc_attention_fwd.
+// fp32; otherwise as btc_attention_fwd.  The host's plan: `qkv_tma` (q, k
+// and v by TMA) and `smem` (the launch's shared memory, as
+// core::bf16_smem counts it).
 extern "C" int btc_attention_bf16_fwd(const void* q, const void* k, const void* v,
                                       const float* key_mask, const int* segments, void* out,
-                                      int B, int T, int C, int n_head, float scale,
-                                      void* stream) {
+                                      int B, int T, int C, int n_head, float scale, int qkv_tma,
+                                      int smem, void* stream) {
   if (B <= 0 || T <= 0 || T > core::kMaxT || n_head <= 0 || C % n_head != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -66,8 +69,9 @@ extern "C" int btc_attention_bf16_fwd(const void* q, const void* k, const void* 
                               static_cast<const bf16*>(v), s, key_mask, nullptr,
                               core::Strides{0, 0, 0, 0}, segments, static_cast<bf16*>(out), s,
                               T, T, hs, scale};
-  return segments != nullptr ? core::launch<false, true>(p, B, n_head, stream)
-                             : core::launch<false, false>(p, B, n_head, stream);
+  return segments != nullptr
+             ? core::launch_bf16<false, true>(p, B, n_head, qkv_tma, 0, smem, stream)
+             : core::launch_bf16<false, false>(p, B, n_head, qkv_tma, 0, smem, stream);
 }
 
 extern "C" const char* btc_attention_error_string(int code) {

@@ -34,8 +34,13 @@
 // grid runs in order) and is not carried over.
 // bf16 (`set_attention_bf16_fwd`): q, k, v and out bf16 with the same
 // strides, the bias fp32 or bf16 (a bf16 bias halves its 33.5 MB), the
-// core's bf16 path (one bf16 mma.sync pass per product, fp32 scores and
-// softmax, P rounded to bf16).
+// core's bf16 path (a block's TMA loads in flight together, `wgmma` products,
+// fp32 scores and softmax, P rounded to bf16), the bias through shared
+// memory where TMA can read it.
+// Causal (`set_attention_causal_fwd`, GPT's full forward): the fp32 path
+// with the causal term computed in the kernel instead of a (1, 1, T, T)
+// bias read from memory, and the key tiles past each warp's last query
+// skipped: the same scores the bias form computes, half its tiles.
 // Limits: Tq, Tk <= 256, Dh <= 128 (the wrapper raises beyond them).
 
 #include "set_attention_core.cuh"
@@ -76,12 +81,31 @@ extern "C" int set_attention_fwd(const float* q, const float* k, const float* v,
                              : core::launch<true, false>(p, B, H, stream);
 }
 
+// The causal form: q, k, v and out (B, H, T, Dh) fp32 given by 16 element
+// strides (q, k, v, out), key_mask (B, T) or null; Tq == Tk == T, no bias,
+// no segments.  Returns the launch's cudaError_t.
+extern "C" int set_attention_causal_fwd(const float* q, const float* k, const float* v,
+                                        const float* key_mask, float* out,
+                                        const long long* strides, int B, int H, int T, int hs,
+                                        float scale, void* stream) {
+  if (B <= 0 || H <= 0 || T <= 0 || T > core::kMaxT || hs <= 0 || hs > core::kMaxHs) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const core::Params p{q,       strides_at(strides),      k,        strides_at(strides + 4),
+                       v,       strides_at(strides + 8),  key_mask, nullptr,
+                       core::Strides{0, 0, 0, 0},         nullptr,  out,
+                       strides_at(strides + 12),          T,        T,
+                       hs,      scale};
+  return core::launch<false, false, true>(p, B, H, stream);
+}
+
 namespace {
 
 template <typename BiasT>
 int launch_bf16(const void* q, const void* k, const void* v, const float* key_mask,
                 const BiasT* bias, const int* segments, void* out, const long long* strides,
-                int B, int H, int Tq, int Tk, int hs, float scale, void* stream) {
+                int B, int H, int Tq, int Tk, int hs, float scale, int qkv_tma, int bias_tma,
+                int smem, void* stream) {
   using core::bf16;
   const core::ParamsT<bf16, BiasT> p{static_cast<const bf16*>(q), strides_at(strides),
                                      static_cast<const bf16*>(k), strides_at(strides + 4),
@@ -92,22 +116,28 @@ int launch_bf16(const void* q, const void* k, const void* v, const float* key_ma
                                      Tq,                           Tk,
                                      hs,                           scale};
   if constexpr (std::is_same_v<BiasT, float>) {  // the bias-free form, once
-    if (bias == nullptr) return core::launch<false, false>(p, B, H, stream);
+    if (bias == nullptr) {
+      return core::launch_bf16<false, false>(p, B, H, qkv_tma, 0, smem, stream);
+    }
   }
-  return segments != nullptr ? core::launch<true, true>(p, B, H, stream)
-                             : core::launch<true, false>(p, B, H, stream);
+  return segments != nullptr
+             ? core::launch_bf16<true, true>(p, B, H, qkv_tma, bias_tma, smem, stream)
+             : core::launch_bf16<true, false>(p, B, H, qkv_tma, bias_tma, smem, stream);
 }
 
 }  // namespace
 
 // The bf16 form: q, k, v and out are __nv_bfloat16, the bias __nv_bfloat16
 // when `bias_bf16` is nonzero and fp32 otherwise, the key mask fp32;
-// otherwise as set_attention_fwd.
+// otherwise as set_attention_fwd.  The host's plan: `qkv_tma` (q, k and v
+// by TMA), `bias_tma` (the bias by TMA) and `smem` (the launch's shared
+// memory, as core::bf16_smem counts it).
 extern "C" int set_attention_bf16_fwd(const void* q, const void* k, const void* v,
                                       const float* key_mask, const void* bias, int bias_bf16,
                                       const int* segments, void* out,
                                       const long long* strides, int B, int H, int Tq, int Tk,
-                                      int hs, float scale, void* stream) {
+                                      int hs, float scale, int qkv_tma, int bias_tma, int smem,
+                                      void* stream) {
   if (B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0 || Tq > core::kMaxT || Tk > core::kMaxT ||
       hs <= 0 || hs > core::kMaxHs ||
       (segments != nullptr && (Tq != Tk || bias == nullptr))) {
@@ -115,10 +145,10 @@ extern "C" int set_attention_bf16_fwd(const void* q, const void* k, const void* 
   }
   if (bias != nullptr && bias_bf16) {
     return launch_bf16(q, k, v, key_mask, static_cast<const core::bf16*>(bias), segments, out,
-                       strides, B, H, Tq, Tk, hs, scale, stream);
+                       strides, B, H, Tq, Tk, hs, scale, qkv_tma, bias_tma, smem, stream);
   }
   return launch_bf16(q, k, v, key_mask, static_cast<const float*>(bias), segments, out,
-                     strides, B, H, Tq, Tk, hs, scale, stream);
+                     strides, B, H, Tq, Tk, hs, scale, qkv_tma, bias_tma, smem, stream);
 }
 
 extern "C" const char* set_attention_error_string(int code) {

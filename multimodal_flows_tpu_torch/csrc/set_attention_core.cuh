@@ -5,85 +5,95 @@
 // `_xla_attention_btc` (multimodal_flows_tpu/ops/attention.py:158-193):
 //   s_j   = (q[b,h,i] . k[b,h,j]) * scale
 //   s_j  += key_mask[b,j]                        (optional, (B, Tk) fp32)
-//   s_j  += bias[b,h,i,j]                        (kBias, fp32, strided)
+//   s_j  += bias[b,h,i,j]                        (kBias, fp32 or bf16, strided)
+//   s_j  += (j > i ? -1e9 : 0)                   (kCausal, Tq == Tk, no bias)
 //   s_j   = -1e9 where segments[b,i] != segments[b,j]   (kSeg, Tq == Tk)
 //   out[b,h,i] = sum_j softmax_j(s) v[b,h,j]     (exact softmax, fp32)
 // q, k, v, the bias and the output are each a pointer and four element
 // strides of a (B, H, T, D) view; a zero bias stride broadcasts.
 //
-// What bounds set attention on this card.  At the packed-row batch
-// (B = 128 rows x T = 128 tokens, H = 4) one call moves 67 MB of q/k/v/out
-// at C = 256, plus 33.5 MB of (B, H, T, T) bias in K2: about 30 us at
-// 3.35 TB/s (20 us without the bias).  Its 2.15 GFLOP take 13 us at the
-// TF32 tensor-core rate with three products per multiply.  The first
-// kernels of the port (one key per lane, scalar FMAs) were bound by the
-// shared-memory loads that fed the FMAs (5 loads for 4 FMAs) and ran at
-// 0.22-0.45 ms, 10-20x above both floors.
-//
-// What the design does about it.
+// fp32 q/k/v: `attention_kernel`.  At the packed-row batch (B = 128 rows x
+// T = 128 tokens, H = 4) one call moves 67 MB of q/k/v/out at C = 256,
+// plus 33.5 MB of (B, H, T, T) bias in K2: about 30 us at 3.35 TB/s.  Its
+// 2.15 GFLOP take 13 us at the TF32 tensor-core rate with three products
+// per multiply.  The design:
 //   - Tensor cores at fp32 accuracy: `mma.sync.m16n8k8` in TF32 with the
 //     3xTF32 split.  Every fp32 operand is split once, when it is staged,
 //     into hi = tf32(x) and lo = tf32(x - hi); each product is
 //     lo*hi + hi*lo + hi*hi, summed in fp32 (error near 1e-6 at these
-//     depths, against about 1e-3 for plain TF32).  This holds for Q K^T
-//     and for P V.  The head size is padded to a multiple of 8 with zeros.
-//     `wgmma` is left for bf16: its TF32 form wants K-major operands in
-//     shared memory (V transposed) and 64-row tiles per warpgroup.
+//     depths, against about 1e-3 for plain TF32), for Q K^T and for P V.
 //   - A block is one (row b, head h, tile of 64 queries), 4 warps of 16
-//     query rows.  Each warp keeps its q fragments (hi and lo) in
-//     registers.  K and V pass in tiles of 32 keys through a double-
-//     buffered ring in shared memory, loaded with 16-byte `cp.async` where
-//     the strides allow and 4-byte `cp.async` where they do not (odd head
-//     sizes, head-major views with Dh % 4 != 0); the next tile's load
-//     overlaps the current tile's split and MMAs.  Out-of-range keys and
-//     padded dims are zero-filled by the copy.  Shared rows are padded to
-//     Dpad + 4 floats, so the fragment loads of K and of V hit 32 banks.
-//     Shared memory does not grow with Tk (beyond 8 bytes a key for the
-//     key mask and the segment ids).
-//   - Softmax online (flash-style), in the accumulator layout: a running
-//     max and sum per query row, the output rescaled when the max grows,
-//     one division at the end.  Masked scores are -1e9 (finite) as in the
-//     plain version, so exp() gives exactly the zeros the two-pass softmax
-//     gives, and rows whose every score is -1e9 + bias stay finite.
-//   - Cross-jet key tiles are skipped under segments.  Each warp knows the
-//     min and max segment id of its queries, each key tile those of its
-//     keys, both without the pads' id -1, which is a flag of its own (so
-//     the pads at a row's end do not widen the last tile to every jet).  A
-//     tile is skipped by a warp when the intervals are disjoint and they do
-//     not both hold pads, and not loaded at all when every warp skips it.
-//     In a skipped tile every pair is cross-segment, so each probability
-//     in it is exactly 0 in fp32 for a query that has an unmasked
-//     same-segment key: every query has one, itself (Tq == Tk), and the
-//     tile holding it is never skipped.  The test holds for any ids,
-//     contiguous or not, pads included.  In K2 the bias of a skipped tile
-//     is never read.
-//   - The bias is read per accumulator fragment (two adjacent keys per
-//     thread, a float2 where the key stride is 1 and the row is 8-byte
-//     aligned), issued before the tile's MMAs.  Staging it through shared
-//     memory with the K tile was not measured; K2 costs 4-13 us a call
-//     more than K1 at the packed-row shapes (PERF.md).
+//     query rows, each keeping its q fragments (hi and lo) in registers.
+//     K and V pass in tiles of 32 keys through a double-buffered ring in
+//     shared memory, loaded with 16-byte `cp.async` where the strides allow
+//     and 4-byte `cp.async` where they do not; rows padded to Dpad + 4
+//     floats, so the fragment loads hit 32 banks.
+//   - Softmax online (flash-style) in the accumulator layout; masked scores
+//     are -1e9 (finite) as in the plain version.
+//   - Key tiles are skipped where no query of a warp can attend to them,
+//     and not loaded where no warp of the block can.  Under segments: each
+//     warp knows the min and max segment id of its queries, each key tile
+//     those of its keys, both without the pads' id -1, which is a flag of
+//     its own; a tile is skipped when the intervals are disjoint and they
+//     do not both hold pads.  Under kCausal (GPT's full forward): a tile is
+//     skipped when its first key lies past the warp's last query, and a
+//     warp whose rows all lie at or past Tq skips every tile; no bias is
+//     read, the causal term is added where the bias form adds the bias.
+//     Either way every pair of a skipped tile would score -1e9 plus a small
+//     term, so each of its probabilities is exactly 0 in fp32 for a query
+//     that keeps one unmasked key of its own: every query does, itself
+//     (Tq == Tk), and the tile holding it is never skipped.  At GPT's
+//     T = 152 the causal form computes 30 of the 60 warp tiles of the bias
+//     form and loads 11 of its 15 block tiles.  Its time follows the block
+//     tiles (the staging, the 3xTF32 split and the barriers of each), not
+//     the warp products; its blocks start with the last query tile, the
+//     longest (4% faster than in order on the card).
+//   - The bias (kBias) is read per accumulator fragment from global memory.
 //
-// The element type is a template parameter.  fp32 q/k/v take the path
-// above.  bf16 q/k/v (the encoders' compute_dtype="bfloat16") take
-// `attention_kernel_bf16`: the same blocks, tiles, tile skipping and online
-// softmax, with
-//   - bf16 Q, K and V tiles staged by 16-byte `cp.async` (8 values a
-//     copy) into rows padded to Dpad + 8 values (Dpad = the head size
-//     rounded up to 16), so that the fragment loads hit 32 banks;
-//   - one `mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32` pass per
-//     product (no split: the products of two bf16 values are exact in
-//     fp32 and summed in fp32, the `preferred_element_type=float32` of the
-//     JAX package's bf16 einsums);
-//   - the scores, the key mask, the bias (fp32 or bf16, the `BiasT`
-//     parameter) and the online softmax in fp32 registers; P rounded to
-//     bf16 for the P V product (the plain version rounds the normalised
-//     probabilities, this kernel the unnormalised ones before the final
-//     division: the same relative rounding), V's fragments read with
-//     `ldmatrix.trans` from the row-major tile;
-//   - the output written in bf16.
-// It moves half the bytes of the fp32 path and does one tensor-core pass
-// where the fp32 path does three.  `wgmma` (64-row warpgroup products from
-// shared memory) is left for a later change.
+// bf16 q/k/v (the encoders' compute_dtype="bfloat16"): `attention_kernel_bf16`.
+// What bounds it here is not its bytes (33.5 MB at C = 256 without a bias,
+// 10 us) but the chain of round trips of a small block: with Tk <= 256 a
+// block has at most 8 key tiles of 32, and the earlier mma.sync design
+// waited for Q, then for each K/V tile (`cp.async.wait_group 0` and a
+// barrier), then read the bias of the tile from global memory into
+// registers: 4.4-6.3x above its byte bound, slower than one
+// `scaled_dot_product_attention` call.  The design:
+//   - One block is (row b, 64 queries, head h): one warpgroup of 4 warps,
+//     the 64 rows of a `wgmma` tile.  Its loads are in flight together: the
+//     first thread issues TMA loads (`cp.async.bulk.tensor.4d` with a
+//     tensor map) of Q and of the K/V tiles of 64 keys, with the bias block
+//     beside each tile, each key tile completing on its own `mbarrier`,
+//     while the threads read the key mask and the segment ids.  With
+//     Tk <= 256 and head size <= 128 the whole row fits in shared memory
+//     (at most 217 KB), so the ring of key tiles never wraps and no tile
+//     waits for another's consumer.  The block computes as tiles land.
+//   - Under segments only the key tiles whose interval of ids meets the
+//     block's 64 queries (the test above, on the warpgroup's rows) are
+//     loaded, once the ids are in: measured against loading every tile at
+//     once, 2-3% faster for K1 and level for K2 at the packed rows.
+//   - Q, K and V land in the swizzled K-major layout that `wgmma` reads
+//     (128-byte swizzle, 64-byte at head size <= 32, head dims past the
+//     head size zero-filled by the tensor map's bounds).  S = Q K^T is
+//     `wgmma.m64n64k16` with both operands in shared memory; P V is
+//     `wgmma.m64nDk16` with P from registers (rounded to bf16 in the
+//     accumulator-to-A layout, as before) and V in shared memory read
+//     MN-major through the transpose bit.  Scores and softmax stay fp32.
+//   - The bias block of a key tile (64 queries x 64 keys) lands by TMA
+//     in boxes of 128-byte rows, swizzled, where the bias's key stride is
+//     1 and its row stride and base meet TMA's 16-byte rules (the
+//     co-occurrence (B,H,T,T) bias and the pair biases at T % 4 == 0; a
+//     zero stride is a dimension of size 1); the fragments read it from
+//     there.  Other biases (T = 150: rows of 600 bytes) are read per
+//     fragment from global memory, as in the fp32 path.
+//   - q/k/v whose strides miss TMA's rules (odd head sizes) are staged by
+//     the block's threads into the same swizzled layout.
+//   - The output goes through shared memory to 16-byte stores.
+//   The measured alternative that lost: two warpgroups a block (one block
+//   per (row, head) at T = 128, the K/V tiles shared), K2 4-6% slower and
+//   K1 within 4% (PERF.md).
+// The host side plans the call (`ops/set_attention.py:bf16_plan`): which
+// operands go by TMA, and the shared memory, which the entry checks
+// against `bf16_smem`.
 // Limits: Tq, Tk <= 256, head size <= 128 (the entry points refuse more).
 
 #pragma once
@@ -93,6 +103,7 @@
 
 #include <type_traits>
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -295,15 +306,15 @@ __device__ __forceinline__ void needed_tiles(const int* sg, int Tq, int Tk, int 
   }
 }
 
-// The bias of the warp's accumulator fragments for the key tile at key0:
-// two adjacent keys a thread, read as one pair where `vec` (key stride 1,
-// rows aligned to two values), 0 past Tq or Tk.
-template <typename BiasT>
-__device__ __forceinline__ void load_bias(float (&bias_v)[4][4], const BiasT* bb,
+// The bias of the warp's accumulator fragments for the key tile at key0
+// (kNB blocks of 8 keys): two adjacent keys a thread, read as one pair
+// where `vec` (key stride 1, rows aligned to two values), 0 past Tq or Tk.
+template <typename BiasT, int kNB>
+__device__ __forceinline__ void load_bias(float (&bias_v)[kNB][4], const BiasT* bb,
                                           const Strides& sb, const int (&rows)[2], int Tq,
                                           int Tk, int key0, int c, bool vec) {
 #pragma unroll
-  for (int n = 0; n < 4; ++n) {
+  for (int n = 0; n < kNB; ++n) {
     const int j = key0 + 8 * n + 2 * c;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -329,20 +340,20 @@ __device__ __forceinline__ void load_bias(float (&bias_v)[4][4], const BiasT* bb
 }
 
 // One key tile of the online softmax, in the accumulator layout: the raw
-// scores `s` of the warp's 16 rows against the tile's 32 keys become the
-// unnormalised probabilities exp(score - running max), after the scale,
-// the key mask, the bias and the segment test; the running max `m`, the
-// thread's part of each row's sum `l` and the output accumulators `o` are
-// rescaled when the max grows.
-template <bool kBias, bool kSeg, int kOut>
-__device__ __forceinline__ void softmax_tile(float (&s)[4][4], const float (&bias_v)[4][4],
+// scores `s` of the warp's 16 rows (`rows`) against the tile's 8 * kNB keys
+// become the unnormalised probabilities exp(score - running max), after
+// the scale, the key mask, the bias or the causal term and the segment
+// test; the running max `m`, the thread's part of each row's sum `l` and
+// the output accumulators `o` are rescaled when the max grows.
+template <bool kBias, bool kSeg, bool kCausal, int kNB, int kOut>
+__device__ __forceinline__ void softmax_tile(float (&s)[kNB][4], const float (&bias_v)[kNB][4],
                                              const float* km, const int* sg,
-                                             const int (&seg_row)[2], int key0, int Tk, int c,
-                                             float scale, float (&m)[2], float (&l)[2],
-                                             float (&o)[kOut][4]) {
+                                             const int (&seg_row)[2], const int (&rows)[2],
+                                             int key0, int Tk, int c, float scale, float (&m)[2],
+                                             float (&l)[2], float (&o)[kOut][4]) {
   float tile_max[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-  for (int n = 0; n < 4; ++n) {
+  for (int n = 0; n < kNB; ++n) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int r = e >> 1;
@@ -351,6 +362,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[4][4], const float (&bia
       if (j < Tk) {
         x = s[n][e] * scale + km[j];
         if constexpr (kBias) x += bias_v[n][e];
+        if constexpr (kCausal) x += j > rows[r] ? kNeg : 0.f;  // the bias form's causal bias
         if constexpr (kSeg) {
           if (sg[j] != seg_row[r]) x = kNeg;
         }
@@ -368,7 +380,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[4][4], const float (&bia
     l[r] *= alpha[r];
   }
 #pragma unroll
-  for (int n = 0; n < 4; ++n) {
+  for (int n = 0; n < kNB; ++n) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       s[n][e] = expf(s[n][e] - m[e >> 1]);
@@ -391,7 +403,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[4][4], const float (&bia
 // that A column c is key 2c and column c + 4 key 2c + 1: P then goes from
 // the score accumulator to the A operand with no shuffle, and V's B
 // fragment reads keys 2c and 2c + 1.
-template <int kMaxD, bool kBias, bool kSeg>
+template <int kMaxD, bool kBias, bool kSeg, bool kCausal>
 __global__ void __launch_bounds__(kThreads) attention_kernel(const Params p) {
   constexpr int kSteps = kMaxD / 8;  // 8-wide steps over the head dims
   extern __shared__ __align__(16) float smem[];
@@ -424,7 +436,8 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(const Params p) {
   float* ob = p.out + b * p.so.b + h * p.so.h;
 
   // the query tile, the key mask and the segment ids, all in flight at once
-  const int q0 = blockIdx.y * kQTile;
+  // (the causal form takes its longest query tiles, the last, first)
+  const int q0 = (kCausal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * kQTile;
   if (p.sq.d == 1 && p.sq.t % 4 == 0 && hs % 4 == 0 && aligned(qb, 16)) {
     stage_rows<kQTile, 4>(qs, stride, qb, p.sq.t, p.sq.d, q0, Tq, hs, dpad);
   } else {
@@ -456,6 +469,12 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(const Params p) {
   // the key tiles this warp, and the block, need
   uint32_t need_warp, need_block;
   needed_tiles<kSeg>(sg, Tq, Tk, q0, warp, lane, need_warp, need_block);
+  if constexpr (kCausal) {  // the tiles up to the last query row's tile
+    const int first = q0 + warp * kRowsPerWarp;
+    const int last = min(first + kRowsPerWarp, Tq) - 1;
+    need_warp = first < Tq ? (2u << (last / kKTile)) - 1u : 0u;
+    need_block = (2u << ((min(q0 + kQTile, Tq) - 1) / kKTile)) - 1u;
+  }
 
   const bool k_vec = p.sk.d == 1 && p.sk.t % 4 == 0 && hs % 4 == 0 && aligned(kb, 16);
   const bool v_vec = p.sv.d == 1 && p.sv.t % 4 == 0 && hs % 4 == 0 && aligned(vb, 16);
@@ -524,7 +543,8 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(const Params p) {
         }
       }
 
-      softmax_tile<kBias, kSeg>(s, bias_v, km, sg, seg_row, key0, Tk, c, p.scale, m, l, o);
+      softmax_tile<kBias, kSeg, kCausal>(s, bias_v, km, sg, seg_row, rows, key0, Tk, c, p.scale,
+                                         m, l, o);
 
       // P V: 8 keys at a time, P straight from the score accumulator
 #pragma unroll
@@ -561,29 +581,258 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(const Params p) {
   }
 }
 
-// The bf16 path (see the header): one block is (row b, 64 queries, head h)
-// as in `attention_kernel`, 4 warps of 16 query rows.  Fragment layouts of
-// mma.m16n8k16 (g = lane / 4, c = lane % 4): A holds rows g, g + 8 and
-// columns 2c, 2c + 1 (registers 0, 1) and 2c + 8, 2c + 9 (registers 2, 3);
-// B holds rows (k) 2c, 2c + 1 and 2c + 8, 2c + 9 of column g; the
-// accumulator is that of m16n8k8.  For P V, P's A fragment for 16 keys is
-// the score accumulators of its two 8-key column tiles, rounded in pairs.
+// ---------------------------------------------------------------- bf16
+//
+// The bf16 path (see the header).  Fragment layouts: the accumulator of
+// `wgmma.m64nN` gives warp w of the warpgroup rows 16w + g and 16w + g + 8
+// (g = lane / 4, c = lane % 4) and, in each block of 8 columns, columns 2c
+// and 2c + 1, registers [n][0..1] and [n][2..3]: the layout of mma.m16n8.
+// The A operand from registers is that of mma.m16n8k16 per warp: rows g,
+// g + 8, columns 2c, 2c + 1 (registers 0, 1) and 2c + 8, 2c + 9 (2, 3).  So
+// P's A fragment for 16 keys is the score accumulators of its two 8-key
+// blocks, rounded in pairs.
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+constexpr int kTileRows = 64;                      // query rows of a block, keys of a tile
+constexpr int kBiasBoxBytes = kTileRows * 128;     // a bias box: 64 rows of 128 bytes
+constexpr int kScratchInts = 32;                   // the segment intervals
+
+__host__ __device__ constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
+
+// Byte offsets of the bf16 kernel's shared memory from a 1024-aligned base,
+// for head sizes up to `dmax` (32, 64 or 128), Tk keys and `bias_tile`
+// bytes of bias staged a key tile (0 where the bias is read from global
+// memory or absent); `total` is what the launch asks for, 1024 bytes of
+// slack for the alignment included.  ops/set_attention.py:bf16_plan
+// computes the same numbers.
+struct Bf16Smem {
+  int q, k, v, bias, km, sg, scratch, bar, total;
+};
+
+__host__ __device__ inline Bf16Smem bf16_smem(int dmax, int Tk, int bias_tile) {
+  const int tile = kTileRows * dmax * 2;            // 64 rows of Q, K or V
+  const int out = kTileRows * (dmax + 8) * 2;       // the output's staging rows
+  const int n_tiles = (Tk + kTileRows - 1) / kTileRows;
+  Bf16Smem s{};
+  s.q = 0;
+  s.k = round_up(tile > out ? tile : out, 1024);
+  s.v = s.k + n_tiles * tile;
+  s.bias = s.v + n_tiles * tile;
+  s.km = s.bias + n_tiles * bias_tile;
+  s.sg = s.km + 4 * Tk;
+  s.scratch = s.sg + 4 * Tk;
+  s.bar = round_up(s.scratch + 4 * kScratchInts, 8);
+  s.total = s.bar + 8 * (1 + n_tiles) + 1024;
+  return s;
 }
 
-// four 8x8 bf16 matrices from shared memory, transposed: lane l gives the
-// address of row l % 8 of matrix l / 8
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* row) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(row));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The byte offset `off` (from a 1024-aligned base) as TMA's 128-byte or
+// 64-byte swizzle places it: bits 4-6 (4-5) XOR bits 7-9 (7-8).
+template <int kSwBytes>
+__device__ __forceinline__ uint32_t swizzle(uint32_t off) {
+  return off ^ (((off >> 7) & (kSwBytes == 128 ? 7u : 3u)) << 4);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+// arrive on `bar`, expecting `bytes` of TMA transactions in its phase
+__device__ __forceinline__ void mbar_arrive_tx(uint32_t bar, uint32_t bytes) {
+  if (bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+                 "r"(bytes)
+                 : "memory");
+  } else {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+  }
+}
+
+// wait for the phase `parity` of `bar` to complete; a phase that has not
+// completed after about 2^32 cycles (2 s) is a fault, and traps
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  long long start = 0;
+  for (int spin = 0;; ++spin) {
+    uint32_t done;
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.b32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (spin == 0) start = clock64();
+    else if (clock64() - start > (1ll << 32)) __trap();
+  }
+}
+
+// one 4-d box of `map` at (c0, c1, c2, c3) into shared memory at `dst`,
+// completing on `bar`
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// generic-proxy writes to shared memory, made visible to TMA and wgmma
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Matrix descriptors of `wgmma` for the swizzled layouts TMA writes
+// (start address, leading / stride byte offsets in 16-byte units, layout
+// 1 = 128-byte swizzle, 2 = 64-byte).  K-major: rows of kSwBytes, 8-row
+// groups 8 * kSwBytes apart (the leading offset is unused).  MN-major: 8
+// rows of K kSwBytes apart, 8-row groups 8 * kSwBytes apart, atoms of
+// kSwBytes along MN `atom_stride` bytes apart.
+template <int kSwBytes>
+__device__ __forceinline__ uint64_t desc_k_major(uint32_t addr) {
+  constexpr uint64_t layout = kSwBytes == 128 ? 1 : 2;
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(8 * kSwBytes >> 4) << 32) | (layout << 62);
+}
+
+template <int kSwBytes>
+__device__ __forceinline__ uint64_t desc_mn_major(uint32_t addr, uint32_t atom_stride) {
+  constexpr uint64_t layout = kSwBytes == 128 ? 1 : 2;
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(atom_stride >> 4) << 16) |
+         (static_cast<uint64_t>(8 * kSwBytes >> 4) << 32) | (layout << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keep the compiler from moving accesses of registers that an in-flight
+// wgmma writes across the fence, wait or commit around it
+template <int kN>
+__device__ __forceinline__ void fence_regs(float (&d)[kN][4]) {
+#pragma unroll
+  for (int n = 0; n < kN; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[n][e])::"memory");
+  }
+}
+
+// d (64 x 64, fp32) = A (64 x 16, K-major in shared memory) B (16 x 64, K-major), plus d
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[8][4], uint64_t desc_a, uint64_t desc_b,
+                                             int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d (64 x 32, fp32) = A (64 x 16 bf16, registers) B (16 x 32, MN-major in shared memory)
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[4][4], const uint32_t (&a)[4],
+                                            uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// d (64 x 64, fp32) = A (64 x 16 bf16, registers) B (16 x 64, MN-major in shared memory)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[8][4], const uint32_t (&a)[4],
+                                            uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// d (64 x 128, fp32) = A (64 x 16 bf16, registers) B (16 x 128, MN-major in shared memory)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[16][4], const uint32_t (&a)[4],
+                                            uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+template <int kN>
+__device__ __forceinline__ void wgmma_rs(float (&d)[kN][4], const uint32_t (&a)[4],
+                                         uint64_t desc_b) {
+  if constexpr (kN == 4) wgmma_rs_n32(d, a, desc_b, 1);
+  else if constexpr (kN == 8) wgmma_rs_n64(d, a, desc_b, 1);
+  else wgmma_rs_n128(d, a, desc_b, 1);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -591,121 +840,191 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&x);
 }
 
-__device__ __forceinline__ uint32_t ld_shared_u32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Stage rows j0..j0+kRows-1 of one (T, D) bf16 view into a tile of
-// `stride` values a row, dims >= hs and rows >= T as zeros: 16-byte
-// cp.async (8 values) when `vec`, else value by value (odd head sizes,
-// strided views), which the caller's wait and barrier cover alike.
-template <int kRows>
-__device__ __forceinline__ void stage_rows_bf16(bf16* dst, int stride, const bf16* src,
-                                                long long st, long long sd, int j0, int T,
-                                                int hs, int dpad, bool vec) {
-  if (vec) {
-    const int shift = unit_shift<8>(dpad);
-    const int d = (threadIdx.x & ((1 << shift) - 1)) * 8;
-    if (d >= dpad) return;
-    for (int r = threadIdx.x >> shift; r < kRows; r += kThreads >> shift) {
-      const int j = j0 + r;
-      const bool ok = d < hs && j < T;
-      const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst + r * stride + d));
-      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-                   "l"(ok ? src + j * st + d : src), "r"(ok ? 16 : 0)
-                   : "memory");
+// The key tiles of 64 that the block's 64 query rows at q0 need: every
+// tile, or under segments (kSeg) the tiles whose interval of segment ids
+// meets the rows', or that hold pads when the rows do (the test of
+// `needed_tiles`, on the warpgroup's rows).  Every thread calls it and gets
+// the same mask; `sg` holds the Tk segment ids in shared memory.
+template <bool kSeg>
+__device__ __forceinline__ uint32_t needed_tiles_wg(const int* sg, int Tq, int Tk, int q0,
+                                                    int* scratch) {
+  const int n_tiles = (Tk + kTileRows - 1) / kTileRows;
+  if constexpr (!kSeg) {
+    return (1u << n_tiles) - 1u;
+  } else {
+    int* lo_of = scratch;  // [0, 4): key tiles, [4, 6): the two halves of the rows
+    int* hi_of = scratch + 8;
+    int* pad_of = scratch + 16;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    int lo = INT_MAX, hi = INT_MIN;
+    bool pad = false;
+    if (warp < n_tiles) {  // key tile `warp`, two keys a lane
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int j = warp * kTileRows + 32 * u + lane;
+        if (j < Tk) {
+          const int id = sg[j];
+          if (id == kPad) pad = true;
+          else lo = min(lo, id), hi = max(hi, id);
+        }
+      }
+      lo = __reduce_min_sync(0xffffffffu, lo);
+      hi = __reduce_max_sync(0xffffffffu, hi);
+      pad = __any_sync(0xffffffffu, pad);
+      if (lane == 0) lo_of[warp] = lo, hi_of[warp] = hi, pad_of[warp] = pad;
     }
-    return;
-  }
-  for (int e = threadIdx.x; e < kRows * dpad; e += kThreads) {
-    const int r = e / dpad, d = e - r * dpad, j = j0 + r;
-    dst[r * stride + d] = d < hs && j < T ? src[j * st + d * sd] : __float2bfloat16(0.f);
+    if (warp < 2) {  // query rows q0 + 32 warp + lane
+      const int i = q0 + 32 * warp + lane;
+      const int id = i < Tq ? sg[i] : kPad;
+      lo = __reduce_min_sync(0xffffffffu, id == kPad ? INT_MAX : id);
+      hi = __reduce_max_sync(0xffffffffu, id == kPad ? INT_MIN : id);
+      pad = __any_sync(0xffffffffu, i < Tq && id == kPad);
+      if (lane == 0) lo_of[4 + warp] = lo, hi_of[4 + warp] = hi, pad_of[4 + warp] = pad;
+    }
+    __syncthreads();
+    lo = min(lo_of[4], lo_of[5]);
+    hi = max(hi_of[4], hi_of[5]);
+    pad = pad_of[4] || pad_of[5];
+    uint32_t need = 0;
+    for (int t = 0; t < n_tiles; ++t) {
+      if ((lo <= hi_of[t] && lo_of[t] <= hi) || (pad && pad_of[t])) need |= 1u << t;
+    }
+    return need;
   }
 }
 
+// Rows r0.. r0 + 63 of one (T, D) bf16 view into a 64-row tile at `dst`
+// (1024-aligned), in the swizzled K-major layout TMA writes: column blocks
+// of kCols values, dims >= hs and rows >= T as zeros.  For the views TMA
+// cannot read (strides that are not multiples of 16 bytes).
+template <int kMaxD>
+__device__ __forceinline__ void stage_tile(unsigned char* dst, const bf16* src, long long st,
+                                           long long sd, int r0, int T, int hs) {
+  constexpr int kCols = kMaxD < 64 ? kMaxD : 64;
+  constexpr int kSwBytes = 2 * kCols;
+  for (int e = threadIdx.x; e < kTileRows * kMaxD; e += kThreads) {
+    const int r = e / kMaxD, d = e % kMaxD, j = r0 + r;
+    const bf16 x = d < hs && j < T ? src[j * st + d * sd] : __float2bfloat16(0.f);
+    const uint32_t off = (d / kCols) * (kTileRows * kSwBytes) + r * kSwBytes + (d % kCols) * 2;
+    *reinterpret_cast<bf16*>(dst + swizzle<kSwBytes>(off)) = x;
+  }
+}
+
+// The kernel's arguments: the strided views, the tensor maps of q, k, v
+// and the bias (read only where `qkv_tma` / `bias_tma`), and the extents
+// of the bias map's head and row dimensions (1 where the bias broadcasts).
+template <typename BiasT>
+struct Bf16Args {
+  CUtensorMap qmap, kmap, vmap, bmap;
+  ParamsT<bf16, BiasT> p;
+  int qkv_tma, bias_tma, bias_heads, bias_rows;
+};
+
+// One block: row b = blockIdx.x, queries 64 * blockIdx.y.., head h =
+// blockIdx.z; one warpgroup.
 template <int kMaxD, bool kBias, bool kSeg, typename BiasT>
-__global__ void __launch_bounds__(kThreads) attention_kernel_bf16(const ParamsT<bf16, BiasT> p) {
-  constexpr int kSteps = kMaxD / 16;  // 16-deep steps of Q K^T over the head dims
-  constexpr int kOut = kMaxD / 8;     // 8-wide output tiles of P V
+__global__ void __launch_bounds__(kThreads)
+    attention_kernel_bf16(const __grid_constant__ Bf16Args<BiasT> a) {
+  constexpr int kCols = kMaxD < 64 ? kMaxD : 64;   // values a swizzled row
+  constexpr int kSwBytes = 2 * kCols;              // 128, or 64 at head size <= 32
+  constexpr int kColBlocks = kMaxD / kCols;        // 2 at head size 128
+  constexpr int kBlockBytes = kTileRows * kSwBytes;
+  constexpr int kTileBytes = kColBlocks * kBlockBytes;
+  constexpr int kOut = kMaxD / 8;                  // 8-wide output blocks
+  constexpr int kBoxKeys = 128 / sizeof(BiasT);    // keys a bias box: 32 fp32, 64 bf16
+  constexpr int kBiasTile = kTileRows * kTileRows * sizeof(BiasT);
   extern __shared__ __align__(16) unsigned char smem_raw[];
 
+  const ParamsT<bf16, BiasT>& p = a.p;
   const int hs = p.hs, Tq = p.Tq, Tk = p.Tk;
-  const int dpad = (hs + 15) & ~15;
-  const int nk = dpad / 16, nout = dpad / 8;
-  const int stride = dpad + 8;  // values a row: == 4 mod 8 words, conflict-free
-  const int tile_vals = kKTile * stride;
-  bf16* kbuf = reinterpret_cast<bf16*>(smem_raw);  // 2 tiles of K
-  bf16* vbuf = kbuf + 2 * tile_vals;               // 2 tiles of V
-  bf16* qs = kbuf;  // before the first tile: the 64 query rows (2 tiles' room)
-  float* km = reinterpret_cast<float*>(vbuf + 2 * tile_vals);  // Tk key mask
-  int* sg = reinterpret_cast<int*>(km + Tk);                     // Tk segment ids
+  const int n_tiles = (Tk + kTileRows - 1) / kTileRows;
+  const bool bias_tma = kBias && a.bias_tma;
+  const Bf16Smem L = bf16_smem(kMaxD, Tk, bias_tma ? kBiasTile : 0);
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* sm = smem_raw + (base - raw);
+  float* km = reinterpret_cast<float*>(sm + L.km);
+  int* sg = reinterpret_cast<int*>(sm + L.sg);
+  const uint32_t bar = base + L.bar;  // barrier 0: Q; 1 + t: key tile t
 
   const int b = blockIdx.x;
   const int h = blockIdx.z;
+  const int q0 = blockIdx.y * kTileRows;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
   const int g = lane >> 2;
   const int c = lane & 3;
 
-  const bf16* qb = p.q + b * p.sq.b + h * p.sq.h;
-  const bf16* kb = p.k + b * p.sk.b + h * p.sk.h;
-  const bf16* vb = p.v + b * p.sv.b + h * p.sv.h;
-  const BiasT* bb = kBias ? p.bias + b * p.sb.b + h * p.sb.h : nullptr;
-  bf16* ob = p.out + b * p.so.b + h * p.so.h;
-
-  const int q0 = blockIdx.y * kQTile;
-  stage_rows_bf16<kQTile>(qs, stride, qb, p.sq.t, p.sq.d, q0, Tq, hs, dpad,
-                          p.sq.d == 1 && p.sq.t % 8 == 0 && hs % 8 == 0 && aligned(qb, 16));
-  for (int j = tid; j < Tk; j += kThreads) {
-    const long long at = static_cast<long long>(b) * Tk + j;
-    if (p.key_mask) cp_async<4>(km + j, p.key_mask + at, true);
-    else km[j] = 0.f;
-    if (kSeg) cp_async<4>(reinterpret_cast<float*>(sg + j),
-                          reinterpret_cast<const float*>(p.segments + at), true);
-  }
-  cp_async_commit();
-  cp_async_wait_all();
-  __syncthreads();
-
-  // the warp's q fragments
-  uint32_t qf[kSteps][4];
-#pragma unroll
-  for (int ks = 0; ks < kSteps; ++ks) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = warp * kRowsPerWarp + g + ((e & 1) ? 8 : 0);
-      const int d = 16 * ks + 2 * c + ((e & 2) ? 8 : 0);
-      qf[ks][e] = ks < nk ? ld_shared_u32(qs + r * stride + d) : 0u;
+  // the TMA loads of key tile t (K, V and the bias block), or an arrival
+  // alone where it is not loaded
+  const int bias_h = a.bias_heads > 1 ? h : 0, bias_b = a.bias_rows > 1 ? b : 0;
+  auto issue_tile = [&](int t, bool load) {
+    const uint32_t tb = bar + 8 * (1 + t);
+    mbar_arrive_tx(tb, load ? (a.qkv_tma ? 2 * kTileBytes : 0) + (bias_tma ? kBiasTile : 0) : 0);
+    if (!load) return;
+    if (a.qkv_tma) {
+      for (int cb = 0; cb < kColBlocks; ++cb) {
+        const uint32_t off = t * kTileBytes + cb * kBlockBytes;
+        tma_load(base + L.k + off, &a.kmap, tb, cb * kCols, t * kTileRows, h, b);
+        tma_load(base + L.v + off, &a.vmap, tb, cb * kCols, t * kTileRows, h, b);
+      }
     }
-  }
-
-  uint32_t need_warp, need_block;
-  needed_tiles<kSeg>(sg, Tq, Tk, q0, warp, lane, need_warp, need_block);
-
-  const bool k_vec = p.sk.d == 1 && p.sk.t % 8 == 0 && hs % 8 == 0 && aligned(kb, 16);
-  const bool v_vec = p.sv.d == 1 && p.sv.t % 8 == 0 && hs % 8 == 0 && aligned(vb, 16);
-  auto stage = [&](int t, int buf) {
-    stage_rows_bf16<kKTile>(kbuf + buf * tile_vals, stride, kb, p.sk.t, p.sk.d, t * kKTile, Tk,
-                            hs, dpad, k_vec);
-    stage_rows_bf16<kKTile>(vbuf + buf * tile_vals, stride, vb, p.sv.t, p.sv.d, t * kKTile, Tk,
-                            hs, dpad, v_vec);
-    cp_async_commit();
+    if (bias_tma) {
+      for (int x = 0; x < kTileRows / kBoxKeys; ++x) {
+        tma_load(base + L.bias + t * kBiasTile + x * kBiasBoxBytes, &a.bmap, tb,
+                 t * kTileRows + x * kBoxKeys, q0, bias_h, bias_b);
+      }
+    }
   };
 
-  __syncthreads();  // every warp holds its q fragments: qs may be overwritten
-  uint32_t todo = need_block;  // never empty: warp 0 has a row
-  int t = __ffs(todo) - 1;
-  todo &= todo - 1;
-  stage(t, 0);
+  // in flight at once: Q, each key tile's K, V and bias (under segments
+  // once the needed tiles are known, below), the key mask and segment ids
+  if (tid == 0) {
+    for (int i = 0; i <= n_tiles; ++i) mbar_init(bar + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_arrive_tx(bar, a.qkv_tma ? kTileBytes : 0);
+    if (a.qkv_tma) {
+      for (int cb = 0; cb < kColBlocks; ++cb) {
+        tma_load(base + L.q + cb * kBlockBytes, &a.qmap, bar, cb * kCols, q0, h, b);
+      }
+    }
+    if (!kSeg) {
+      for (int t = 0; t < n_tiles; ++t) issue_tile(t, true);
+    }
+  }
+  for (int j = tid; j < Tk; j += kThreads) {
+    const long long at = static_cast<long long>(b) * Tk + j;
+    km[j] = p.key_mask ? p.key_mask[at] : 0.f;
+    if (kSeg) sg[j] = p.segments[at];
+  }
+  if (!a.qkv_tma) {
+    const bf16* qb = p.q + b * p.sq.b + h * p.sq.h;
+    const bf16* kb = p.k + b * p.sk.b + h * p.sk.h;
+    const bf16* vb = p.v + b * p.sv.b + h * p.sv.h;
+    stage_tile<kMaxD>(sm + L.q, qb, p.sq.t, p.sq.d, q0, Tq, hs);
+    for (int t = 0; t < n_tiles; ++t) {
+      stage_tile<kMaxD>(sm + L.k + t * kTileBytes, kb, p.sk.t, p.sk.d, t * kTileRows, Tk, hs);
+      stage_tile<kMaxD>(sm + L.v + t * kTileBytes, vb, p.sv.t, p.sv.d, t * kTileRows, Tk, hs);
+    }
+    fence_proxy_async();
+  }
+  __syncthreads();  // the barriers, key mask, segment ids and staged tiles
 
-  const int row0 = q0 + warp * kRowsPerWarp + g;
-  const int rows[2] = {row0, row0 + 8};
+  const uint32_t need =
+      needed_tiles_wg<kSeg>(sg, Tq, Tk, q0, reinterpret_cast<int*>(sm + L.scratch));
+  if (kSeg && tid == 0) {  // only the tiles the block needs
+    for (int t = 0; t < n_tiles; ++t) issue_tile(t, (need >> t) & 1u);
+  }
+
+  const int lr = warp * 16 + g;  // the thread's first local row; the other is lr + 8
+  const int rows[2] = {q0 + lr, q0 + lr + 8};
   int seg_row[2] = {0, 0};
   if constexpr (kSeg) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) seg_row[r] = rows[r] < Tq ? sg[rows[r]] : -1;
   }
+  const BiasT* bb = kBias ? p.bias + b * p.sb.b + h * p.sb.h : nullptr;
   const bool bias_vec = kBias && p.sb.d == 1 && p.sb.t % 2 == 0 && aligned(bb, 2 * sizeof(BiasT));
 
   float o[kOut][4];
@@ -714,97 +1033,225 @@ __global__ void __launch_bounds__(kThreads) attention_kernel_bf16(const ParamsT<
   float m[2] = {-INFINITY, -INFINITY};
   float l[2] = {0.f, 0.f};
 
-  for (int buf = 0;; buf ^= 1) {
-    cp_async_wait_all();
-    __syncthreads();  // tile t landed; every warp is done with the previous tile
-    const int next = todo ? __ffs(todo) - 1 : -1;
-    if (next >= 0) {
-      todo &= todo - 1;
-      stage(next, buf ^ 1);
+  mbar_wait(bar, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    mbar_wait(bar + 8 * (1 + t), 0);
+    if (!((need >> t) & 1u)) continue;
+    const int key0 = t * kTileRows;
+
+    // S = Q K^T: the 64 rows against the tile's 64 keys (head dims past
+    // hs are zeros).  The accumulators are zeroed before the fence: a
+    // register the products write that is defined inside their stage would
+    // serialize them.
+    float s[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+    fence_regs(s);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < kMaxD / 16; ++ks) {
+      const uint32_t off = (16 * ks / kCols) * kBlockBytes + (16 * ks % kCols) * 2;
+      wgmma_ss_n64(s, desc_k_major<kSwBytes>(base + L.q + off),
+                   desc_k_major<kSwBytes>(base + L.k + t * kTileBytes + off), 1);
     }
-    const bf16* kt = kbuf + buf * tile_vals;
-    const bf16* vt = vbuf + buf * tile_vals;
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
 
-    if ((need_warp >> t) & 1u) {
-      const int key0 = t * kKTile;
-      float bias_v[4][4];
-      if constexpr (kBias) load_bias(bias_v, bb, p.sb, rows, Tq, Tk, key0, c, bias_vec);
-
-      // scores of the warp's 16 rows against the tile's 32 keys
-      float s[4][4];
+    float bias_v[8][4];
+    if constexpr (kBias) {
+      if (bias_tma) {  // from the tile's boxes: row lr (+ 8), keys 8n + 2c, + 1
 #pragma unroll
-      for (int n = 0; n < 4; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+        for (int n = 0; n < 8; ++n) {
+          const int kt = 8 * n + 2 * c;
 #pragma unroll
-      for (int ks = 0; ks < kSteps; ++ks) {
-        if (ks < nk) {
-#pragma unroll
-          for (int n = 0; n < 4; ++n) {
-            const bf16* kr = kt + (8 * n + g) * stride + 16 * ks + 2 * c;
-            mma_bf16(s[n], qf[ks], ld_shared_u32(kr), ld_shared_u32(kr + 8));
+          for (int r = 0; r < 2; ++r) {
+            const uint32_t off = t * kBiasTile + (kt / kBoxKeys) * kBiasBoxBytes +
+                                 (lr + 8 * r) * 128 + (kt % kBoxKeys) * sizeof(BiasT);
+            const unsigned char* at = sm + L.bias + swizzle<128>(off);
+            float2 x;
+            if constexpr (std::is_same_v<BiasT, float>) {
+              x = *reinterpret_cast<const float2*>(at);
+            } else {
+              x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(at));
+            }
+            bias_v[n][2 * r] = x.x, bias_v[n][2 * r + 1] = x.y;
           }
         }
-      }
-
-      softmax_tile<kBias, kSeg>(s, bias_v, km, sg, seg_row, key0, Tk, c, p.scale, m, l, o);
-
-      // P V: 16 keys at a time, P from the score accumulators of two 8-key
-      // tiles, V's fragments of two 8-dim tiles per ldmatrix
-#pragma unroll
-      for (int kc = 0; kc < 2; ++kc) {
-        const uint32_t a[4] = {pack_bf16(s[2 * kc][0], s[2 * kc][1]),
-                               pack_bf16(s[2 * kc][2], s[2 * kc][3]),
-                               pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]),
-                               pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3])};
-        const bf16* vrow = vt + (16 * kc + (lane & 15)) * stride + 8 * (lane >> 4);
-#pragma unroll
-        for (int n = 0; n < kOut; n += 2) {
-          if (n < nout) {
-            uint32_t bv[4];
-            ldmatrix_x4_trans(bv, vrow + 8 * n);
-            mma_bf16(o[n], a, bv[0], bv[1]);
-            mma_bf16(o[n + 1], a, bv[2], bv[3]);
-          }
-        }
+      } else {
+        load_bias(bias_v, bb, p.sb, rows, Tq, Tk, key0, c, bias_vec);
       }
     }
-    if (next < 0) break;
-    t = next;
+
+    softmax_tile<kBias, kSeg, false>(s, bias_v, km, sg, seg_row, rows, key0, Tk, c, p.scale, m,
+                                     l, o);
+
+    // P V: P rounded to bf16 in the A layout, 16 keys a step
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      pa[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      pa[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      pa[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      pa[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+    }
+    fence_regs(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wgmma_rs(o, pa[kk],
+               desc_mn_major<kSwBytes>(base + L.v + t * kTileBytes + 16 * kk * kSwBytes,
+                                       kBlockBytes));
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(o);
   }
 
+  // the output through shared memory (Q's rows, no longer read) to
+  // 16-byte stores
   float inv[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) inv[r] = 1.f / quad_sum(l[r]);
+  __syncthreads();  // every warp's products are done with Q
+  constexpr int kPitch = kMaxD + 8;  // values a staged row: conflict-free pair writes
+  bf16* os = reinterpret_cast<bf16*>(sm + L.q);
 #pragma unroll
   for (int n = 0; n < kOut; ++n) {
-    if (n < nout) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = rows[e >> 1];
-        const int d = 8 * n + 2 * c + (e & 1);
-        if (i < Tq && d < hs) {
-          ob[i * p.so.t + d * p.so.d] = __float2bfloat16(o[n][e] * inv[e >> 1]);
-        }
-      }
+    for (int r = 0; r < 2; ++r) {
+      *reinterpret_cast<__nv_bfloat162*>(os + (lr + 8 * r) * kPitch + 8 * n + 2 * c) =
+          __floats2bfloat162_rn(o[n][2 * r] * inv[r], o[n][2 * r + 1] * inv[r]);
+    }
+  }
+  __syncthreads();
+  bf16* ob = p.out + b * p.so.b + h * p.so.h;
+  const int n_rows = min(kTileRows, Tq - q0);
+  if (p.so.d == 1 && p.so.t % 8 == 0 && hs % 8 == 0 && aligned(ob, 16)) {
+    const int chunks = hs / 8;
+    for (int e = tid; e < n_rows * chunks; e += kThreads) {
+      const int r = e / chunks, ch = e - r * chunks;
+      *reinterpret_cast<uint4*>(ob + (q0 + r) * p.so.t + 8 * ch) =
+          *reinterpret_cast<const uint4*>(os + r * kPitch + 8 * ch);
+    }
+  } else {
+    for (int e = tid; e < n_rows * hs; e += kThreads) {
+      const int r = e / hs, d = e - r * hs;
+      ob[(q0 + r) * p.so.t + d * p.so.d] = os[r * kPitch + d];
     }
   }
 }
 
-template <int kMaxD, bool kBias, bool kSeg, typename T, typename BiasT>
-int launch_padded(const ParamsT<T, BiasT>& p, int B, int H, cudaStream_t stream) {
-  size_t smem;
-  void (*kernel)(const ParamsT<T, BiasT>);
-  if constexpr (std::is_same_v<T, float>) {
-    static_assert(std::is_same_v<BiasT, float>, "fp32 q/k/v take an fp32 bias");
-    const int stride = ((p.hs + 7) & ~7) + 4;
-    smem = sizeof(float) * (6 * static_cast<size_t>(kKTile) * stride + p.Tk) +
-           sizeof(int) * p.Tk;
-    kernel = attention_kernel<kMaxD, kBias, kSeg>;
-  } else {
-    const int stride = ((p.hs + 15) & ~15) + 8;
-    smem = sizeof(bf16) * 4 * static_cast<size_t>(kKTile) * stride +
-           (sizeof(float) + sizeof(int)) * p.Tk;
-    kernel = attention_kernel_bf16<kMaxD, kBias, kSeg, BiasT>;
+// --------------------------------------------------------- host side
+
+// cuTensorMapEncodeTiled, through the runtime (no link against libcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault,
+                                     &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+#endif
+    return found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(f) : nullptr;
+  }();
+  return fn;
+}
+
+// A 4-d tensor map of (d0, d1, d2, d3) elements with element strides
+// (1, s1, s2, s3), boxes of (box0, box1, 1, 1).  A dimension of extent 1
+// takes the packed stride (its value is never used).  Returns a
+// cudaError_t: invalid value where cuTensorMapEncodeTiled refuses the map.
+inline int make_map(CUtensorMap* map, const void* ptr, bool is_bf16, const long long (&dim)[4],
+                    const long long (&stride)[4], int box0, int box1, bool swizzle64) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const int esize = is_bf16 ? 2 : 4;
+  cuuint64_t dims[4], strides[3];
+  long long packed = dim[0] * esize;
+  for (int i = 0; i < 4; ++i) dims[i] = static_cast<cuuint64_t>(dim[i]);
+  for (int i = 1; i < 4; ++i) {
+    packed = (packed + 15) / 16 * 16;
+    strides[i - 1] = static_cast<cuuint64_t>(dim[i] > 1 ? stride[i] * esize : packed);
+    packed = static_cast<long long>(strides[i - 1]) * dim[i];
   }
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(box0), static_cast<cuuint32_t>(box1), 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, is_bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
+      const_cast<void*>(ptr), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      swizzle64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// the map of one (B, H, T, D) bf16 view: boxes of (kCols dims, 64 rows)
+inline int view_map(CUtensorMap* map, const bf16* ptr, const Strides& s, int B, int H, int T,
+                    int hs, int dmax) {
+  return make_map(map, ptr, true, {hs, T, H, B}, {s.d, s.t, s.h, s.b}, dmax < 64 ? dmax : 64,
+                  kTileRows, dmax < 64);
+}
+
+template <int kMaxD, bool kBias, bool kSeg, typename BiasT>
+int launch_bf16_padded(const ParamsT<bf16, BiasT>& p, int B, int H, int qkv_tma, int bias_tma,
+                       int smem, cudaStream_t stream) {
+  const Bf16Smem L = bf16_smem(kMaxD, p.Tk, kBias && bias_tma ? 64 * 64 * sizeof(BiasT) : 0);
+  if (smem != L.total) return static_cast<int>(cudaErrorInvalidValue);
+  Bf16Args<BiasT> a{};
+  a.p = p;
+  a.qkv_tma = qkv_tma;
+  a.bias_tma = kBias && bias_tma;
+  a.bias_heads = p.sb.h != 0 ? H : 1;
+  a.bias_rows = p.sb.b != 0 ? B : 1;
+  int e = 0;
+  if (qkv_tma) {
+    if ((e = view_map(&a.qmap, p.q, p.sq, B, H, p.Tq, p.hs, kMaxD)) ||
+        (e = view_map(&a.kmap, p.k, p.sk, B, H, p.Tk, p.hs, kMaxD)) ||
+        (e = view_map(&a.vmap, p.v, p.sv, B, H, p.Tk, p.hs, kMaxD))) {
+      return e;
+    }
+  }
+  if (a.bias_tma) {
+    e = make_map(&a.bmap, p.bias, std::is_same_v<BiasT, bf16>,
+                 {p.Tk, p.Tq, a.bias_heads, a.bias_rows}, {p.sb.d, p.sb.t, p.sb.h, p.sb.b},
+                 128 / static_cast<int>(sizeof(BiasT)), kTileRows, false);
+    if (e) return e;
+  }
+  auto kernel = attention_kernel_bf16<kMaxD, kBias, kSeg, BiasT>;
+  const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid(B, (p.Tq + kTileRows - 1) / kTileRows, H);
+  kernel<<<grid, kThreads, smem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launches the bf16 core on `stream` for B rows and H heads as planned by
+// the host (`qkv_tma`, `bias_tma`, `smem`: ops/set_attention.py:bf16_plan);
+// returns the launch's cudaError_t, invalid value where the plan's shared
+// memory is not the kernel's.  The caller has checked the limits.
+template <bool kBias, bool kSeg, typename BiasT>
+int launch_bf16(const ParamsT<bf16, BiasT>& p, int B, int H, int qkv_tma, int bias_tma, int smem,
+                void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (p.hs <= 32) return launch_bf16_padded<32, kBias, kSeg>(p, B, H, qkv_tma, bias_tma, smem, s);
+  if (p.hs <= 64) return launch_bf16_padded<64, kBias, kSeg>(p, B, H, qkv_tma, bias_tma, smem, s);
+  return launch_bf16_padded<kMaxHs, kBias, kSeg>(p, B, H, qkv_tma, bias_tma, smem, s);
+}
+
+template <int kMaxD, bool kBias, bool kSeg, bool kCausal>
+int launch_padded(const Params& p, int B, int H, cudaStream_t stream) {
+  const int stride = ((p.hs + 7) & ~7) + 4;
+  const size_t smem =
+      sizeof(float) * (6 * static_cast<size_t>(kKTile) * stride + p.Tk) + sizeof(int) * p.Tk;
+  auto kernel = attention_kernel<kMaxD, kBias, kSeg, kCausal>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -815,15 +1262,14 @@ int launch_padded(const ParamsT<T, BiasT>& p, int B, int H, cudaStream_t stream)
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launches the core on `stream` for B rows and H heads, in the element type
-// of `p` (float or bf16); returns the launch's cudaError_t.  The caller has
-// checked the limits.
-template <bool kBias, bool kSeg, typename T, typename BiasT>
-int launch(const ParamsT<T, BiasT>& p, int B, int H, void* stream) {
+// Launches the fp32 core on `stream` for B rows and H heads; returns the
+// launch's cudaError_t.  The caller has checked the limits.
+template <bool kBias, bool kSeg, bool kCausal = false>
+int launch(const Params& p, int B, int H, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (p.hs <= 32) return launch_padded<32, kBias, kSeg>(p, B, H, s);
-  if (p.hs <= 64) return launch_padded<64, kBias, kSeg>(p, B, H, s);
-  return launch_padded<kMaxHs, kBias, kSeg>(p, B, H, s);
+  if (p.hs <= 32) return launch_padded<32, kBias, kSeg, kCausal>(p, B, H, s);
+  if (p.hs <= 64) return launch_padded<64, kBias, kSeg, kCausal>(p, B, H, s);
+  return launch_padded<kMaxHs, kBias, kSeg, kCausal>(p, B, H, s);
 }
 
 }  // namespace set_attention_core

@@ -8,7 +8,8 @@ optional qk-LayerNorm over the head size, applied in token layout
 learned pairwise terms enter as an additive key mask (B, T), an additive
 bias broadcastable to (B, H|1, T, T) and (B, T) segment ids.  Self
 attention goes through `ops.attention.multihead_attention_btc` (on CUDA:
-K2 with a bias or a query shorter than its keys, K1 otherwise);
+K2 with a bias or a query shorter than its keys, K2's causal form for a
+`causal` call, K1 otherwise);
 `CrossAttention` goes head-major through `ops.attention.multihead_attention`
 (K2 on CUDA).
 
@@ -99,7 +100,8 @@ class SelfAttention(nn.Module):
 
     def forward(self, x: Tensor, attn_bias: Optional[Tensor] = None,
                 key_mask: Optional[Tensor] = None,
-                segments: Optional[Tensor] = None, kv_cache: Optional[tuple] = None):
+                segments: Optional[Tensor] = None, kv_cache: Optional[tuple] = None,
+                causal: bool = False):
         B, T, _ = x.shape
         H, hs = self.n_head, self.head_size
         C = H * hs  # the width of this rank's heads
@@ -122,7 +124,8 @@ class SelfAttention(nn.Module):
                                     attn_bias, key_mask, dropout_rate=rate,
                                     generator=self.dropout_generator, segments=segments,
                                     dropout_rows=self.dropout_rows,
-                                    dropout_heads=self._dropout_heads() if rate > 0 else None)
+                                    dropout_heads=self._dropout_heads() if rate > 0 else None,
+                                    causal=causal)
         return self.resid_drop(self.c_proj(y))
 
 
@@ -177,7 +180,9 @@ class SelfAttnBlock(nn.Module):
     `attn_dropout` and `activation` exist for the GPT baseline's GPT2
     semantics (attn_pdrop apart from resid_pdrop, `gelu_new`); the set
     encoders keep the defaults and pass their compute `dtype`.  With
-    `kv_cache` the block returns (x, kv_cache), as `SelfAttention` does."""
+    `kv_cache` the block returns (x, kv_cache), as `SelfAttention` does;
+    `causal` marks `attn_bias` as the causal bias (GPT's full forward, see
+    `ops.attention.multihead_attention_btc`)."""
 
     def __init__(self, n_embd: int, n_head: int, n_inner: Optional[int] = None,
                  bias: bool = True, qk_layernorm: bool = True, dropout: float = 0.0,
@@ -193,10 +198,11 @@ class SelfAttnBlock(nn.Module):
 
     def forward(self, x: Tensor, attn_bias: Optional[Tensor] = None,
                 key_mask: Optional[Tensor] = None,
-                segments: Optional[Tensor] = None, kv_cache: Optional[tuple] = None):
+                segments: Optional[Tensor] = None, kv_cache: Optional[tuple] = None,
+                causal: bool = False):
         if kv_cache is not None:
             y, kv_cache = self.attn(self.ln1(x), kv_cache=kv_cache)
             x = x + y
             return x + self.ffw(self.ln2(x)), kv_cache
-        x = x + self.attn(self.ln1(x), attn_bias, key_mask, segments)
+        x = x + self.attn(self.ln1(x), attn_bias, key_mask, segments, causal=causal)
         return x + self.ffw(self.ln2(x))

@@ -5,8 +5,9 @@ A small decoder-only causal transformer built from the same
 `SelfAttnBlock` as the set encoders (pre-LN, fused QKV, no qk-LayerNorm)
 with learned positional embeddings.  Two paths share the parameters:
 `forward` (teacher-forced, the whole sequence under a causal bias: K2's
-bias form on CUDA) and `decode` (one position against per-layer KV caches:
-K2's key-mask form on CUDA).
+causal form on CUDA, which computes the bias in the kernel and skips the
+key tiles past each query tile) and `decode` (one position against
+per-layer KV caches: K2's key-mask form on CUDA).
 
 Vocabulary layout: flavor tokens 1..V-1, plus BOS = V+1, EOS = V+2,
 PAD = V+3, over sequences of max_seq_length + 2.  Module names mirror the
@@ -66,7 +67,7 @@ class FlavorSeqGPT(nn.Module):
         h = self.drop_emb(self.wte(input_ids) + self.wpe(pos)[None])
         bias = self.causal_bias[:, :, :T, :T]
         for block in self.blocks:
-            h = block(h, bias)
+            h = block(h, bias, causal=True)
         return self.lm_head(self.ln_f(h))
 
     def init_cache(self, batch_size: int) -> List[Tuple[Tensor, Tensor]]:

@@ -14,7 +14,9 @@
   differs from its key length (the GPT baseline's KV-cache decode: one
   query against the cache under a causal key mask); K1
   (`ops/btc_attention.py`) for the other token-major calls (bias-free,
-  Tq == Tk).  CPU tensors go to the plain versions.
+  Tq == Tk).  A causal call (`causal=True`, the GPT baseline's full
+  forward) goes to K2's causal form, which computes the causal bias in the
+  kernel.  CPU tensors go to the plain versions.
 - A call with `dropout_rate > 0` (a train-mode forward with
   `Config.dropout`) goes to the plain version on every device, by design:
   the JAX package sends attention with probability dropout to its XLA
@@ -37,6 +39,7 @@ not ported: every path computes the exact max-subtracted softmax.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -50,6 +53,15 @@ PLAIN_DROPOUT_CALLS = {"head_major": 0, "token_major": 0}
 def reset_plain_dropout_calls() -> None:
     for form in PLAIN_DROPOUT_CALLS:
         PLAIN_DROPOUT_CALLS[form] = 0
+
+
+@functools.lru_cache(maxsize=None)
+def causal_bias(T: int, device: torch.device) -> Tensor:
+    """The (1, 1, T, T) additive causal bias, 0 on and below the diagonal
+    and -1e9 above (`FlavorSeqGPT.causal_bias`, the JAX package's
+    `models/gpt.py:71-72`), built once per (T, device)."""
+    causal = torch.tril(torch.ones((T, T), dtype=torch.bool, device=device))
+    return torch.where(causal, 0.0, -1e9)[None, None]
 
 
 def dropout_keep(shape, rate: float, generator: Optional[torch.Generator], device,
@@ -174,18 +186,31 @@ def multihead_attention_btc(q: Tensor, k: Tensor, v: Tensor, n_head: int,
                             generator: Optional[torch.Generator] = None,
                             segments: Optional[Tensor] = None,
                             dropout_rows: Optional[Tuple[slice, int]] = None,
-                            dropout_heads: Optional[Tuple[slice, int]] = None) -> Tensor:
+                            dropout_heads: Optional[Tuple[slice, int]] = None,
+                            causal: bool = False) -> Tensor:
     """Attention over token-major q (B, Tq, C), k/v (B, Tk, C) with heads
     packed in C, fp32 or bf16: on CUDA tensors the K2 kernel with a bias or
     with Tq != Tk, the K1 kernel otherwise; on CPU tensors the reference;
     the reference on both when `dropout_rate` > 0 (its mask cut from the
-    global one by `dropout_rows` / `dropout_heads`)."""
+    global one by `dropout_rows` / `dropout_heads`).
+
+    `causal` marks a causal self-attention (key j > query i masked by
+    -1e9, Tq == Tk), GPT's full forward.  A `bias` given with it is that
+    causal bias (as `FlavorSeqGPT` passes its buffer), else `causal_bias`
+    builds it: the plain paths add it; on CUDA without dropout K2's causal
+    form computes it in the kernel and reads no bias."""
+    if causal and bias is None:
+        bias = causal_bias(q.shape[1], q.device)
     if dropout_rate > 0.0:
         PLAIN_DROPOUT_CALLS["token_major"] += 1
         return attention_btc_reference(q, k, v, n_head, key_mask, segments, bias,
                                        dropout_rate, generator, dropout_rows=dropout_rows,
                                        dropout_heads=dropout_heads)
     if q.device.type == "cuda":
+        if causal:
+            from multimodal_flows_tpu_torch.ops.set_attention import set_attention_btc
+
+            return set_attention_btc(q, k, v, n_head, key_mask, None, segments, causal=True)
         if bias is not None or k.shape[1] != q.shape[1]:
             from multimodal_flows_tpu_torch.ops.set_attention import set_attention_btc
 

@@ -6,9 +6,10 @@ segment-masked set attention, q/k/v (B, T, C) fp32 or bf16 with the heads
 packed in C, the output in their dtype (the Pallas kernel takes the input
 dtype and returns `v.dtype`).  The source file says what bounds the kernel
 on the card; its design is the shared core `csrc/set_attention_core.cuh`
-(fp32: 3xTF32 tensor cores at fp32 parity; bf16: one bf16 tensor-core
-pass, fp32 softmax; cp.async key/value tiles, cross-jet key tiles
-skipped).
+(fp32: 3xTF32 tensor cores at fp32 parity, cp.async key/value tiles;
+bf16: a block's TMA loads in flight together and `wgmma`, planned by
+`ops.set_attention.bf16_plan`; fp32 softmax and cross-jet key tiles
+skipped in both).
 
 Build: `ops/cuda_build.py` compiles the source with nvcc for `sm_90a` at
 first use and loads it with ctypes; nothing is compiled at import.
@@ -31,6 +32,7 @@ import torch
 
 from multimodal_flows_tpu_torch.ops.attention import attention_btc_reference
 from multimodal_flows_tpu_torch.ops.cuda_build import CudaLibrary
+from multimodal_flows_tpu_torch.ops.set_attention import bf16_plan
 
 Tensor = torch.Tensor
 
@@ -45,9 +47,11 @@ DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _declare(lib: ctypes.CDLL) -> None:
+    # q, k, v, key_mask, segments, out, B, T, C, n_head, scale, [qkv_tma, smem,] stream
+    head = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_float]
+    lib.btc_attention_fwd.argtypes = head + [ctypes.c_void_p]
+    lib.btc_attention_bf16_fwd.argtypes = head + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     for fn in (lib.btc_attention_fwd, lib.btc_attention_bf16_fwd):
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_float,
-                                                                   ctypes.c_void_p]
         fn.restype = ctypes.c_int
 
 
@@ -105,11 +109,16 @@ def _check(q: Tensor, k: Tensor, v: Tensor, n_head: int,
 def _launch(q: Tensor, k: Tensor, v: Tensor, n_head: int,
             key_mask: Optional[Tensor], segments: Optional[Tensor]) -> Tensor:
     _check(q, k, v, n_head, key_mask, segments)
-    lib = build()
     B, T, C = q.shape
+    bf16 = q.dtype == torch.bfloat16
+    plan = []  # the bf16 core's host plan: q/k/v by TMA, shared memory
+    if bf16:
+        p = bf16_plan(*(t.unflatten(-1, (n_head, C // n_head)).transpose(1, 2)
+                        for t in (q, k, v)))
+        plan = [int(p.qkv_tma), p.smem_bytes]
+    lib = build()
     out = torch.empty_like(q)
     scale = 1.0 / float(C // n_head) ** 0.5
-    bf16 = q.dtype == torch.bfloat16
     fwd = lib.btc_attention_bf16_fwd if bf16 else lib.btc_attention_fwd
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -117,7 +126,7 @@ def _launch(q: Tensor, k: Tensor, v: Tensor, n_head: int,
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if key_mask is None else key_mask.data_ptr(),
             None if segments is None else segments.data_ptr(),
-            out.data_ptr(), B, T, C, n_head, scale, stream)
+            out.data_ptr(), B, T, C, n_head, scale, *plan, stream)
     _LIB.check(rc)
     form = "segments" if segments is not None else "key_mask" if key_mask is not None else "none"
     (LAUNCHES_BF16 if bf16 else LAUNCHES)[form] += 1

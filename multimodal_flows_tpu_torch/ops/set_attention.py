@@ -12,30 +12,38 @@ The port uses it for two callers:
   in C, optionally with (B, T) segment ids, the biased self-attention of
   the pairwise encoders (co-occurrence, FlavorFormer pairwise, Lund),
   which JAX runs as `_xla_attention_btc(bias=...)`, and the GPT
-  baseline's attention, which JAX runs in XLA too: its full forward under
-  a (1, 1, T, T) causal bias, and its KV-cache decode, one query against
-  the (B, seq_len, C) caches under a (B, seq_len) causal key mask.
+  baseline's attention, which JAX runs in XLA too: its full forward
+  (`causal=True`: the kernel's causal form, which computes in the kernel
+  what JAX's (1, 1, T, T) causal bias adds and skips the key tiles past
+  each query tile), and its KV-cache decode, one query against the
+  (B, seq_len, C) caches under a (B, seq_len) causal key mask.
 
 Both take fp32 or bf16 q/k/v (the output in their dtype, as the Pallas
 kernel returns `v.dtype`); with bf16 q/k/v the bias may be fp32 or bf16.
 Both hand the kernel strided views, so neither layout is copied, and a
 broadcast bias (a zero stride) is never expanded.  The source file says
 what bounds the kernel on the card; its design is the core it shares with
-K1, `csrc/set_attention_core.cuh` (3xTF32 tensor cores at fp32 parity,
-cp.async key/value tiles, cross-jet key tiles and their bias skipped).
-Build: `ops/cuda_build.py` (nvcc for `sm_90a` at first use, ctypes).
+K1, `csrc/set_attention_core.cuh` (fp32: 3xTF32 tensor cores at fp32
+parity, cp.async key/value tiles, cross-jet key tiles and their bias
+skipped; bf16: TMA loads and `wgmma`).  `bf16_plan` decides on the host
+how a bf16 call runs (which operands go by TMA, the shared memory), and
+K1's wrapper takes it too.  Build: `ops/cuda_build.py` (nvcc for `sm_90a`
+at first use, ctypes).
 
 The wrappers take CUDA tensors only and launch the kernel or raise; the
 plain versions (`ops/attention.py`) serve CPU tensors through the
 dispatchers.  The backward recomputes through the plain version, as the
 JAX custom VJP `_bwd` recomputes through `_xla_reference`, and returns
 dq, dk, dv and dbias (summed back to the bias's own broadcast shape);
-key_mask and segments get no gradient.
+key_mask and segments get no gradient.  The causal form's backward
+recomputes through the plain version with the causal bias, built once per
+(T, device).
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from pathlib import Path
 from typing import Optional
 
@@ -44,6 +52,7 @@ import torch
 from multimodal_flows_tpu_torch.ops.attention import (
     attention_btc_reference,
     attention_reference,
+    causal_bias,
 )
 from multimodal_flows_tpu_torch.ops.cuda_build import CudaLibrary
 
@@ -53,19 +62,33 @@ MAX_T = 256
 MAX_HEAD_SIZE = 128
 
 #: launches of the kernel by form, counted where the launch succeeds: fp32
-#: q/k/v in LAUNCHES, bf16 in LAUNCHES_BF16
-LAUNCHES = {"bias_segments": 0, "bias": 0, "bias_key_mask": 0, "key_mask": 0, "none": 0}
-LAUNCHES_BF16 = dict(LAUNCHES)
+#: q/k/v in LAUNCHES (GPT's full forward as "causal"), bf16 in LAUNCHES_BF16
+LAUNCHES = {"bias_segments": 0, "bias": 0, "bias_key_mask": 0, "key_mask": 0, "none": 0,
+            "causal": 0}
+LAUNCHES_BF16 = {form: 0 for form in LAUNCHES if form != "causal"}
 DTYPES = (torch.float32, torch.bfloat16)
+
+#: the bf16 core's tiles: 64 query rows a block (one warpgroup), 64 keys a
+#: key tile; a bias box is 64 rows of 128 bytes
+BF16_TILE = 64
+#: the shared memory one block may use on an H100 (227 KB)
+MAX_SHARED_BYTES = 232_448
 
 
 def _declare(lib: ctypes.CDLL) -> None:
     tail = [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
     lib.set_attention_fwd.argtypes = [ctypes.c_void_p] * 8 + tail
     lib.set_attention_fwd.restype = ctypes.c_int
-    # q, k, v, key_mask, bias, bias_bf16, segments, out, strides, ...
+    # q, k, v, key_mask, out, strides, B, H, T, hs, scale, stream
+    lib.set_attention_causal_fwd.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+                                             + [ctypes.c_float, ctypes.c_void_p])
+    lib.set_attention_causal_fwd.restype = ctypes.c_int
+    # q, k, v, key_mask, bias, bias_bf16, segments, out, strides, B, H, Tq, Tk,
+    # hs, scale, qkv_tma, bias_tma, smem, stream
     lib.set_attention_bf16_fwd.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int]
-                                           + [ctypes.c_void_p] * 3 + tail)
+                                           + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+                                           + [ctypes.c_float] + [ctypes.c_int] * 3
+                                           + [ctypes.c_void_p])
     lib.set_attention_bf16_fwd.restype = ctypes.c_int
 
 
@@ -87,11 +110,102 @@ def build() -> ctypes.CDLL:
     return _LIB.load()
 
 
-def _form(key_mask, bias, segments) -> str:
+@dataclasses.dataclass(frozen=True)
+class Bf16Plan:
+    """How the bf16 core runs one call (`csrc/set_attention_core.cuh`):
+    the head-size template (32, 64 or 128), the swizzle of its Q/K/V rows
+    in shared memory, its key tiles of 64, whether q/k/v and the bias go by
+    TMA (else the block's threads stage q/k/v and the fragments read the
+    bias from global memory), and the launch's shared memory, which the C
+    entry checks against its own count."""
+
+    head_bucket: int
+    swizzle_bytes: int
+    key_tiles: int
+    qkv_tma: bool
+    bias_tma: bool
+    smem_bytes: int
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def bf16_smem_bytes(head_bucket: int, Tk: int, bias_tile: int) -> int:
+    """The bf16 kernel's shared memory (`bf16_smem` in the core): the query
+    tile (or the output's staging rows), every K and V tile, the bias
+    blocks staged by TMA (`bias_tile` bytes a key tile), the key mask, the
+    segment ids, a scratch of 32 ints, one mbarrier for Q and one a key
+    tile, and 1024 bytes to align the base."""
+    tile = BF16_TILE * head_bucket * 2
+    out = BF16_TILE * (head_bucket + 8) * 2
+    n_tiles = -(-Tk // BF16_TILE)
+    k = _round_up(max(tile, out), 1024)
+    km = k + 2 * n_tiles * tile + n_tiles * bias_tile
+    bar = _round_up(km + 8 * Tk + 4 * 32, 8)
+    return bar + 8 * (1 + n_tiles) + 1024
+
+
+def _tma_readable(t: Tensor, broadcast_ok: bool = False) -> bool:
+    """Whether a tensor map can describe the 4-d view `t`: its last
+    dimension contiguous, its base 16-byte aligned and every other stride
+    of a dimension longer than 1 a multiple of 16 bytes; a zero stride (a
+    broadcast) only where `broadcast_ok` and not in the rows' dimension."""
+    es = t.element_size()
+    if t.data_ptr() % 16 or (t.shape[-1] > 1 and t.stride(-1) != 1):
+        return False
+    for dim in range(t.dim() - 1):
+        n, s = t.shape[dim], t.stride(dim)
+        if n == 1:
+            continue
+        if s == 0 and not (broadcast_ok and dim < t.dim() - 2):
+            return False
+        if s * es % 16:
+            return False
+    return True
+
+
+def bf16_plan(q4: Tensor, k4: Tensor, v4: Tensor, bias4: Optional[Tensor] = None) -> Bf16Plan:
+    """The plan of one bf16 call on (B, H, T, D) views (K1's token-major
+    views included) and the bias expanded to (B, H, Tq, Tk), or None.
+    q/k/v go by TMA where all three can; the bias where its keys are
+    contiguous and its rows' stride and base meet TMA's 16-byte rules (a
+    zero head or row stride is a dimension of extent 1 in its map)."""
+    hs, Tk = q4.shape[-1], k4.shape[2]
+    bucket = 32 if hs <= 32 else 64 if hs <= 64 else 128
+    bias_tma = bias4 is not None and _tma_readable(bias4, broadcast_ok=True)
+    bias_tile = BF16_TILE * BF16_TILE * bias4.element_size() if bias_tma else 0
+    plan = Bf16Plan(head_bucket=bucket, swizzle_bytes=min(2 * bucket, 128),
+                    key_tiles=-(-Tk // BF16_TILE),
+                    qkv_tma=all(_tma_readable(t) for t in (q4, k4, v4)), bias_tma=bias_tma,
+                    smem_bytes=bf16_smem_bytes(bucket, Tk, bias_tile))
+    if plan.smem_bytes > MAX_SHARED_BYTES:
+        raise ValueError(f"the bf16 kernel needs {plan.smem_bytes} bytes of shared memory, "
+                         f"more than the {MAX_SHARED_BYTES} a block has")
+    return plan
+
+
+def _form(key_mask, bias, segments, causal) -> str:
+    if causal:
+        return "causal"
     if bias is not None:
         return ("bias_segments" if segments is not None
                 else "bias_key_mask" if key_mask is not None else "bias")
     return "key_mask" if key_mask is not None else "none"
+
+
+def _check_causal(q: Tensor, k: Tensor, bias: Optional[Tensor],
+                  segments: Optional[Tensor]) -> None:
+    """The causal form is GPT's self-attention: Tq == Tk, fp32, the causal
+    term in place of a bias, no segments."""
+    if k.shape[-2] != q.shape[-2]:
+        raise ValueError(f"causal attention needs Tq == Tk, got Tq={q.shape[-2]}, "
+                         f"Tk={k.shape[-2]}")
+    if bias is not None or segments is not None:
+        raise ValueError("the causal form computes its causal bias in the kernel: pass no bias "
+                         "and no segments")
+    if q.dtype != torch.float32:
+        raise ValueError(f"the causal form is fp32 (GPT has no compute dtype), got {q.dtype}")
 
 
 def _check(q4: Tensor, k4: Tensor, v4: Tensor, key_mask: Optional[Tensor],
@@ -138,30 +252,43 @@ def _check(q4: Tensor, k4: Tensor, v4: Tensor, key_mask: Optional[Tensor],
 
 
 def _launch(q4: Tensor, k4: Tensor, v4: Tensor, key_mask: Optional[Tensor],
-            bias: Optional[Tensor], segments: Optional[Tensor], out4: Tensor) -> None:
-    """Launch K2 on (B, H, T, Dh) views, writing through the view `out4`."""
+            bias: Optional[Tensor], segments: Optional[Tensor], out4: Tensor,
+            causal: bool = False) -> None:
+    """Launch K2 on (B, H, T, Dh) views, writing through the view `out4`
+    (`causal`: the causal form, its inputs checked by the caller)."""
     bias4 = _check(q4, k4, v4, key_mask, bias, segments)
+    bf16 = q4.dtype == torch.bfloat16
+    plan = bf16_plan(q4, k4, v4, bias4) if bf16 else None
     lib = build()
     B, H, Tq, hs = q4.shape
     Tk = k4.shape[2]
-    strides = [*q4.stride(), *k4.stride(), *v4.stride(),
-               *(bias4.stride() if bias4 is not None else (0, 0, 0, 0)), *out4.stride()]
-    packed = (ctypes.c_longlong * 20)(*strides)
-    bf16 = q4.dtype == torch.bfloat16
-    pointers = [q4.data_ptr(), k4.data_ptr(), v4.data_ptr(),
-                None if key_mask is None else key_mask.data_ptr(),
-                None if bias4 is None else bias4.data_ptr()]
-    if bf16:
-        fwd = lib.set_attention_bf16_fwd
-        pointers.append(int(bias4 is not None and bias4.dtype == torch.bfloat16))
-    else:
-        fwd = lib.set_attention_fwd
+    scale = 1.0 / float(hs) ** 0.5
+    mask = None if key_mask is None else key_mask.data_ptr()
     with torch.cuda.device(q4.device):
         stream = torch.cuda.current_stream(q4.device).cuda_stream
-        rc = fwd(*pointers, None if segments is None else segments.data_ptr(),
-                 out4.data_ptr(), packed, B, H, Tq, Tk, hs, 1.0 / float(hs) ** 0.5, stream)
+        if causal:
+            packed = (ctypes.c_longlong * 16)(*q4.stride(), *k4.stride(), *v4.stride(),
+                                              *out4.stride())
+            rc = lib.set_attention_causal_fwd(q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), mask,
+                                              out4.data_ptr(), packed, B, H, Tq, hs, scale,
+                                              stream)
+        else:
+            packed = (ctypes.c_longlong * 20)(
+                *q4.stride(), *k4.stride(), *v4.stride(),
+                *(bias4.stride() if bias4 is not None else (0, 0, 0, 0)), *out4.stride())
+            pointers = [q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), mask,
+                        None if bias4 is None else bias4.data_ptr()]
+            seg = None if segments is None else segments.data_ptr()
+            if bf16:
+                rc = lib.set_attention_bf16_fwd(
+                    *pointers, int(bias4 is not None and bias4.dtype == torch.bfloat16), seg,
+                    out4.data_ptr(), packed, B, H, Tq, Tk, hs, scale, int(plan.qkv_tma),
+                    int(plan.bias_tma), plan.smem_bytes, stream)
+            else:
+                rc = lib.set_attention_fwd(*pointers, seg, out4.data_ptr(), packed, B, H, Tq, Tk,
+                                           hs, scale, stream)
     _LIB.check(rc)
-    (LAUNCHES_BF16 if bf16 else LAUNCHES)[_form(key_mask, bias, segments)] += 1
+    (LAUNCHES_BF16 if bf16 else LAUNCHES)[_form(key_mask, bias, segments, causal)] += 1
 
 
 def _heads(x: Tensor, n_head: int) -> Tensor:
@@ -174,16 +301,16 @@ class _SetAttention(torch.autograd.Function):
     means head-major q/k/v, else token-major with that many heads."""
 
     @staticmethod
-    def forward(ctx, q, k, v, key_mask, bias, segments, n_head):
+    def forward(ctx, q, k, v, key_mask, bias, segments, n_head, causal):
         ctx.save_for_backward(q, k, v, key_mask, bias, segments)
-        ctx.n_head = n_head
+        ctx.n_head, ctx.causal = n_head, causal
         if n_head is None:
             out = q.new_empty(q.shape[:3] + (v.shape[-1],))
-            _launch(q, k, v, key_mask, bias, segments, out)
+            _launch(q, k, v, key_mask, bias, segments, out, causal)
         else:
             out = q.new_empty(q.shape)
             _launch(_heads(q, n_head), _heads(k, n_head), _heads(v, n_head), key_mask, bias,
-                    segments, _heads(out, n_head))
+                    segments, _heads(out, n_head), causal)
         return out
 
     @staticmethod
@@ -196,13 +323,15 @@ class _SetAttention(torch.autograd.Function):
                 b = inputs[3]
             else:
                 b = bias
+            if ctx.causal:
+                b = causal_bias(q.shape[-2], q.device)
             if ctx.n_head is None:
                 out = attention_reference(*inputs[:3], key_mask, b)
             else:
                 out = attention_btc_reference(*inputs[:3], ctx.n_head, key_mask, segments, b)
             grads = torch.autograd.grad(out, inputs, grad_out)
         dbias = grads[3] if len(grads) == 4 else None
-        return grads[0], grads[1], grads[2], None, dbias, None, None
+        return grads[0], grads[1], grads[2], None, dbias, None, None, None
 
 
 def set_attention(q: Tensor, k: Tensor, v: Tensor, key_mask: Optional[Tensor] = None,
@@ -213,19 +342,23 @@ def set_attention(q: Tensor, k: Tensor, v: Tensor, key_mask: Optional[Tensor] = 
     bf16 q/k/v).  Returns (B, H, Tq, Dh) in q's dtype."""
     if q.dim() != 4:
         raise ValueError(f"q must be (B, H, T, Dh), got {tuple(q.shape)}")
-    return _SetAttention.apply(q, k, v, key_mask, bias, None, None)
+    return _SetAttention.apply(q, k, v, key_mask, bias, None, None, False)
 
 
 def set_attention_btc(q: Tensor, k: Tensor, v: Tensor, n_head: int,
                       key_mask: Optional[Tensor] = None, bias: Optional[Tensor] = None,
-                      segments: Optional[Tensor] = None) -> Tensor:
+                      segments: Optional[Tensor] = None, causal: bool = False) -> Tensor:
     """K2 on token-major CUDA tensors: q (B, Tq, C), k/v (B, Tk, C), all fp32
     or all bf16, with the heads packed in C, key_mask (B, Tk) fp32, bias
     broadcastable to (B, H, Tq, Tk) (fp32, or bf16 with bf16 q/k/v),
-    segments (B, T) int32 (pads -1, needs a bias and Tq == Tk).  Returns
-    (B, Tq, C) in q's dtype."""
+    segments (B, T) int32 (pads -1, needs a bias and Tq == Tk).  With
+    `causal` (fp32, Tq == Tk, no bias, no segments) key j > query i is
+    masked by -1e9 in the kernel, exactly the additive causal bias of
+    `ops.attention.causal_bias`.  Returns (B, Tq, C) in q's dtype."""
     if q.dim() != 3:
         raise ValueError(f"q must be (B, T, C), got {tuple(q.shape)}")
     if n_head <= 0 or q.shape[-1] % n_head:
         raise ValueError(f"C={q.shape[-1]} is not a multiple of n_head={n_head}")
-    return _SetAttention.apply(q, k, v, key_mask, bias, segments, n_head)
+    if causal:
+        _check_causal(q, k, bias, segments)
+    return _SetAttention.apply(q, k, v, key_mask, bias, segments, n_head, causal)

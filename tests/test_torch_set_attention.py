@@ -43,7 +43,8 @@ ATOL = 1e-5
 # gradients go through two softmax backward passes in different orders
 GRAD_ATOL = 2e-4
 
-ZERO_K2 = {"bias_segments": 0, "bias": 0, "bias_key_mask": 0, "key_mask": 0, "none": 0}
+ZERO_K2 = {"bias_segments": 0, "bias": 0, "bias_key_mask": 0, "key_mask": 0, "none": 0,
+           "causal": 0}
 
 
 def _rng(seed):
@@ -184,8 +185,8 @@ def test_btc_gradients_with_bias_and_segments_match_jax():
 
 def _backward(saved, n_head, g):
     """Run the K2 autograd backward on CPU tensors with a stand-in ctx."""
-    ctx = types.SimpleNamespace(saved_tensors=saved, n_head=n_head,
-                                needs_input_grad=(True,) * 7)
+    ctx = types.SimpleNamespace(saved_tensors=saved, n_head=n_head, causal=False,
+                                needs_input_grad=(True,) * 8)
     return k2._SetAttention.backward(ctx, g)
 
 
