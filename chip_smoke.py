@@ -808,32 +808,44 @@ def drive(name, system, mult, steps, expect, counters=("K1", "K2")):
     return launches, res
 
 
-def sampler_vs_cpu(name, system, cfg_kw, dev, steps=8, rows=8, atol=1e-4, tokens_equal=0.99):
+def sampler_vs_cpu(name, system, cfg_kw, dev, steps=8, rows=8, atol=1e-4, tokens_equal=0.99,
+                   width=128, packed=True):
     """The MMF sampler on the card and on the CPU (plain attention), same
     weights, source, segments and uniforms (continuous within `atol`, at
-    least `tokens_equal` of the real sites' tokens equal); returns the
-    continuous error and the tokens' share."""
+    least `tokens_equal` of the real sites' tokens equal), on packed rows
+    of `width` or (`packed` False) on padded jets of up to `width`, one of
+    them at the full width; returns the continuous error and the tokens'
+    share."""
     cfg = system.config
     cpu_system = build_system(Config(**cfg_kw), system.name, device="cpu",
                               generator=torch.Generator().manual_seed(0))
     rng = np.random.default_rng(1)
-    mult = _multiplicities(rng, 4 * rows, 128)
-    row_of, offset_of, n_rows = pack_jets(mult, 128)
-    mask, seg = build_packed_rows(_pad_masks(mult, 128), row_of, offset_of, n_rows, 128)
-    mask, seg = mask[:rows].astype(np.int32), seg[:rows]
-    x0 = (rng.normal(size=(rows, 128, 3)) * mask).astype(np.float32)
-    k0 = (rng.integers(1, 9, size=(rows, 128, 1)) * mask).astype(np.int32)
-    us = rng.uniform(size=(steps, rows, 128)).astype(np.float32)
+    if packed:
+        mult = _multiplicities(rng, 4 * rows * width // 128, min(width, cfg.max_num_particles))
+        row_of, offset_of, n_rows = pack_jets(mult, width)
+        mask, seg = build_packed_rows(_pad_masks(mult, int(mult.max())), row_of, offset_of,
+                                      n_rows, width)
+        mask, seg = mask[:rows].astype(np.int32), seg[:rows]
+        real = seg >= 0
+    else:
+        mult = np.concatenate([[width], rng.integers(width // 2, width + 1, size=rows - 1)])
+        mask, seg = _pad_masks(mult, width).astype(np.int32), None
+        real = mask[..., 0] > 0
+    x0 = (rng.normal(size=(rows, width, 3)) * mask).astype(np.float32)
+    k0 = (rng.integers(1, 9, size=(rows, width, 1)) * mask).astype(np.int32)
+    us = rng.uniform(size=(steps, rows, width)).astype(np.float32)
     outs = []
     for sys_, d in ((system, dev), (cpu_system, torch.device("cpu"))):
         src = MultiModal(time=torch.full((rows,), cfg.time_eps), continuous=torch.from_numpy(x0),
                          discrete=torch.from_numpy(k0), mask=torch.from_numpy(mask)).to(d)
-        outs.append(sys_.simulate(src, steps, segments=torch.from_numpy(seg).to(d),
+        segments = None if seg is None else torch.from_numpy(seg).to(d)
+        outs.append(sys_.simulate(src, steps, segments=segments,
                                   uniforms=torch.from_numpy(us).to(d)).to("cpu"))
-    real = torch.from_numpy(seg >= 0)
+    real = torch.from_numpy(real)
     err = float((outs[0].continuous - outs[1].continuous).abs()[real].max())
     same = float((outs[0].discrete[..., 0] == outs[1].discrete[..., 0])[real].float().mean())
-    print(f"{name} sampler card vs CPU, {steps} steps x {rows} packed rows: continuous "
+    layout = f"packed rows of {width}" if packed else f"padded jets of up to {width}"
+    print(f"{name} sampler card vs CPU, {steps} steps x {rows} {layout}: continuous "
           f"max_abs_err {err:.3e} (atol {atol}), tokens equal on {same:.4f} of real sites "
           f"(>= {tokens_equal})")
     if err > atol or same < tokens_equal:
@@ -876,27 +888,28 @@ def _bridge_states(batch, time_eps, seed=3):
     return t_jets, states, drift
 
 
-def train_card_vs_cpu(dev, train_ds):
+def train_card_vs_cpu(dev, train_ds, cfg_kw=TRAIN):
     """The flagship's packed training loss and every parameter gradient on
     the card and on the CPU (plain attention), same weights, one packed
     batch, shared bridge states; then one optimizer update (clip, Adam,
     EMA) from the card's gradients on both."""
-    cfg = Config(**TRAIN)
+    cfg = Config(**cfg_kw)
     sides = {side: (d, build_system(cfg, "MMF", device=d,
                                     generator=torch.Generator().manual_seed(0)))
              for side, d in (("card", dev), ("cpu", torch.device("cpu")))}
     batch = _first_batch(Trainer(sides["card"][1], cfg), train_ds)
     t_jets, states, drift = _bridge_states(batch, cfg.time_eps)
-    loss, grads = {}, {}
+    loss, grads, launches = {}, {}, {}
     for side, (d, system) in sides.items():
         b = batch.to(d)
         state = MultiModal(**{f: torch.from_numpy(a) for f, a in states.items()}).to(d)
-        k1.reset_launch_counts()
+        _reset_counts()
         out = system.module.packed_training_loss(state, torch.from_numpy(drift).to(d),
                                                  b.discrete, torch.from_numpy(t_jets).to(d),
                                                  b.segments, b.jet_valid)
         out[0].backward()
         loss[side] = out[0].item()
+        launches[side] = _counts()
         grads[side] = {n: p.grad.cpu() for n, p in system.module.named_parameters()}
         print(f"training loss on the {side}: {loss[side]:.7f} ({len(b)} rows x {b.width}, "
               f"{b.num_jets} jets; K1 launches {sum(k1.LAUNCHES.values())})")
@@ -925,6 +938,7 @@ def train_card_vs_cpu(dev, train_ds):
           f"{err:.3e} (atol {UPDATE_ATOL})")
     if err > UPDATE_ATOL:
         raise AssertionError("the optimizer update on the card disagrees with the CPU")
+    return launches["card"]
 
 
 def fit_fixed_batch(dev, train_ds, steps=30, name="flagship", kind="MMF", cfg_kw=TRAIN):
@@ -2314,7 +2328,8 @@ BF16_STRIDED_BIAS = (32, 128, 256, 4)
 
 def _plan_of(q, k, v, H=None, bias=None) -> str:
     """The bf16 core's host plan of a call, for the record: which operands
-    go by TMA and the shared memory."""
+    go by TMA, the shared memory, the ring's stages of the key tiles and
+    the slices of the head."""
     views = [t if H is None else k2._heads(t, H) for t in (q, k, v)]
     bias4 = None
     if bias is not None:
@@ -2323,7 +2338,8 @@ def _plan_of(q, k, v, H=None, bias=None) -> str:
     plan = k2.bf16_plan(*views, bias4)
     return (f"[q/k/v {'TMA' if plan.qkv_tma else 'staged'}, bias "
             f"{'none' if bias is None else 'TMA' if plan.bias_tma else 'per fragment'}, "
-            f"{plan.smem_bytes} B shared]")
+            f"{plan.smem_bytes} B shared, {plan.stages} of {plan.key_tiles} key tiles, "
+            f"{plan.slices} slice(s)]")
 
 
 def check_bf16_kernels(dev) -> dict:
@@ -2525,6 +2541,433 @@ def bf16_phase(dev, mult, fp32_sample, train_ds):
     return res
 
 
+# ------------------------------------------------------------------ wide
+#
+# The kernels past 256 keys and past a head size of 128 (`wide_phase`):
+# the fp32 core's key tiles under per-window need masks and its sliced form
+# (a block a slice of 128 output columns), the bf16 core's ring of stages
+# and its sliced form, each form against its plain version on the card;
+# then the slice at those shapes at the flagship's width: bucketed
+# sampling at D = 300, packed rows of 512 (sampling and a train step), the
+# co-occurrence MMF at D = 300, GPT at max_num_particles 300 (sequences of
+# 302), the flagship at one head (head sizes 128 and 256), the bf16 forms,
+# and both entry points at `--max_num_particles 300 --pack_width 512`.
+
+WIDE_D, WIDE_PACK = 300, 512
+# (B, Tq, Tk, C, H, form): K1 in its key-mask and segment forms, K2 with a
+# bias (+ segments or key mask), causal (+ key mask), the decode's key-mask
+# form at Tq = 1, and head-major (CrossAttention, a (B, 1, Tq, Tk) bias)
+WIDE_CASES = (
+    [(8, T, T, 256, 4, f) for T in (257, 300) for f in ("key_mask", "segments")]
+    + [(8, 302, 302, 256, 4, "key_mask"), (4, 512, 512, 256, 4, "segments"),
+       (4, 512, 512, 256, 4, "key_mask"), (2, 1024, 1024, 256, 4, "segments"),
+       (2, 1024, 1024, 256, 4, "key_mask"), (1, 2048, 2048, 256, 4, "segments"),
+       (1, 2048, 2048, 256, 4, "key_mask"), (1, 2048, 2048, 64, 1, "segments"),
+       (8, 300, 300, 272, 2, "key_mask"), (8, 300, 300, 272, 2, "segments"),
+       (8, 300, 300, 320, 2, "segments"), (8, 300, 300, 256, 1, "key_mask"),
+       (8, 300, 300, 256, 1, "segments"), (4, 300, 300, 512, 1, "key_mask"),
+       (4, 257, 257, 512, 1, "segments")]
+    + [(8, T, T, 256, 4, f) for T in (300, 302) for f in ("bias_segments", "bias", "bias_key_mask")]
+    + [(4, 512, 512, 256, 4, "bias_segments"), (8, 300, 300, 320, 2, "bias_segments"),
+       (4, 300, 300, 512, 1, "bias"), (8, 300, 300, 272, 2, "bias_key_mask"),
+       (8, 257, 257, 256, 4, "causal"), (8, 302, 302, 256, 4, "causal_key_mask"),
+       (2, 1024, 1024, 256, 4, "causal"), (4, 302, 302, 256, 1, "causal"),
+       (64, 1, 257, 256, 4, "decode"), (64, 1, 302, 256, 4, "decode"),
+       (16, 1, 302, 512, 2, "decode"), (4, 20, 300, 256, 4, "head_major"),
+       (2, 20, 512, 320, 2, "head_major")])
+# the bf16 forms: the bias fp32 where its rows meet TMA's rule (T % 4 ==
+# 0), bf16 otherwise; head sizes 36 and 140 stage q/k/v in the kernel (in
+# the ring and in slices)
+WIDE_BF16_CASES = [
+    (8, 300, 300, 256, 4, "key_mask"), (8, 300, 300, 256, 4, "segments"),
+    (4, 512, 512, 256, 4, "segments"), (1, 2048, 2048, 256, 4, "segments"),
+    (2, 1024, 1024, 144, 4, "key_mask"), (8, 300, 300, 256, 1, "key_mask"),
+    (8, 300, 300, 280, 2, "segments"), (4, 300, 300, 512, 1, "segments"),
+    (8, 300, 300, 256, 4, "bias_segments"), (8, 302, 302, 256, 4, "bias_segments"),
+    (8, 300, 300, 256, 4, "bias_key_mask"), (2, 1024, 1024, 256, 4, "bias"),
+    (8, 300, 300, 320, 2, "bias_segments"), (64, 1, 302, 256, 4, "decode"),
+    (4, 20, 300, 256, 4, "head_major")]
+# fp32 gradients (q, k, v and a bias's) through each wide form's backward
+WIDE_GRAD_CASES = [(4, 512, 512, 256, 4, "segments"), (4, 300, 300, 256, 1, "key_mask"),
+                   (4, 300, 300, 256, 4, "bias"), (4, 302, 302, 256, 4, "causal"),
+                   (4, 300, 300, 320, 2, "bias_segments")]
+WIDE_BF16_GRAD_CASE = (4, 512, 512, 256, 4, "segments")
+WIDE_FLAGSHIP = dict(FLAGSHIP, max_num_particles=WIDE_D)
+WIDE_COOCC = dict(WIDE_FLAGSHIP, use_coocurrence=True)
+WIDE_TRAIN = dict(TRAIN, max_num_particles=WIDE_D, pack_width=WIDE_PACK)
+WIDE_ONE_HEAD = dict(FLAGSHIP, n_head=1)  # head sizes 128 (half-width blocks) and 256
+WIDE_CLI_ARGV = ["--packed_training", "--pack_width", str(WIDE_PACK), "--max_num_particles",
+                 str(WIDE_D), "--max_epochs", "2", "--train_frac", "0.8"]
+WIDE_GPT_ARGV = ["--system", "GPT", "--max_num_particles", str(WIDE_D)]
+WIDE_GPT_ROWS = 4
+
+
+def _wide_case(case, dev, dtype=torch.float32, seed=0):
+    """One wide case: (kernel, plain, sdpa kwargs, token-major plain output,
+    rows compared, q, k, v, bias or None, the bound's pairs and extra
+    bytes).  The key mask leaves 2..Tk keys a row (the decode: keys <= a
+    position), the segments are packed jets of Poisson(40) multiplicity."""
+    B, Tq, Tk, C, H, form = case
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    q = torch.randn((B, Tq, C), generator=gen, device=dev).to(dtype)
+    k, v = (torch.randn((B, Tk, C), generator=gen, device=dev).to(dtype) for _ in range(2))
+    km = seg = bias = pbias = None
+    rows = torch.ones((B, Tq), dtype=torch.bool, device=dev)
+    keys = torch.ones((B, Tk), dtype=torch.bool, device=dev)
+    if "key_mask" in form or form in ("decode", "head_major"):
+        n = torch.from_numpy(rng.integers(2, Tk + 1, size=B)).to(dev)
+        keys = torch.arange(Tk, device=dev)[None, :] < n[:, None]
+        km = torch.where(keys, 0.0, -1e9).to(torch.float32)
+    if "segments" in form:
+        seg = torch.from_numpy(_packed_segments(B, Tq, rng)).to(dev)
+        rows = seg >= 0
+    if form.startswith("bias") or form == "head_major":
+        bias_dtype = BF16 if dtype == BF16 and Tk % 4 else torch.float32
+        heads = 1 if form == "head_major" else H
+        bias = pbias = torch.randn((B, heads, Tq, Tk), generator=gen, device=dev).to(bias_dtype)
+    causal = form.startswith("causal")
+    if causal:
+        pbias = _causal_bias(Tq, dev)
+    same = torch.ones((B, Tq, Tk), dtype=torch.bool, device=dev)
+    if seg is not None:
+        same = seg[:, :, None] == seg[:, None, :]
+    pair = same & keys[:, None, :] & rows[:, :, None]
+    if causal:
+        pair &= torch.ones((Tq, Tk), dtype=torch.bool, device=dev).tril()[None]
+    mask = torch.zeros((B, 1, Tq, Tk), device=dev)
+    if km is not None:
+        mask = mask + km[:, None, None, :]
+    if pbias is not None:
+        mask = mask + pbias.float()
+    if seg is not None:
+        mask = torch.where(same[:, None], mask, -1e9)
+    sdpa = dict(is_causal=True) if form == "causal" else dict(attn_mask=mask.to(dtype))
+    ref_btc = attention_btc_reference(q, k, v, H, km, seg, pbias)
+    if form in ("key_mask", "segments"):
+        kernel = lambda: k1.btc_attention(q, k, v, H, km, seg)  # noqa: E731
+        plain = lambda: attention_btc_reference(q, k, v, H, km, seg)  # noqa: E731
+    elif form == "head_major":
+        qh, kh, vh = (t.view(B, t.shape[1], H, C // H).transpose(1, 2) for t in (q, k, v))
+        kernel = lambda: k2.set_attention(qh, kh, vh, km, bias)  # noqa: E731
+        plain = lambda: attention_reference(qh, kh, vh, km, bias)  # noqa: E731
+    elif causal:
+        kernel = lambda: k2.set_attention_btc(q, k, v, H, km, causal=True)  # noqa: E731
+        plain = lambda: attention_btc_reference(q, k, v, H, km, None, pbias)  # noqa: E731
+    else:
+        kernel = lambda: k2.set_attention_btc(q, k, v, H, km, bias, seg)  # noqa: E731
+        plain = lambda: attention_btc_reference(q, k, v, H, km, seg, bias)  # noqa: E731
+    pairs = int(pair.sum())
+    es = q.element_size()
+    extra = 4 * B * Tk * (km is not None) + 4 * B * Tq * (seg is not None)
+    if bias is not None:
+        extra += bias.element_size() * (H if bias.shape[1] == H else 1) * pairs
+    needed_keys = int(keys.sum()) if form == "decode" else B * Tk
+    nbytes = es * (2 * q.numel() + 2 * needed_keys * C) + extra
+    return dict(kernel=kernel, plain=plain, sdpa=sdpa, ref_btc=ref_btc, rows=rows, q=q, k=k, v=v,
+                bias=bias, km=km, seg=seg, pairs=pairs, nbytes=nbytes, flops=4 * C * pairs)
+
+
+def _wide_name(case, dtype=torch.float32):
+    B, Tq, Tk, C, H, form = case
+    tag = "K1" if form in ("key_mask", "segments") else "K2"
+    return (f"{tag}{' bf16' if dtype == BF16 else ''} {form} B={B} Tq={Tq} Tk={Tk} C={C} H={H} "
+            f"(head size {C // H})")
+
+
+def check_wide_kernels(dev) -> dict:
+    """Every wide case against its plain version (fp32 within ATOL / RTOL,
+    bf16 within BF16_ATOL / BF16_RTOL), the gradients of the fp32 forms
+    within GRAD_ATOL and of one bf16 form; each bf16 case prints its plan,
+    and the ring that wraps, the slices and the staged q/k/v in both must
+    have run.  Returns the worst errors by kernel and dtype."""
+    worst = {"K1": 0.0, "K2": 0.0, "K1_bf16": 0.0, "K2_bf16": 0.0}
+    seen = set()
+    for dtype, cases, tol in ((torch.float32, WIDE_CASES, dict(atol=ATOL, rtol=RTOL)),
+                              (BF16, WIDE_BF16_CASES, dict(atol=BF16_ATOL, rtol=BF16_RTOL))):
+        for case in cases:
+            c = _wide_case(case, dev, dtype)
+            name = _wide_name(case, dtype)
+            if dtype == BF16:
+                plan = _plan_of(c["q"], c["k"], c["v"], case[4], c["bias"])
+                name += f" {plan}"
+                stages, tiles = (int(x) for x in plan.split(" key tiles")[0].split(", ")[-1]
+                                 .split(" of "))
+                slices = int(plan.split(" slice")[0].split(", ")[-1])
+                staged = "staged" in plan
+                seen |= {("ring" if stages < tiles else "resident", staged),
+                         ("slices" if slices > 1 else "whole head", staged)}
+            out, ref = c["kernel"](), c["plain"]()
+            rows = c["rows"] if case[-1] != "head_major" else torch.ones(
+                out.shape[:3], dtype=torch.bool, device=dev)
+            key = ("K1" if case[-1] in ("key_mask", "segments") else "K2") + (
+                "_bf16" if dtype == BF16 else "")
+            worst[key] = max(worst[key], _held(f"{name} vs plain", out, ref, rows, **tol))
+    need = {("ring", False), ("ring", True), ("slices", False), ("slices", True)}
+    if not need <= seen:
+        raise AssertionError(f"the bf16 wide checks ran {sorted(seen)}, not all of {sorted(need)}")
+    for case in WIDE_GRAD_CASES:
+        c = _wide_case(case, dev, seed=1)
+        B, Tq, Tk, C, H, form = case
+        km, seg = c["km"], c["seg"]
+        if form in ("key_mask", "segments"):
+            fns = [lambda a, b_, d: k1.btc_attention(a, b_, d, H, km, seg),
+                   lambda a, b_, d: attention_btc_reference(a, b_, d, H, km, seg)]
+            leaves = [c["q"], c["k"], c["v"]]
+        elif form == "causal":
+            cb = _causal_bias(Tq, dev)
+            fns = [lambda a, b_, d: k2.set_attention_btc(a, b_, d, H, km, causal=True),
+                   lambda a, b_, d: attention_btc_reference(a, b_, d, H, km, None, cb)]
+            leaves = [c["q"], c["k"], c["v"]]
+        else:
+            fns = [lambda a, b_, d, e: k2.set_attention_btc(a, b_, d, H, km, e, seg),
+                   lambda a, b_, d, e: attention_btc_reference(a, b_, d, H, km, seg, e)]
+            leaves = [c["q"], c["k"], c["v"], c["bias"]]
+        _grads_held(_wide_name(case), fns, leaves)
+    c = _wide_case(WIDE_BF16_GRAD_CASE, dev, BF16, seed=2)
+    H, seg = WIDE_BF16_GRAD_CASE[4], c["seg"]
+    up = torch.randn(c["q"].shape, device=dev)
+    _grads_held(_wide_name(WIDE_BF16_GRAD_CASE, BF16),
+                [lambda a, b_, d: k1.btc_attention(a, b_, d, H, None, seg),
+                 lambda a, b_, d: attention_btc_reference(a, b_, d, H, None, seg)],
+                [c["q"], c["k"], c["v"]], upstream=up, atol=BF16_GRAD_ATOL, rtol=BF16_GRAD_RTOL)
+    return worst
+
+
+def time_wide_kernels(dev) -> dict:
+    """{name: times} of every wide case: the kernel, its plain version and
+    scaled_dot_product_attention (the equivalent float mask, `is_causal`
+    for the causal form without a key mask) as device time, median of 40 in
+    turns, and the bound: q and the output, the keys this data needs (every
+    key; the decode's up to its position) of k and v, the key mask, the ids
+    and the bias of the needed pairs at the HBM rate, against QK^T and PV
+    over the needed pairs at the kernel's tensor-core rate."""
+    result = {}
+    with torch.no_grad():
+        for dtype, cases in ((torch.float32, WIDE_CASES), (BF16, WIDE_BF16_CASES)):
+            for case in cases:
+                c = _wide_case(case, dev, dtype, seed=3)
+                name = _wide_name(case, dtype)
+                B, Tq, Tk, C, H, form = case
+                library = _library_call(c["q"], c["k"], c["v"], H, c["ref_btc"], c["rows"], name,
+                                        atol=BF16_LIBRARY_ATOL if dtype == BF16 else 1e-4,
+                                        **c["sdpa"])
+                ms, plain_ms, library_ms = median_device_ms([c["kernel"], c["plain"], library])
+                rate = BF16_FLOP_PER_S if dtype == BF16 else KERNEL_FLOP_PER_S
+                bound_ms, bound_by = _roofline(c["nbytes"], c["flops"], rate)
+                t = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                         bound_by=bound_by)
+                _print_time(name.split(" ")[0], case[:5], " ".join(name.split(" ")[1:]), t)
+                result[name] = t
+    return result
+
+
+def _counted(fn, model_cls=particle_transformers.ParticleFormer):
+    """(fn's result, the launch counts, the forwards of `model_cls`) with
+    the counts set to 0 just before fn and read just after."""
+    _reset_counts()
+    with _Forwards(model_cls) as forwards:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, _counts(), forwards.count
+
+
+def _expect(name, launches, want, k1_per_forward=0, forwards=0):
+    """`want`: {counter: {form: n}} that must equal the counts (the other
+    counters 0, no plain dropout call); `k1_per_forward` K1 launches (of the
+    run's dtype) a forward of the encoder, where given."""
+    zero = {c: {f: 0 for f in launches[c]} for c in launches}
+    expected = {c: dict(zero[c], **want.get(c, {})) for c in launches}
+    for c, forms in want.items():
+        for f, n in forms.items():
+            if n is None:  # some, not counted here
+                expected[c][f] = launches[c][f] if launches[c][f] > 0 else 1
+    print(f"{name}: launches {launches}")
+    if launches != expected:
+        raise AssertionError(f"{name}: launches {launches}, expected {expected}")
+    if k1_per_forward:
+        total = _total(launches["K1"]) + _total(launches["K1_bf16"])
+        if total != k1_per_forward * forwards:
+            raise AssertionError(f"{name}: {total} K1 launches for {forwards} forwards, not "
+                                 f"{k1_per_forward} a forward")
+
+
+def _wide_gpt(dev, out_dir) -> dict:
+    """GPT at max_num_particles 300 (sequences of 302) at the CLI's widths:
+    the full forward's logits, the loss and every parameter gradient on
+    the card against the CPU, the KV-cached decode against the full forward
+    and greedy / Gumbel generation against the CPU; K2's causal form
+    n_layer launches a forward, its key-mask form n_layer a decode step."""
+    from multimodal_flows_tpu_torch.models.gpt import FlavorSeqGPT
+
+    cfg, _ = train_mmf.experiment_configs(WIDE_GPT_ARGV + ["--dir", out_dir])
+    rng = np.random.default_rng(23)
+    mult = np.concatenate([[WIDE_D], rng.integers(150, WIDE_D + 1, size=3 * WIDE_GPT_ROWS)])
+    x, tok, mask = _physical_jets(rng, mult, WIDE_D)
+    train_ds, _ = train_mmf.split_jets(MultiModal(continuous=x, discrete=tok, mask=mask), cfg,
+                                       "GPT")
+    system = train_mmf.build_trainer(cfg, "GPT", dev).system
+    cpu = build_system(cfg, "GPT", device="cpu", generator=torch.Generator().manual_seed(0))
+    cpu.module.load_state_dict({k: v.cpu() for k, v in system.module.state_dict().items()})
+    T, n_layer = system.module.seq_len, cfg.n_layer
+    ids = torch.from_numpy(train_ds.coupling.target.discrete[:WIDE_GPT_ROWS]).to(dev)
+    batch = DataCoupling(target=MultiModal(discrete=ids.cpu()))
+    res = {"shape": f"{len(ids)} sequences of {T}"}
+    grads, losses = {}, {}
+    for side, s in (("card", system), ("cpu", cpu)):
+        s.module.zero_grad()
+        (loss, _), launches, forwards = _counted(
+            lambda: s.loss_fn(batch.to(s.device), train=False), FlavorSeqGPT)
+        loss.backward()
+        losses[side] = loss.item()
+        grads[side] = {n: p.grad.cpu() for n, p in s.module.named_parameters()}
+        if side == "card":
+            _expect(f"GPT at {T} tokens, the loss's forward", launches,
+                    {"K2": {"causal": n_layer * forwards}})
+            res["launches_loss"] = launches["K2"]
+    rel = abs(losses["card"] - losses["cpu"]) / abs(losses["cpu"])
+    worst = max(float(((grads["card"][n] - g).abs() / (TRAIN_GRAD_ATOL + TRAIN_GRAD_RTOL
+                                                        * g.abs())).max())
+                for n, g in grads["cpu"].items())
+    print(f"GPT at {T} tokens card vs CPU: loss rel err {rel:.3e} (<= {GPT_LOSS_RTOL}); "
+          f"gradients worst |diff| / (atol {TRAIN_GRAD_ATOL} + rtol {TRAIN_GRAD_RTOL} |g|) = "
+          f"{worst:.3f} (<= 1)")
+    if rel > GPT_LOSS_RTOL or worst > 1.0:
+        raise AssertionError("GPT at 302 tokens: the loss or its gradients disagree with the CPU")
+    with torch.no_grad():
+        full = system.module(ids)
+
+        def decode():
+            caches, out = system.module.init_cache(len(ids)), []
+            for t in range(T):
+                logits, caches = system.module.decode(ids[:, t], t, caches)
+                out.append(logits)
+            return torch.stack(out, 1)
+
+        steps, launches, _ = _counted(decode)
+    _expect(f"GPT decode over {T} positions", launches, {"K2": {"key_mask": n_layer * T}})
+    err = float((steps - full).abs().max())
+    print(f"GPT decode vs the full forward at {T} positions: max_abs_err {err:.3e} (atol "
+          f"{GPT_DECODE_ATOL})")
+    if err > GPT_DECODE_ATOL:
+        raise AssertionError("GPT at 302 tokens: the decode disagrees with the full forward")
+    res.update(loss_rel_err=rel, grad_worst=worst, decode_vs_full=err,
+               card_vs_cpu=_gpt_card_vs_cpu(dev, system, cpu, ids.cpu()),
+               launches_decode=launches["K2"])
+    return res
+
+
+def _wide_models(dev) -> dict:
+    """The slice at the wide shapes, the flagship's width, each path held
+    against the CPU and its launch counts read: K1 or K2 serve every
+    forward attention, no plain forward runs on the card."""
+    blocks = 2 * FLAGSHIP["n_layer"] + FLAGSHIP["n_layer_fused"]
+    res = {}
+    runs = [
+        ("bucketed sampling at D = 300", "MMF", WIDE_FLAGSHIP,
+         dict(width=WIDE_D, packed=False), {"K1": {"key_mask": None}}, blocks),
+        ("packed sampling on rows of 512", "MMF", WIDE_FLAGSHIP,
+         dict(width=WIDE_PACK, packed=True, rows=4), {"K1": {"segments": None}}, blocks),
+        ("co-occurrence MMF at D = 300", "MMF", WIDE_COOCC,
+         dict(width=WIDE_D, packed=False), {"K2": {"bias": None}}, 0),
+        ("co-occurrence MMF on rows of 512", "MMF", WIDE_COOCC,
+         dict(width=WIDE_PACK, packed=True, rows=4), {"K2": {"bias_segments": None}}, 0),
+        ("flagship at one head (head sizes 128 and 256)", "MMF", WIDE_ONE_HEAD,
+         dict(width=128, packed=True), {"K1": {"segments": None}}, blocks),
+        ("bf16 bucketed sampling at D = 300", "MMF", dict(WIDE_FLAGSHIP, compute_dtype="bfloat16"),
+         dict(width=WIDE_D, packed=False, atol=BF16_SAMPLER_ATOL, tokens_equal=BF16_TOKENS_EQUAL),
+         {"K1_bf16": {"key_mask": None}}, blocks),
+        ("bf16 packed sampling on rows of 512", "MMF",
+         dict(WIDE_FLAGSHIP, compute_dtype="bfloat16"),
+         dict(width=WIDE_PACK, packed=True, rows=4, atol=BF16_SAMPLER_ATOL,
+              tokens_equal=BF16_TOKENS_EQUAL), {"K1_bf16": {"segments": None}}, blocks),
+    ]
+    for name, kind, cfg_kw, kw, want, per_forward in runs:
+        system = _system(kind, cfg_kw, dev)
+        err, launches, forwards = _counted(
+            lambda: sampler_vs_cpu(f"wide: {name}", system, cfg_kw, dev, steps=4, **kw))
+        # the CPU side's forwards are counted too, and launch nothing
+        _expect(f"wide: {name}", launches, want, per_forward, forwards // 2)
+        res[name] = dict(err=err, launches=launches)
+        del system
+    rng = np.random.default_rng(29)
+    launches = train_card_vs_cpu(dev, _split_dataset(rng, _wide_mult(rng, 512), WIDE_D)[0],
+                                 WIDE_TRAIN)
+    k1_card = launches["K1"]["segments"]
+    print(f"wide: a packed train step on rows of 512: launches {launches}")
+    if not k1_card or _total(launches["K2"]) or _total(launches["plain_dropout"]) or \
+            k1_card != _total(launches["K1"]):
+        raise AssertionError("wide: the packed train step on rows of 512 did not run K1's "
+                             "segment form alone")
+    res["packed train step on rows of 512"] = dict(launches=launches)
+    return res
+
+
+def _wide_mult(rng, n):
+    """n multiplicities of AOJ-like jets, a quarter of them wide (150-300)."""
+    return np.concatenate([_multiplicities(rng, n - n // 4, WIDE_D),
+                           rng.integers(150, WIDE_D + 1, size=n // 4)])
+
+
+def _wide_entry_points(dev, out_dir) -> dict:
+    """`cli.train_mmf` at `--max_num_particles 300 --pack_width 512` (2 packed
+    epochs on synthetic jets) and `cli.sample_mmf` on its checkpoint: their
+    compute halves, K1 16 launches a forward in both (segments on rows of
+    512 in training; segments on rows of 128 and the key-mask form at the
+    full width of 300 in sampling, as the sampling entry point packs), K2
+    and plain dropout calls 0."""
+    blocks = 2 * FLAGSHIP["n_layer"] + FLAGSHIP["n_layer_fused"]
+    rng = np.random.default_rng(31)
+    x, k, mask = _physical_jets(rng, _wide_mult(rng, 384), WIDE_D)
+    metadata = extract_metadata(x, mask)
+    mean, std = (np.asarray(metadata[m], np.float32) for m in ("mean", "std"))
+    jets = MultiModal(continuous=((x - mean) / std * mask).astype(np.float32), discrete=k,
+                      mask=mask)
+    cfg, _ = train_mmf.experiment_configs(WIDE_CLI_ARGV + ["--dir", out_dir])
+    cfg.metadata = metadata
+    cfg.mint_experiment_id()
+    train_ds, val_ds = train_mmf.split_jets(jets, cfg)
+    (_, state), launches, forwards = _counted(
+        lambda: train_mmf.train(cfg, "MMF", train_ds, val_ds, device=dev))
+    _expect("wide: cli.train_mmf.train at D = 300, rows of 512", launches,
+            {"K1": {"segments": None}}, blocks, forwards)
+    records = [json.loads(line) for line in open(os.path.join(cfg.experiment_dir,
+                                                              "metrics.jsonl"))]
+    if len(records) != cfg.max_epochs or not all(np.isfinite(r["val_loss"]) for r in records):
+        raise AssertionError("wide: the training entry point did not log finite epochs")
+    cfg.num_jets = 96
+    tx, tk, tmask = _physical_jets(rng, _wide_mult(rng, 256), WIDE_D)
+    results, s_launches, s_forwards = _counted(lambda: sample_mmf.sample(
+        cfg, "MMF", tmask, dev, checkpoint="best", temperatures=[1.0], timestep_grid=[4],
+        save=False))
+    _expect("wide: cli.sample_mmf.sample at D = 300", s_launches,
+            {"K1": {"segments": None, "key_mask": None}}, blocks, s_forwards)
+    s = results[-1].sample
+    if s.continuous.shape != (cfg.num_jets, WIDE_D, 3) or not torch.isfinite(
+            s.continuous).all() or not ((s.discrete >= 0) & (s.discrete < cfg.vocab_size)).all():
+        raise AssertionError("wide: the sampling entry point's jets are malformed")
+    point = sample_mmf.point_metrics(s, MultiModal(continuous=tx, discrete=tk, mask=tmask), cfg,
+                                     {"num_timesteps": 4, "temperature": 1.0})
+    print(f"wide: entry points at D = 300, rows of 512: {state.step} steps, {forwards} forwards "
+          f"in training, {s_forwards} in sampling; W1 multiplicity "
+          f"{point['w1_flavor']['multiplicity']:.3f}")
+    return dict(train_launches=launches, sample_launches=s_launches, train_steps=state.step)
+
+
+def wide_phase(dev, out_dir) -> dict:
+    """The kernels at every wide shape against their plain versions, their
+    times, the slice at the wide shapes and both entry points; every
+    failure fails the run."""
+    t0 = time.perf_counter()
+    res = {"max_abs_err": check_wide_kernels(dev), "times": time_wide_kernels(dev)}
+    res["models"] = _wide_models(dev)
+    res["gpt"] = _wide_gpt(dev, out_dir)
+    res["entry_points"] = _wide_entry_points(dev, out_dir)
+    res["wall_s"] = time.perf_counter() - t0
+    print(f"wide phase: {res['wall_s']:.1f} s")
+    return res
+
+
 def _system(kind, cfg_kw, dev):
     system = build_system(Config(**cfg_kw), kind, device=dev,
                           generator=torch.Generator().manual_seed(0))
@@ -2680,10 +3123,13 @@ def main() -> None:
             dev, out_dir)
         toy = toy_phase(dev, out_dir)
         gpt_train_launches, gpt_sample_launches, gpt = gpt_phase(dev, out_dir)
+        wide = wide_phase(dev, out_dir)
     substructure = substructure_phase(cli_sample)
     print(json.dumps({"entry_points": {"card": card, "cli": cli_numbers, "toy": toy,
                                        "substructure": substructure}}))
     print(json.dumps({"gpt": {"card": card, **gpt}}))
+    print(json.dumps({"wide": {"card": card, "models": wide["models"], "gpt": wide["gpt"],
+                               "entry_points": wide["entry_points"], "wall_s": wide["wall_s"]}}))
     print(json.dumps({"mesh": {"card": card, **mesh, "tp_shapes": {
         f"{name} {shape} {form}": t for (name, shape, form), t in tp_times.items()}}}))
 
@@ -2697,6 +3143,16 @@ def main() -> None:
         for shape, suffix in ((TIMED[0], ""), (TIMED[1], "_c256")):
             out.update({k + tag + suffix: v for k, v in times[name, shape].items()})
         return out
+
+    def wide_launches(name):
+        """The wide phase's launches of one kernel (both dtypes) by run."""
+        runs = {n: r["launches"] for n, r in wide["models"].items()}
+        runs["GPT loss forward"] = {"K2": wide["gpt"]["launches_loss"]}
+        runs["GPT decode"] = {"K2": wide["gpt"]["launches_decode"]}
+        runs.update({f"entry point {k}": v for k, v in wide["entry_points"].items()
+                     if k.endswith("launches")})
+        return {n: _total(c.get(name, {})) + _total(c.get(f"{name}_bf16", {}))
+                for n, c in runs.items()}
 
     print(json.dumps({"kernels": [
         {"name": "btc_attention (K1, timed at B=128 T=128 H=4 segments, C=128 and C=256)",
@@ -2721,7 +3177,11 @@ def main() -> None:
          "launches_bf16_training": bf16["launches_training"],
          "max_abs_err_bf16": bf16_err["K1"], **timed("K1", bf16_times, "_bf16"),
          **{f"tp_c{shape[2]}_{form}": tp_times["K1", shape, form]
-            for shape in TP_SHAPES for form in ("segments", "key_mask")}},
+            for shape in TP_SHAPES for form in ("segments", "key_mask")},
+         "max_abs_err_wide": wide["max_abs_err"]["K1"],
+         "max_abs_err_wide_bf16": wide["max_abs_err"]["K1_bf16"],
+         "launches_wide": wide_launches("K1"),
+         "wide": {n: t for n, t in wide["times"].items() if n.startswith("K1")}},
         {"name": "set_attention (K2, timed at B=128 T=128 H=4 bias + segments, "
                  "C=128 and C=256)",
          "route": "cuda",
@@ -2741,7 +3201,11 @@ def main() -> None:
          "max_abs_err_bf16": bf16_err["K2"], **timed("K2", bf16_times, "_bf16"),
          **{f"gpt_{shape}": t for shape, t in gpt_times.items()},
          **{f"tp_c{shape[2]}_bias_segments": tp_times["K2", shape, "segments"]
-            for shape in TP_SHAPES}},
+            for shape in TP_SHAPES},
+         "max_abs_err_wide": wide["max_abs_err"]["K2"],
+         "max_abs_err_wide_bf16": wide["max_abs_err"]["K2_bf16"],
+         "launches_wide": wide_launches("K2"),
+         "wide": {n: t for n, t in wide["times"].items() if n.startswith("K2")}},
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

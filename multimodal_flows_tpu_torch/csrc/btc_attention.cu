@@ -26,7 +26,9 @@
 // bf16 path (a block's TMA loads in flight together, `wgmma` products,
 // fp32 scores and softmax, P rounded to bf16): half the bytes, 33.5 MB at
 // C = 256, 10 us.
-// Limits: T <= 256, hs <= 128 (the wrapper raises beyond them).
+// Shapes: any T and head size whose shared memory fits a block (the
+// core's header says what bounds them); head sizes past 128 run in slices
+// of 128 output columns.
 
 #include "set_attention_core.cuh"
 
@@ -38,11 +40,10 @@ extern "C" int btc_attention_fwd(const float* q, const float* k, const float* v,
                                  const float* key_mask, const int* segments,
                                  float* out, int B, int T, int C, int n_head,
                                  float scale, void* stream) {
-  if (B <= 0 || T <= 0 || T > core::kMaxT || n_head <= 0 || C % n_head != 0) {
+  if (B <= 0 || T <= 0 || n_head <= 0 || C % n_head != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int hs = C / n_head;
-  if (hs > core::kMaxHs) return static_cast<int>(cudaErrorInvalidValue);
   const core::Strides s{static_cast<long long>(T) * C, hs, C, 1};
   const core::Params p{q,        s,       k,        s,   v,  s, key_mask, nullptr,
                        core::Strides{0, 0, 0, 0}, segments, out, s, T, T, hs, scale};
@@ -52,17 +53,16 @@ extern "C" int btc_attention_fwd(const float* q, const float* k, const float* v,
 
 // The bf16 form: q, k, v and out are __nv_bfloat16 (B, T, C), the key mask
 // fp32; otherwise as btc_attention_fwd.  The host's plan: `qkv_tma` (q, k
-// and v by TMA) and `smem` (the launch's shared memory, as
-// core::bf16_smem counts it).
+// and v by TMA), `stages` (of the ring of key tiles or chunks) and `smem`
+// (the launch's shared memory, as core::bf16_smem counts it).
 extern "C" int btc_attention_bf16_fwd(const void* q, const void* k, const void* v,
                                       const float* key_mask, const int* segments, void* out,
                                       int B, int T, int C, int n_head, float scale, int qkv_tma,
-                                      int smem, void* stream) {
-  if (B <= 0 || T <= 0 || T > core::kMaxT || n_head <= 0 || C % n_head != 0) {
+                                      int stages, int smem, void* stream) {
+  if (B <= 0 || T <= 0 || n_head <= 0 || C % n_head != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int hs = C / n_head;
-  if (hs > core::kMaxHs) return static_cast<int>(cudaErrorInvalidValue);
   using core::bf16;
   const core::Strides s{static_cast<long long>(T) * C, hs, C, 1};
   const core::ParamsT<bf16> p{static_cast<const bf16*>(q), s, static_cast<const bf16*>(k), s,
@@ -70,8 +70,8 @@ extern "C" int btc_attention_bf16_fwd(const void* q, const void* k, const void* 
                               core::Strides{0, 0, 0, 0}, segments, static_cast<bf16*>(out), s,
                               T, T, hs, scale};
   return segments != nullptr
-             ? core::launch_bf16<false, true>(p, B, n_head, qkv_tma, 0, smem, stream)
-             : core::launch_bf16<false, false>(p, B, n_head, qkv_tma, 0, smem, stream);
+             ? core::launch_bf16<false, true>(p, B, n_head, qkv_tma, 0, stages, smem, stream)
+             : core::launch_bf16<false, false>(p, B, n_head, qkv_tma, 0, stages, smem, stream);
 }
 
 extern "C" const char* btc_attention_error_string(int code) {

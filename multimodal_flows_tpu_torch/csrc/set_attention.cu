@@ -41,7 +41,9 @@
 // with the causal term computed in the kernel instead of a (1, 1, T, T)
 // bias read from memory, and the key tiles past each warp's last query
 // skipped: the same scores the bias form computes, half its tiles.
-// Limits: Tq, Tk <= 256, Dh <= 128 (the wrapper raises beyond them).
+// Shapes: any Tq, Tk and Dh whose shared memory fits a block (the core's
+// header says what bounds them); head sizes past 128 run in slices of 128
+// output columns.
 
 #include "set_attention_core.cuh"
 
@@ -65,8 +67,7 @@ extern "C" int set_attention_fwd(const float* q, const float* k, const float* v,
                                  const int* segments, float* out,
                                  const long long* strides, int B, int H, int Tq,
                                  int Tk, int hs, float scale, void* stream) {
-  if (B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0 || Tq > core::kMaxT || Tk > core::kMaxT ||
-      hs <= 0 || hs > core::kMaxHs ||
+  if (B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0 || hs <= 0 ||
       (segments != nullptr && (Tq != Tk || bias == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -88,7 +89,7 @@ extern "C" int set_attention_causal_fwd(const float* q, const float* k, const fl
                                         const float* key_mask, float* out,
                                         const long long* strides, int B, int H, int T, int hs,
                                         float scale, void* stream) {
-  if (B <= 0 || H <= 0 || T <= 0 || T > core::kMaxT || hs <= 0 || hs > core::kMaxHs) {
+  if (B <= 0 || H <= 0 || T <= 0 || hs <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const core::Params p{q,       strides_at(strides),      k,        strides_at(strides + 4),
@@ -105,7 +106,7 @@ template <typename BiasT>
 int launch_bf16(const void* q, const void* k, const void* v, const float* key_mask,
                 const BiasT* bias, const int* segments, void* out, const long long* strides,
                 int B, int H, int Tq, int Tk, int hs, float scale, int qkv_tma, int bias_tma,
-                int smem, void* stream) {
+                int stages, int smem, void* stream) {
   using core::bf16;
   const core::ParamsT<bf16, BiasT> p{static_cast<const bf16*>(q), strides_at(strides),
                                      static_cast<const bf16*>(k), strides_at(strides + 4),
@@ -117,12 +118,12 @@ int launch_bf16(const void* q, const void* k, const void* v, const float* key_ma
                                      hs,                           scale};
   if constexpr (std::is_same_v<BiasT, float>) {  // the bias-free form, once
     if (bias == nullptr) {
-      return core::launch_bf16<false, false>(p, B, H, qkv_tma, 0, smem, stream);
+      return core::launch_bf16<false, false>(p, B, H, qkv_tma, 0, stages, smem, stream);
     }
   }
   return segments != nullptr
-             ? core::launch_bf16<true, true>(p, B, H, qkv_tma, bias_tma, smem, stream)
-             : core::launch_bf16<true, false>(p, B, H, qkv_tma, bias_tma, smem, stream);
+             ? core::launch_bf16<true, true>(p, B, H, qkv_tma, bias_tma, stages, smem, stream)
+             : core::launch_bf16<true, false>(p, B, H, qkv_tma, bias_tma, stages, smem, stream);
 }
 
 }  // namespace
@@ -130,25 +131,27 @@ int launch_bf16(const void* q, const void* k, const void* v, const float* key_ma
 // The bf16 form: q, k, v and out are __nv_bfloat16, the bias __nv_bfloat16
 // when `bias_bf16` is nonzero and fp32 otherwise, the key mask fp32;
 // otherwise as set_attention_fwd.  The host's plan: `qkv_tma` (q, k and v
-// by TMA), `bias_tma` (the bias by TMA) and `smem` (the launch's shared
-// memory, as core::bf16_smem counts it).
+// by TMA), `bias_tma` (the bias by TMA), `stages` (of the ring of key tiles
+// or chunks) and `smem` (the launch's shared memory, as core::bf16_smem
+// counts it).
 extern "C" int set_attention_bf16_fwd(const void* q, const void* k, const void* v,
                                       const float* key_mask, const void* bias, int bias_bf16,
                                       const int* segments, void* out,
                                       const long long* strides, int B, int H, int Tq, int Tk,
-                                      int hs, float scale, int qkv_tma, int bias_tma, int smem,
-                                      void* stream) {
-  if (B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0 || Tq > core::kMaxT || Tk > core::kMaxT ||
-      hs <= 0 || hs > core::kMaxHs ||
+                                      int hs, float scale, int qkv_tma, int bias_tma, int stages,
+                                      int smem, void* stream) {
+  if (B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0 || hs <= 0 ||
       (segments != nullptr && (Tq != Tk || bias == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (bias != nullptr && bias_bf16) {
     return launch_bf16(q, k, v, key_mask, static_cast<const core::bf16*>(bias), segments, out,
-                       strides, B, H, Tq, Tk, hs, scale, qkv_tma, bias_tma, smem, stream);
+                       strides, B, H, Tq, Tk, hs, scale, qkv_tma, bias_tma, stages, smem,
+                       stream);
   }
   return launch_bf16(q, k, v, key_mask, static_cast<const float*>(bias), segments, out,
-                     strides, B, H, Tq, Tk, hs, scale, qkv_tma, bias_tma, smem, stream);
+                     strides, B, H, Tq, Tk, hs, scale, qkv_tma, bias_tma, stages, smem,
+                       stream);
 }
 
 extern "C" const char* set_attention_error_string(int code) {

@@ -9,7 +9,10 @@ on the card; its design is the shared core `csrc/set_attention_core.cuh`
 (fp32: 3xTF32 tensor cores at fp32 parity, cp.async key/value tiles;
 bf16: a block's TMA loads in flight together and `wgmma`, planned by
 `ops.set_attention.bf16_plan`; fp32 softmax and cross-jet key tiles
-skipped in both).
+skipped in both).  Any T and head size run (key rings past 256 tokens,
+slices of 128 output columns past a head size of 128); a block's shared
+memory is the only bound, and `fp32_plan` / `bf16_plan` raise, naming it,
+where it does not fit.
 
 Build: `ops/cuda_build.py` compiles the source with nvcc for `sm_90a` at
 first use and loads it with ctypes; nothing is compiled at import.
@@ -32,12 +35,9 @@ import torch
 
 from multimodal_flows_tpu_torch.ops.attention import attention_btc_reference
 from multimodal_flows_tpu_torch.ops.cuda_build import CudaLibrary
-from multimodal_flows_tpu_torch.ops.set_attention import bf16_plan
+from multimodal_flows_tpu_torch.ops.set_attention import bf16_plan, fp32_plan
 
 Tensor = torch.Tensor
-
-MAX_T = 256
-MAX_HEAD_SIZE = 128
 
 #: launches of the kernel by form, counted where the launch succeeds: fp32
 #: q/k/v in LAUNCHES, bf16 in LAUNCHES_BF16
@@ -47,10 +47,11 @@ DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    # q, k, v, key_mask, segments, out, B, T, C, n_head, scale, [qkv_tma, smem,] stream
+    # q, k, v, key_mask, segments, out, B, T, C, n_head, scale,
+    # [qkv_tma, stages, smem,] stream
     head = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_float]
     lib.btc_attention_fwd.argtypes = head + [ctypes.c_void_p]
-    lib.btc_attention_bf16_fwd.argtypes = head + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    lib.btc_attention_bf16_fwd.argtypes = head + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     for fn in (lib.btc_attention_fwd, lib.btc_attention_bf16_fwd):
         fn.restype = ctypes.c_int
 
@@ -75,9 +76,8 @@ def build() -> ctypes.CDLL:
 
 def _check(q: Tensor, k: Tensor, v: Tensor, n_head: int,
            key_mask: Optional[Tensor], segments: Optional[Tensor]) -> None:
-    if q.device.type != "cuda":
-        raise ValueError("btc_attention takes CUDA tensors; CPU tensors take "
-                         "ops.attention.attention_btc_reference")
+    """Raise on malformed input: shapes, dtypes, devices, strides, the heads.
+    Any T and head size pass; the shared memory is the plans' to check."""
     if q.dim() != 3:
         raise ValueError(f"q must be (B, T, C), got {tuple(q.shape)}")
     B, T, C = q.shape
@@ -101,21 +101,26 @@ def _check(q: Tensor, k: Tensor, v: Tensor, n_head: int,
             raise ValueError(f"{name} must be (B, T) = {(B, T)}, got {tuple(t.shape)}")
     if n_head <= 0 or C % n_head:
         raise ValueError(f"C={C} is not a multiple of n_head={n_head}")
-    if not 1 <= T <= MAX_T or C // n_head > MAX_HEAD_SIZE or B < 1:
-        raise ValueError(f"K1 takes 1 <= T <= {MAX_T}, head size <= {MAX_HEAD_SIZE} "
-                         f"and B >= 1; got B={B}, T={T}, head size {C // n_head}")
+    if B < 1 or T < 1:
+        raise ValueError(f"K1 takes B, T >= 1; got B={B}, T={T}")
 
 
 def _launch(q: Tensor, k: Tensor, v: Tensor, n_head: int,
             key_mask: Optional[Tensor], segments: Optional[Tensor]) -> Tensor:
+    if q.device.type != "cuda":
+        raise ValueError("btc_attention takes CUDA tensors; CPU tensors take "
+                         "ops.attention.attention_btc_reference")
     _check(q, k, v, n_head, key_mask, segments)
     B, T, C = q.shape
     bf16 = q.dtype == torch.bfloat16
-    plan = []  # the bf16 core's host plan: q/k/v by TMA, shared memory
+    # the host plans; they raise where a block's shared memory does not fit
+    plan = []  # the bf16 core's: q/k/v by TMA, the ring's stages, shared memory
     if bf16:
         p = bf16_plan(*(t.unflatten(-1, (n_head, C // n_head)).transpose(1, 2)
                         for t in (q, k, v)))
-        plan = [int(p.qkv_tma), p.smem_bytes]
+        plan = [int(p.qkv_tma), p.stages, p.smem_bytes]
+    else:
+        fp32_plan(C // n_head, T)
     lib = build()
     out = torch.empty_like(q)
     scale = 1.0 / float(C // n_head) ** 0.5

@@ -26,8 +26,13 @@ what bounds the kernel on the card; its design is the core it shares with
 K1, `csrc/set_attention_core.cuh` (fp32: 3xTF32 tensor cores at fp32
 parity, cp.async key/value tiles, cross-jet key tiles and their bias
 skipped; bf16: TMA loads and `wgmma`).  `bf16_plan` decides on the host
-how a bf16 call runs (which operands go by TMA, the shared memory), and
-K1's wrapper takes it too.  Build: `ops/cuda_build.py` (nvcc for `sm_90a`
+how a bf16 call runs (which operands go by TMA, the ring's stages, the
+slices, the shared memory) and `fp32_plan` how an fp32 one does, and K1's
+wrapper takes them too.  Any Tq, Tk and head size run: past 256 keys the
+bf16 key tiles pass through a ring of stages, past a head size of 128 a
+block computes one slice of 128 output columns; the only bound is a
+block's shared memory (the key mask and segment ids are staged whole), and
+the plans raise, naming it, where it does not fit.  Build: `ops/cuda_build.py` (nvcc for `sm_90a`
 at first use, ctypes).
 
 The wrappers take CUDA tensors only and launch the kernel or raise; the
@@ -58,9 +63,6 @@ from multimodal_flows_tpu_torch.ops.cuda_build import CudaLibrary
 
 Tensor = torch.Tensor
 
-MAX_T = 256
-MAX_HEAD_SIZE = 128
-
 #: launches of the kernel by form, counted where the launch succeeds: fp32
 #: q/k/v in LAUNCHES (GPT's full forward as "causal"), bf16 in LAUNCHES_BF16
 LAUNCHES = {"bias_segments": 0, "bias": 0, "bias_key_mask": 0, "key_mask": 0, "none": 0,
@@ -71,6 +73,17 @@ DTYPES = (torch.float32, torch.bfloat16)
 #: the bf16 core's tiles: 64 query rows a block (one warpgroup), 64 keys a
 #: key tile; a bias box is 64 rows of 128 bytes
 BF16_TILE = 64
+#: the fp32 core's key tiles (32 keys) and query tile (64 rows)
+FP32_KEY_TILE = 32
+FP32_QUERY_TILE = 64
+#: the widest head a block holds whole; wider heads run in slices of this
+#: many output columns (both cores)
+SLICE = 128
+#: the bf16 ring's stages at most, where the key tiles of a row do not all
+#: stay resident: a whole-head tile (K, V and a bias block) or a chunk of
+#: 64 keys x SLICE columns in slices
+MAX_RING_STAGES = 4
+MAX_SLICED_STAGES = 4
 #: the shared memory one block may use on an H100 (227 KB)
 MAX_SHARED_BYTES = 232_448
 
@@ -84,10 +97,10 @@ def _declare(lib: ctypes.CDLL) -> None:
                                              + [ctypes.c_float, ctypes.c_void_p])
     lib.set_attention_causal_fwd.restype = ctypes.c_int
     # q, k, v, key_mask, bias, bias_bf16, segments, out, strides, B, H, Tq, Tk,
-    # hs, scale, qkv_tma, bias_tma, smem, stream
+    # hs, scale, qkv_tma, bias_tma, stages, smem, stream
     lib.set_attention_bf16_fwd.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int]
                                            + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
-                                           + [ctypes.c_float] + [ctypes.c_int] * 3
+                                           + [ctypes.c_float] + [ctypes.c_int] * 4
                                            + [ctypes.c_void_p])
     lib.set_attention_bf16_fwd.restype = ctypes.c_int
 
@@ -110,14 +123,75 @@ def build() -> ctypes.CDLL:
     return _LIB.load()
 
 
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _slices(hs: int) -> int:
+    return -(-hs // SLICE)
+
+
+def _too_big(form: str, smem: int, Tk: int, hs: int) -> ValueError:
+    return ValueError(f"the {form} kernel needs {smem} bytes of shared memory at Tk={Tk}, "
+                      f"head size {hs}: more than the {MAX_SHARED_BYTES} a block has")
+
+
+@dataclasses.dataclass(frozen=True)
+class Fp32Plan:
+    """How the fp32 core runs one call (`csrc/set_attention_core.cuh`): the
+    head-size template (32, 64 or 128; SLICE in slices), the slices a head
+    is cut into (1: the whole head a block; more: `attention_kernel_sliced`,
+    one block a slice of SLICE output columns) and the launch's shared
+    memory (`fp32_smem` in the core)."""
+
+    head_bucket: int
+    slices: int
+    smem_bytes: int
+
+
+def fp32_smem_bytes(hs: int, Tk: int) -> int:
+    """The fp32 kernel's shared memory (`fp32_smem` in the core): the K/V
+    ring (and the query rows) in rows padded to 8 + 4 floats: 6 tiles of 32
+    rows of the whole head, or in slices 64 query rows of the whole head and
+    3 chunks of 32 rows x SLICE columns; then the key mask, the segment ids,
+    the intervals of the key tiles and of the 4 warps (3 ints each) and the
+    need masks of the block and the 4 warps for each window of 32 tiles."""
+    dpad = _round_up(hs, 8)
+    if hs <= SLICE:
+        floats = 6 * FP32_KEY_TILE * (dpad + 4)
+    else:
+        floats = FP32_QUERY_TILE * (dpad + 4) + 3 * FP32_KEY_TILE * (SLICE + 4)
+    n_tiles = -(-Tk // FP32_KEY_TILE)
+    tile_ints = 3 * (n_tiles + 4) + 5 * -(-n_tiles // 32)
+    return 4 * (floats + Tk) + 4 * Tk + 4 * tile_ints
+
+
+def fp32_plan(hs: int, Tk: int) -> Fp32Plan:
+    """The plan of one fp32 call at head size `hs` and Tk keys.  The only
+    bound on the shapes is the shared memory of a block: the key mask and
+    segment ids staged whole (8 Tk bytes) beside the tiles, and in slices the
+    query rows of the whole head (256 (hs + 4) bytes).  Raises where it
+    passes MAX_SHARED_BYTES (e.g. Tk past about 16,000 at head size 128)."""
+    bucket = 32 if hs <= 32 else 64 if hs <= 64 else SLICE
+    plan = Fp32Plan(head_bucket=bucket, slices=_slices(hs), smem_bytes=fp32_smem_bytes(hs, Tk))
+    if plan.smem_bytes > MAX_SHARED_BYTES:
+        raise _too_big("fp32", plan.smem_bytes, Tk, hs)
+    return plan
+
+
 @dataclasses.dataclass(frozen=True)
 class Bf16Plan:
     """How the bf16 core runs one call (`csrc/set_attention_core.cuh`):
-    the head-size template (32, 64 or 128), the swizzle of its Q/K/V rows
-    in shared memory, its key tiles of 64, whether q/k/v and the bias go by
-    TMA (else the block's threads stage q/k/v and the fragments read the
-    bias from global memory), and the launch's shared memory, which the C
-    entry checks against its own count."""
+    the head-size template (32, 64 or 128; SLICE in slices), the swizzle of
+    its Q/K/V rows in shared memory, its key tiles of 64, whether q/k/v and
+    the bias go by TMA (else the block's threads stage q/k/v and the
+    fragments read the bias from global memory), the stages of its ring, the
+    slices a head is cut into, and the launch's shared memory, which the C
+    entry checks against its own count.  With one slice a stage holds a key
+    tile's K, V and bias block, and `stages == key_tiles` keeps the whole
+    row resident (every Tk <= 256); in slices a stage holds one chunk of 64
+    keys x SLICE columns (a K pass or V's slice) and the bias is read per
+    fragment."""
 
     head_bucket: int
     swizzle_bytes: int
@@ -125,25 +199,34 @@ class Bf16Plan:
     qkv_tma: bool
     bias_tma: bool
     smem_bytes: int
+    stages: int
+    slices: int
 
 
-def _round_up(x: int, m: int) -> int:
-    return -(-x // m) * m
-
-
-def bf16_smem_bytes(head_bucket: int, Tk: int, bias_tile: int) -> int:
-    """The bf16 kernel's shared memory (`bf16_smem` in the core): the query
-    tile (or the output's staging rows), every K and V tile, the bias
-    blocks staged by TMA (`bias_tile` bytes a key tile), the key mask, the
-    segment ids, a scratch of 32 ints, one mbarrier for Q and one a key
-    tile, and 1024 bytes to align the base."""
+def bf16_smem_bytes(head_bucket: int, Tk: int, bias_tile: int, stages: Optional[int] = None,
+                    slices: int = 1) -> int:
+    """The bf16 kernel's shared memory (`bf16_smem` in the core).  One
+    slice: the query tile (or the output's staging rows), `stages` K and V
+    tiles and bias blocks staged by TMA (`bias_tile` bytes each; `stages`
+    defaults to every key tile); in slices: the query rows as `slices`
+    chunks of 64 x SLICE, then `stages` chunks.  Then the key mask, the
+    segment ids, a scratch of the tile intervals (at least 32 ints), one
+    mbarrier for Q, one `full` a stage and, where a stage is reused, one
+    `empty` a stage, and 1024 bytes to align the base."""
     tile = BF16_TILE * head_bucket * 2
     out = BF16_TILE * (head_bucket + 8) * 2
     n_tiles = -(-Tk // BF16_TILE)
-    k = _round_up(max(tile, out), 1024)
-    km = k + 2 * n_tiles * tile + n_tiles * bias_tile
-    bar = _round_up(km + 8 * Tk + 4 * 32, 8)
-    return bar + 8 * (1 + n_tiles) + 1024
+    stages = n_tiles if stages is None else stages
+    if slices > 1:
+        k = slices * tile
+        km = k + stages * tile
+    else:
+        k = _round_up(max(tile, out), 1024)
+        km = k + 2 * stages * tile + stages * bias_tile
+    scratch_ints = max(32, 8 + 3 * n_tiles)
+    bar = _round_up(km + 8 * Tk + 4 * scratch_ints, 8)
+    n_bars = 1 + stages + (stages if slices > 1 or stages < n_tiles else 0)
+    return bar + 8 * n_bars + 1024
 
 
 def _tma_readable(t: Tensor, broadcast_ok: bool = False) -> bool:
@@ -170,19 +253,31 @@ def bf16_plan(q4: Tensor, k4: Tensor, v4: Tensor, bias4: Optional[Tensor] = None
     views included) and the bias expanded to (B, H, Tq, Tk), or None.
     q/k/v go by TMA where all three can; the bias where its keys are
     contiguous and its rows' stride and base meet TMA's 16-byte rules (a
-    zero head or row stride is a dimension of extent 1 in its map)."""
+    zero head or row stride is a dimension of extent 1 in its map), and the
+    head is whole.  The ring: every key tile resident where there are at
+    most MAX_RING_STAGES of them (Tk <= 256), else the most stages up to
+    MAX_RING_STAGES that fit; in slices the most chunks up to
+    MAX_SLICED_STAGES that fit.  Raises where even the smallest ring passes
+    MAX_SHARED_BYTES (the key mask and segment ids, 8 Tk bytes, and in
+    slices the query rows, 128 hs bytes, are what grow)."""
     hs, Tk = q4.shape[-1], k4.shape[2]
-    bucket = 32 if hs <= 32 else 64 if hs <= 64 else 128
-    bias_tma = bias4 is not None and _tma_readable(bias4, broadcast_ok=True)
-    bias_tile = BF16_TILE * BF16_TILE * bias4.element_size() if bias_tma else 0
-    plan = Bf16Plan(head_bucket=bucket, swizzle_bytes=min(2 * bucket, 128),
-                    key_tiles=-(-Tk // BF16_TILE),
-                    qkv_tma=all(_tma_readable(t) for t in (q4, k4, v4)), bias_tma=bias_tma,
-                    smem_bytes=bf16_smem_bytes(bucket, Tk, bias_tile))
-    if plan.smem_bytes > MAX_SHARED_BYTES:
-        raise ValueError(f"the bf16 kernel needs {plan.smem_bytes} bytes of shared memory, "
-                         f"more than the {MAX_SHARED_BYTES} a block has")
-    return plan
+    slices = _slices(hs)
+    n_tiles = -(-Tk // BF16_TILE)
+    bucket = 32 if hs <= 32 else 64 if hs <= 64 else SLICE
+    most = MAX_SLICED_STAGES if slices > 1 else min(n_tiles, MAX_RING_STAGES)
+    least = 1 if slices == 1 and n_tiles == 1 else 2
+    qkv_tma = all(_tma_readable(t) for t in (q4, k4, v4))
+    bias_tma = slices == 1 and bias4 is not None and _tma_readable(bias4, broadcast_ok=True)
+    # the bias by TMA where a ring still fits with its blocks, else per fragment
+    for by_tma in ((True, False) if bias_tma else (False,)):
+        bias_tile = BF16_TILE * BF16_TILE * bias4.element_size() if by_tma else 0
+        for stages in range(most, least - 1, -1):
+            smem = bf16_smem_bytes(bucket, Tk, bias_tile, stages, slices)
+            if smem <= MAX_SHARED_BYTES:
+                return Bf16Plan(head_bucket=bucket, swizzle_bytes=min(2 * bucket, 128),
+                                key_tiles=n_tiles, qkv_tma=qkv_tma, bias_tma=by_tma,
+                                smem_bytes=smem, stages=stages, slices=slices)
+    raise _too_big("bf16", smem, Tk, hs)
 
 
 def _form(key_mask, bias, segments, causal) -> str:
@@ -214,9 +309,6 @@ def _check(q4: Tensor, k4: Tensor, v4: Tensor, key_mask: Optional[Tensor],
     bias expanded (as a view) to (B, H, Tq, Tk)."""
     B, H, Tq, hs = q4.shape
     Tk = k4.shape[2]
-    if q4.device.type != "cuda":
-        raise ValueError("set_attention takes CUDA tensors; CPU tensors take the plain "
-                         "versions in ops.attention")
     if k4.shape != (B, H, Tk, hs) or v4.shape != k4.shape:
         raise ValueError(f"k {tuple(k4.shape)} and v {tuple(v4.shape)} do not match "
                          f"q {tuple(q4.shape)}")
@@ -241,9 +333,9 @@ def _check(q4: Tensor, k4: Tensor, v4: Tensor, key_mask: Optional[Tensor],
         if Tq != Tk or segments.shape != (B, Tq) or not segments.is_contiguous():
             raise ValueError(f"segments must be contiguous (B, T) = {(B, Tq)} with Tq == Tk, "
                              f"got {tuple(segments.shape)}, Tk={Tk}")
-    if not (1 <= Tq <= MAX_T and 1 <= Tk <= MAX_T and 1 <= hs <= MAX_HEAD_SIZE and B >= 1):
-        raise ValueError(f"K2 takes 1 <= Tq, Tk <= {MAX_T}, head size <= {MAX_HEAD_SIZE} "
-                         f"and B >= 1; got B={B}, Tq={Tq}, Tk={Tk}, head size {hs}")
+    if min(B, H, Tq, Tk, hs) < 1:
+        raise ValueError(f"K2 takes B, H, Tq, Tk and the head size >= 1; got B={B}, H={H}, "
+                         f"Tq={Tq}, Tk={Tk}, head size {hs}")
     if bias is None:
         return None
     if bias.dim() > 4:
@@ -256,12 +348,16 @@ def _launch(q4: Tensor, k4: Tensor, v4: Tensor, key_mask: Optional[Tensor],
             causal: bool = False) -> None:
     """Launch K2 on (B, H, T, Dh) views, writing through the view `out4`
     (`causal`: the causal form, its inputs checked by the caller)."""
+    if q4.device.type != "cuda":
+        raise ValueError("set_attention takes CUDA tensors; CPU tensors take the plain "
+                         "versions in ops.attention")
     bias4 = _check(q4, k4, v4, key_mask, bias, segments)
     bf16 = q4.dtype == torch.bfloat16
-    plan = bf16_plan(q4, k4, v4, bias4) if bf16 else None
-    lib = build()
     B, H, Tq, hs = q4.shape
     Tk = k4.shape[2]
+    # the shared memory bounds the shapes: the plans raise where it does not fit
+    plan = bf16_plan(q4, k4, v4, bias4) if bf16 else fp32_plan(hs, Tk)
+    lib = build()
     scale = 1.0 / float(hs) ** 0.5
     mask = None if key_mask is None else key_mask.data_ptr()
     with torch.cuda.device(q4.device):
@@ -283,7 +379,7 @@ def _launch(q4: Tensor, k4: Tensor, v4: Tensor, key_mask: Optional[Tensor],
                 rc = lib.set_attention_bf16_fwd(
                     *pointers, int(bias4 is not None and bias4.dtype == torch.bfloat16), seg,
                     out4.data_ptr(), packed, B, H, Tq, Tk, hs, scale, int(plan.qkv_tma),
-                    int(plan.bias_tma), plan.smem_bytes, stream)
+                    int(plan.bias_tma), plan.stages, plan.smem_bytes, stream)
             else:
                 rc = lib.set_attention_fwd(*pointers, seg, out4.data_ptr(), packed, B, H, Tq, Tk,
                                            hs, scale, stream)
