@@ -8,9 +8,9 @@
    at once: K1 (`multimodal_flows_tpu_torch/csrc/btc_attention.cu`) and K2
    (`csrc/set_attention.cu`), both around the shared core
    `csrc/set_attention_core.cuh`; prints each build's time, the compiler's
-   register / shared-memory report and the number of tensor-core
-   instructions `cuobjdump -sass` finds in each library: HMMA (`mma.sync`,
-   the fp32 forms) and HGMMA (`wgmma`, the bf16 forms); 0 of either fails.
+   register / shared-memory report and the tensor-core instructions
+   `cuobjdump -sass` finds in each kernel symbol: every fp32 form (3xTF32)
+   and every bf16 form must show HGMMA (`wgmma`) and no HMMA (`mma.sync`).
 3. Holds each kernel against its plain PyTorch version on the card, fp32,
    on the shapes the sampler and the trainer give it and on the edges of
    the kernels' tiling (head sizes not a multiple of 8, T not a multiple of
@@ -164,6 +164,7 @@ steps instead of 100 and the flagship's `Trainer.fit` 2 epochs instead of
 from __future__ import annotations
 
 import concurrent.futures
+import dataclasses
 import glob
 import json
 import os
@@ -328,7 +329,7 @@ GPT_SHAPE = (256, 152, 256, 4)
 GPT_DECODE_POS = (0, 75, 151)
 # K2's causal form (B, T, C, H), with or without a key mask of trailing
 # pads (every query keeps key 0): GPT's shape, then the edges of its
-# 32-key tiles and 64-row blocks at head size 64 and 9
+# 64-key tiles and 64-row blocks at head size 64 and 9
 K2_CAUSAL_CASES = [(GPT_SHAPE, False), (GPT_SHAPE, True), ((8, 1, 256, 4), False),
                    ((8, 17, 256, 4), True), ((8, 63, 256, 4), False), ((8, 64, 256, 4), True),
                    ((8, 65, 256, 4), False), ((4, 256, 256, 4), True), ((8, 17, 36, 4), False),
@@ -560,6 +561,13 @@ def _print_time(name, shape, form, t):
           f"{t['ms'] / t['bound_ms']:.2f}")
 
 
+def _fp32_plan(q, k, v, H=None) -> dict:
+    """The fp32 core's host plan of a call (`ops/set_attention.py:fp32_plan`)
+    on token-major q/k/v with H heads, or head-major ones (H None)."""
+    return dataclasses.asdict(k2.fp32_plan(*(t if H is None else k2._heads(t, H)
+                                             for t in (q, k, v))))
+
+
 def _time_packed(shape, dev):
     """{"K1": times, "K2": times} at packed rows of `shape`: K1 in its
     segment form, K2 in its bias + segments form, each with its plain
@@ -586,7 +594,7 @@ def _time_packed(shape, dev):
         ms, plain_ms, library_ms = median_device_ms([kernel, plain, library])
         bound_ms, bound_by = _bound(q, pairs, extra)
         t = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                 bound_by=bound_by)
+                 bound_by=bound_by, plan=_fp32_plan(q, k, v, H))
         _print_time(name, shape, form, t)
         result[name] = t
     return result
@@ -605,7 +613,7 @@ def _time_key_mask(shape, dev):
     n_real = real.sum(dim=1)
     bound_ms, bound_by = _bound(q, int((n_real * n_real).sum()), 4 * km.numel())
     t = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-             bound_by=bound_by)
+             bound_by=bound_by, plan=_fp32_plan(q, k, v, H))
     _print_time("K1", shape, "key_mask", t)
     return t
 
@@ -720,7 +728,7 @@ def time_gpt_attention(dev):
                 ("full", "GPT forward, causal bias", ms, 4 * (4 * q.numel() + bias.numel()))):
             bound_ms, bound_by = _roofline(nbytes, flops)
             result[key] = dict(ms=t, plain_ms=plain_ms, library_ms=library_ms,
-                               bound_ms=bound_ms, bound_by=bound_by)
+                               bound_ms=bound_ms, bound_by=bound_by, plan=_fp32_plan(q, k, v, H))
             _print_time("K2", GPT_SHAPE, form, result[key])
         for pos, key in ((T - 1, "decode"), (75, "decode_pos75")):
             q1, kc, vc, km = _gpt_decode_inputs(pos, dev)
@@ -733,7 +741,8 @@ def time_gpt_attention(dev):
             bound_ms, bound_by = _roofline(4 * (2 * q1.numel() + km.numel() + 2 * keys * C),
                                            4 * C * keys)
             result[key] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                               bound_ms=bound_ms, bound_by=bound_by)
+                               bound_ms=bound_ms, bound_by=bound_by,
+                               plan=_fp32_plan(q1, kc, vc, H))
             _print_time("K2", (B, 1, T, C, H), f"GPT decode, key_mask pos {pos}", result[key])
     return result
 
@@ -2678,9 +2687,10 @@ def _wide_name(case, dtype=torch.float32):
 def check_wide_kernels(dev) -> dict:
     """Every wide case against its plain version (fp32 within ATOL / RTOL,
     bf16 within BF16_ATOL / BF16_RTOL), the gradients of the fp32 forms
-    within GRAD_ATOL and of one bf16 form; each bf16 case prints its plan,
-    and the ring that wraps, the slices and the staged q/k/v in both must
-    have run.  Returns the worst errors by kernel and dtype."""
+    within GRAD_ATOL and of one bf16 form; each case prints its plan: the
+    bf16 ring that wraps, the slices and the staged q/k/v in both, and the
+    fp32 forms with and without key splits, in slices and whole, must have
+    run.  Returns the worst errors by kernel and dtype."""
     worst = {"K1": 0.0, "K2": 0.0, "K1_bf16": 0.0, "K2_bf16": 0.0}
     seen = set()
     for dtype, cases, tol in ((torch.float32, WIDE_CASES, dict(atol=ATOL, rtol=RTOL)),
@@ -2697,15 +2707,23 @@ def check_wide_kernels(dev) -> dict:
                 staged = "staged" in plan
                 seen |= {("ring" if stages < tiles else "resident", staged),
                          ("slices" if slices > 1 else "whole head", staged)}
+            else:
+                plan = k2.fp32_plan(*(k2._heads(t, case[4]) for t in (c["q"], c["k"], c["v"])))
+                name += (f" [{plan.splits} key split(s), {plan.slices} slice(s), "
+                         f"{plan.stages} stages]")
+                seen |= {"split" if plan.splits > 1 else "unsplit",
+                         "slices" if plan.slices > 1 else "whole head"}
             out, ref = c["kernel"](), c["plain"]()
             rows = c["rows"] if case[-1] != "head_major" else torch.ones(
                 out.shape[:3], dtype=torch.bool, device=dev)
             key = ("K1" if case[-1] in ("key_mask", "segments") else "K2") + (
                 "_bf16" if dtype == BF16 else "")
             worst[key] = max(worst[key], _held(f"{name} vs plain", out, ref, rows, **tol))
-    need = {("ring", False), ("ring", True), ("slices", False), ("slices", True)}
+    need = {("ring", False), ("ring", True), ("slices", False), ("slices", True), "split",
+            "unsplit", "slices", "whole head"}
     if not need <= seen:
-        raise AssertionError(f"the bf16 wide checks ran {sorted(seen)}, not all of {sorted(need)}")
+        raise AssertionError(f"the wide checks ran {sorted(seen, key=str)}, not all of "
+                             f"{sorted(need, key=str)}")
     for case in WIDE_GRAD_CASES:
         c = _wide_case(case, dev, seed=1)
         B, Tq, Tk, C, H, form = case
@@ -2757,6 +2775,8 @@ def time_wide_kernels(dev) -> dict:
                 bound_ms, bound_by = _roofline(c["nbytes"], c["flops"], rate)
                 t = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
                          bound_by=bound_by)
+                if dtype == torch.float32:
+                    t["plan"] = _fp32_plan(c["q"], c["k"], c["v"], H)
                 _print_time(name.split(" ")[0], case[:5], " ".join(name.split(" ")[1:]), t)
                 result[name] = t
     return result
@@ -2983,17 +3003,45 @@ def _cuobjdump() -> str:
 
 
 def _tensor_core_counts(so: Path) -> dict:
-    """Tensor-core instructions in a library's device code: HMMA
-    (`mma.sync`, the fp32 forms) and HGMMA (`wgmma`, the bf16 forms)."""
+    """{kernel symbol: {"HMMA": n, "HGMMA": n}}: the tensor-core
+    instructions of each function in a library's device code, HMMA
+    (`mma.sync`) and HGMMA (`wgmma`)."""
     sass = subprocess.run([_cuobjdump(), "-sass", str(so)], capture_output=True, text=True,
                           check=True).stdout.splitlines()
-    return {op: sum(f" {op}." in line for line in sass) for op in ("HMMA", "HGMMA")}
+    counts, symbol = {}, None
+    for line in sass:
+        if "Function : " in line:
+            symbol = line.split("Function : ")[1].strip()
+            counts[symbol] = {"HMMA": 0, "HGMMA": 0}
+        elif symbol is not None:
+            for op in ("HMMA", "HGMMA"):
+                counts[symbol][op] += f" {op}." in line
+    return counts
+
+
+def _check_tensor_cores(name: str, counts: dict) -> None:
+    """Every attention kernel of a library runs its products on `wgmma`:
+    each fp32 form (`attention_kernel_tf32`, 3xTF32) and each bf16 form
+    (`attention_kernel_bf16*`) shows HGMMA and no HMMA, both kinds are
+    there, and no function of the library has an HMMA."""
+    kinds = {"fp32": "attention_kernel_tf32", "bf16": "attention_kernel_bf16"}
+    for kind, stem in kinds.items():
+        forms = {sym: c for sym, c in counts.items() if stem in sym}
+        print(f"{name} {kind}: {len(forms)} kernels, HGMMA "
+              f"{sorted(c['HGMMA'] for c in forms.values())}, HMMA "
+              f"{sum(c['HMMA'] for c in forms.values())}")
+        if not forms or any(c["HMMA"] or not c["HGMMA"] for c in forms.values()):
+            raise AssertionError(f"{name}: the {kind} forms do not all run on wgmma alone: {forms}")
+    stray = {sym: c for sym, c in counts.items() if c["HMMA"]}
+    if stray:
+        raise AssertionError(f"{name}: mma.sync (HMMA) in {sorted(stray)}")
 
 
 def _build_all() -> dict:
     """Build both kernels at once, one nvcc each; print the reports and
-    each library's HMMA and HGMMA counts, and fail if one has none of
-    either.  Returns the build seconds by kernel."""
+    each library's tensor-core instructions by kernel symbol, and fail
+    unless every fp32 and bf16 form shows HGMMA and none HMMA.  Returns the
+    build seconds by kernel."""
     def timed(mod):
         t0 = time.perf_counter()
         mod.build()
@@ -3006,12 +3054,7 @@ def _build_all() -> dict:
         log = mod.library_path().with_suffix(".log")
         if log.exists():
             print(log.read_text().strip())
-        counts = _tensor_core_counts(mod.library_path())
-        print(f"{name}: {counts['HMMA']} HMMA (mma.sync, fp32) and {counts['HGMMA']} HGMMA "
-              f"(wgmma, bf16) instructions in {mod.library_path().name}")
-        if not (counts["HMMA"] and counts["HGMMA"]):
-            raise AssertionError(f"{name} lacks the tensor-core instructions of one of its "
-                                 f"forms: {counts}")
+        _check_tensor_cores(name, _tensor_core_counts(mod.library_path()))
     return {"K1": seconds[0], "K2": seconds[1]}
 
 

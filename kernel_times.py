@@ -12,9 +12,16 @@ card and shows their spread.  What is timed is what `chip_smoke.py` times
 segment form and K2 with a (B, H, T, T) bias + segments at B=128 T=128 H=4,
 C=128 and 256, fp32 and bf16; K1's key-mask form on the wide jets
 (8 x 150 x 256); GPT's full forward (K2's causal and bias forms) and its
-decode at positions 151 and 75.  Each tree prints one line `TIMES <tree>
-{json}` of device milliseconds; the first line is the card's name and
-power limit.  Needs CUDA; exits non-zero without it.
+decode at positions 151 and 75; then more fp32 forms (`FP32_FORMS`): K1
+and K2 at the tensor-parallel shard shapes (H=2 of the flagship's 4 heads)
+and the wide forms that lost to `scaled_dot_product_attention` before the
+fp32 core moved to TMA and `wgmma` (head sizes 136-512 in slices, the
+key-mask form at 512 and 2048 keys, causal at 1024, the decode at head
+size 256), each as `chip_smoke.py:_wide_case` makes it, beside the library
+call ("... sdpa").
+Each tree prints one line `TIMES <tree> {json}` of device milliseconds; the
+first line is the card's name and power limit.  Needs CUDA; exits non-zero
+without it.
 """
 
 from __future__ import annotations
@@ -23,6 +30,15 @@ import json
 import subprocess
 import sys
 from pathlib import Path
+
+# (B, Tq, Tk, C, H, form) as chip_smoke.py's WIDE_CASES
+FP32_FORMS = [(128, 128, 128, 64, 2, "segments"), (128, 128, 128, 64, 2, "bias_segments"),
+              (128, 128, 128, 128, 2, "segments"), (128, 128, 128, 128, 2, "bias_segments"),
+              (8, 300, 300, 272, 2, "key_mask"), (8, 300, 300, 320, 2, "bias_segments"),
+              (8, 300, 300, 256, 1, "key_mask"), (8, 300, 300, 256, 1, "bias"),
+              (4, 300, 300, 512, 1, "key_mask"), (4, 300, 300, 512, 1, "bias"),
+              (4, 512, 512, 256, 4, "key_mask"), (1, 2048, 2048, 256, 4, "key_mask"),
+              (2, 1024, 1024, 256, 4, "causal"), (16, 1, 302, 512, 2, "decode")]
 
 
 def _time_tree(tree: str) -> dict:
@@ -43,6 +59,13 @@ def _time_tree(tree: str) -> dict:
         times[f"{name} bf16 {'x'.join(map(str, shape))}"] = t["ms"]
     for form, t in cs.time_gpt_attention(dev).items():
         times[f"K2 GPT {form}"] = t["ms"]
+    with torch.no_grad():
+        for case in FP32_FORMS:
+            c = cs._wide_case(case, dev, seed=3)
+            name = cs._wide_name(case)
+            library = cs._library_call(c["q"], c["k"], c["v"], case[4], c["ref_btc"], c["rows"],
+                                       name, **c["sdpa"])
+            times[name], times[f"{name} sdpa"] = cs.median_device_ms([c["kernel"], library])
     return times
 
 

@@ -15,9 +15,11 @@
 // holds about 3 jets, so only about a third of the pairs are same-jet.
 //
 // What the design does about it: it is the shared core of
-// csrc/set_attention_core.cuh (3xTF32 mma.sync at fp32 accuracy, K and V
-// tiles of 32 keys streamed with cp.async through a double buffer, online
-// softmax in registers, cross-jet key tiles skipped under segments),
+// csrc/set_attention_core.cuh (3xTF32 `wgmma` at fp32 accuracy, the raw
+// fp32 tiles by TMA serving as the hi parts, K's lo part and V^T made by
+// one thread pass a tile, a ring of key-tile chunks on mbarriers, online
+// softmax in registers, cross-jet key tiles not loaded under segments,
+// the keys split across blocks on grids that fill at most half the card),
 // instantiated with K1's contiguous (B, T, C) strides and no bias.  The
 // TPU kernel replicated each row H times with lane masks to fill a
 // 128-lane MXU (an H*T x H*T score matrix with a block penalty); on Hopper
@@ -34,12 +36,18 @@
 
 namespace core = set_attention_core;
 
-// Launches K1 on `stream`; key_mask and segments may be null.  Returns the
-// launch's cudaError_t (0 on success); the kernel itself is not awaited.
+// Launches K1 on `stream`; key_mask and segments may be null.  The host's
+// plan (ops/set_attention.py:fp32_plan): `qkv_tma` (q, k and v by TMA),
+// `stages` (of the ring of key-tile chunks), `splits` (of the key tiles
+// across blocks; `part` the scratch of the split rows, null without) and
+// `smem` (the launch's shared memory, as core::fp32_smem counts it).
+// Returns the launch's cudaError_t (0 on success); the kernel itself is not
+// awaited.
 extern "C" int btc_attention_fwd(const float* q, const float* k, const float* v,
                                  const float* key_mask, const int* segments,
                                  float* out, int B, int T, int C, int n_head,
-                                 float scale, void* stream) {
+                                 float scale, int qkv_tma, int stages, int splits, int smem,
+                                 float* part, void* stream) {
   if (B <= 0 || T <= 0 || n_head <= 0 || C % n_head != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -47,8 +55,11 @@ extern "C" int btc_attention_fwd(const float* q, const float* k, const float* v,
   const core::Strides s{static_cast<long long>(T) * C, hs, C, 1};
   const core::Params p{q,        s,       k,        s,   v,  s, key_mask, nullptr,
                        core::Strides{0, 0, 0, 0}, segments, out, s, T, T, hs, scale};
-  return segments != nullptr ? core::launch<false, true>(p, B, n_head, stream)
-                             : core::launch<false, false>(p, B, n_head, stream);
+  return segments != nullptr
+             ? core::launch_fp32<false, true>(p, B, n_head, qkv_tma, stages, splits, smem, part,
+                                              stream)
+             : core::launch_fp32<false, false>(p, B, n_head, qkv_tma, stages, splits, smem, part,
+                                               stream);
 }
 
 // The bf16 form: q, k, v and out are __nv_bfloat16 (B, T, C), the key mask

@@ -25,13 +25,14 @@
 // so most of the bias is read for scores that are then replaced by -1e9.
 //
 // What the design does about it: it is the shared core of
-// csrc/set_attention_core.cuh (3xTF32 mma.sync, cp.async K/V tiles of 32
-// keys, online softmax), instantiated with the 20 strides as given.  The
-// bias is read per accumulator fragment, a float2 where the key stride is
-// 1, and only for key tiles that some query of the warp can attend to:
-// under segments the cross-jet tiles, and their bias, are skipped.  The
-// Pallas block of 8 jets x all heads per grid step is a TPU device (its
-// grid runs in order) and is not carried over.
+// csrc/set_attention_core.cuh (3xTF32 `wgmma`, the raw fp32 tiles by TMA
+// as the hi parts, a ring of key-tile chunks on mbarriers, online
+// softmax), instantiated with the 20 strides as given.  The bias is read
+// per accumulator fragment, a float2 where the key stride is 1, and only
+// for key tiles that some query of the block can attend to: under
+// segments the cross-jet tiles, and their bias, are skipped.  The Pallas
+// block of 8 jets x all heads per grid step is a TPU device (its grid runs
+// in order) and is not carried over.
 // bf16 (`set_attention_bf16_fwd`): q, k, v and out bf16 with the same
 // strides, the bias fp32 or bf16 (a bf16 bias halves its 33.5 MB), the
 // core's bf16 path (a block's TMA loads in flight together, `wgmma` products,
@@ -39,8 +40,9 @@
 // memory where TMA can read it.
 // Causal (`set_attention_causal_fwd`, GPT's full forward): the fp32 path
 // with the causal term computed in the kernel instead of a (1, 1, T, T)
-// bias read from memory, and the key tiles past each warp's last query
-// skipped: the same scores the bias form computes, half its tiles.
+// bias read from memory, and the key tiles past each block's last query
+// not loaded: the same scores the bias form computes, about half its
+// tiles.
 // Shapes: any Tq, Tk and Dh whose shared memory fits a block (the core's
 // header says what bounds them); head sizes past 128 run in slices of 128
 // output columns.
@@ -60,13 +62,16 @@ core::Strides strides_at(const long long* s) { return core::Strides{s[0], s[1], 
 // are read only when bias is non-null; a zero stride broadcasts).
 // key_mask (B, Tk) and bias may be null; segments (B, Tq), Tq == Tk, may
 // be null and are taken only with a bias (without one it is K1's form).
-// Returns the launch's cudaError_t (0 on success); the kernel itself is
-// not awaited.
+// The host's plan (ops/set_attention.py:fp32_plan): `qkv_tma`, `stages`,
+// `splits` (with `part`, the scratch of the split rows) and `smem`, as
+// btc_attention_fwd takes them.  Returns the launch's cudaError_t (0 on
+// success); the kernel itself is not awaited.
 extern "C" int set_attention_fwd(const float* q, const float* k, const float* v,
                                  const float* key_mask, const float* bias,
                                  const int* segments, float* out,
                                  const long long* strides, int B, int H, int Tq,
-                                 int Tk, int hs, float scale, void* stream) {
+                                 int Tk, int hs, float scale, int qkv_tma, int stages,
+                                 int splits, int smem, float* part, void* stream) {
   if (B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0 || hs <= 0 ||
       (segments != nullptr && (Tq != Tk || bias == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -77,18 +82,24 @@ extern "C" int set_attention_fwd(const float* q, const float* k, const float* v,
                        bias,       strides_at(strides + 12), segments,
                        out,        strides_at(strides + 16), Tq,
                        Tk,         hs,                        scale};
-  if (bias == nullptr) return core::launch<false, false>(p, B, H, stream);
-  return segments != nullptr ? core::launch<true, true>(p, B, H, stream)
-                             : core::launch<true, false>(p, B, H, stream);
+  if (bias == nullptr) {
+    return core::launch_fp32<false, false>(p, B, H, qkv_tma, stages, splits, smem, part, stream);
+  }
+  return segments != nullptr
+             ? core::launch_fp32<true, true>(p, B, H, qkv_tma, stages, splits, smem, part, stream)
+             : core::launch_fp32<true, false>(p, B, H, qkv_tma, stages, splits, smem, part,
+                                              stream);
 }
 
 // The causal form: q, k, v and out (B, H, T, Dh) fp32 given by 16 element
 // strides (q, k, v, out), key_mask (B, T) or null; Tq == Tk == T, no bias,
-// no segments.  Returns the launch's cudaError_t.
+// no segments; the plan as set_attention_fwd takes it.  Returns the
+// launch's cudaError_t.
 extern "C" int set_attention_causal_fwd(const float* q, const float* k, const float* v,
                                         const float* key_mask, float* out,
                                         const long long* strides, int B, int H, int T, int hs,
-                                        float scale, void* stream) {
+                                        float scale, int qkv_tma, int stages, int splits,
+                                        int smem, float* part, void* stream) {
   if (B <= 0 || H <= 0 || T <= 0 || hs <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -97,7 +108,8 @@ extern "C" int set_attention_causal_fwd(const float* q, const float* k, const fl
                        core::Strides{0, 0, 0, 0},         nullptr,  out,
                        strides_at(strides + 12),          T,        T,
                        hs,      scale};
-  return core::launch<false, false, true>(p, B, H, stream);
+  return core::launch_fp32<false, false, true>(p, B, H, qkv_tma, stages, splits, smem, part,
+                                               stream);
 }
 
 namespace {

@@ -12,51 +12,83 @@
 // q, k, v, the bias and the output are each a pointer and four element
 // strides of a (B, H, T, D) view; a zero bias stride broadcasts.
 //
-// fp32 q/k/v: `attention_kernel`.  At the packed-row batch (B = 128 rows x
-// T = 128 tokens, H = 4) one call moves 67 MB of q/k/v/out at C = 256,
-// plus 33.5 MB of (B, H, T, T) bias in K2: about 30 us at 3.35 TB/s.  Its
-// 2.15 GFLOP take 13 us at the TF32 tensor-core rate with three products
-// per multiply.  The design:
-//   - Tensor cores at fp32 accuracy: `mma.sync.m16n8k8` in TF32 with the
-//     3xTF32 split.  Every fp32 operand is split once, when it is staged,
-//     into hi = tf32(x) and lo = tf32(x - hi); each product is
-//     lo*hi + hi*lo + hi*hi, summed in fp32 (error near 1e-6 at these
-//     depths, against about 1e-3 for plain TF32), for Q K^T and for P V.
-//   - A block is one (row b, head h, tile of 64 queries), 4 warps of 16
-//     query rows, each keeping its q fragments (hi and lo) in registers.
-//     K and V pass in tiles of 32 keys through a double-buffered ring in
-//     shared memory, loaded with 16-byte `cp.async` where the strides allow
-//     and 4-byte `cp.async` where they do not; rows padded to Dpad + 4
-//     floats, so the fragment loads hit 32 banks.
-//   - Softmax online (flash-style) in the accumulator layout; masked scores
-//     are -1e9 (finite) as in the plain version.
-//   - Key tiles are skipped where no query of a warp can attend to them,
-//     and not loaded where no warp of the block can, by bit masks over
-//     windows of 32 tiles (1024 keys) made once a block and kept in shared
-//     memory (`TileNeeds`); past 1024 keys (kLong) the loop moves from one
-//     window to the next.  Under segments: each
-//     warp knows the min and max segment id of its queries, each key tile
-//     those of its keys, both without the pads' id -1, which is a flag of
-//     its own; a tile is skipped when the intervals are disjoint and they
-//     do not both hold pads.  Under kCausal (GPT's full forward): a tile is
-//     skipped when its first key lies past the warp's last query, and a
-//     warp whose rows all lie at or past Tq skips every tile; no bias is
-//     read, the causal term is added where the bias form adds the bias.
-//     Either way every pair of a skipped tile would score -1e9 plus a small
+// Both dtypes share one machinery: a block is (row b, 64 queries, head h)
+// and one warpgroup of 4 warps, the 64 rows of a `wgmma` tile; its loads go
+// by TMA (`cp.async.bulk.tensor.4d` with a tensor map, 128-byte swizzle)
+// and complete on `mbarrier`s; key tiles of 64; the scores and the online
+// (flash-style) softmax stay fp32 in the accumulator layout, masked scores
+// are -1e9 (finite) as in the plain version.
+//
+// fp32 q/k/v (the path users run by default): `attention_kernel_tf32`.  At
+// the packed-row batch (B = 128 rows x T = 128 tokens, H = 4) one call
+// moves 67 MB of q/k/v/out at C = 256, plus 33.5 MB of (B, H, T, T) bias in
+// K2: about 30 us at 3.35 TB/s.  Its 2.15 GFLOP take 13 us at the TF32
+// tensor-core rate with three products per multiply.  What bounded the
+// earlier design (3xTF32 `mma.sync`, `cp.async` tiles of 32 keys) was not
+// either but each tile's chain: a `cp.async.wait_group 0`, a barrier, the
+// split pass and a second barrier, 4.3-5.3x the byte bound.  The design:
+//   - Tensor cores at fp32 accuracy: `wgmma.m64nNk8.f32.tf32.tf32` with the
+//     3xTF32 split, lo*hi + hi*lo + hi*hi a step of 8, summed in fp32
+//     (error near 1e-6 against about 1e-3 for plain TF32;
+//     tests/test_torch_fp32_plan.py emulates it).  The tensor core ignores
+//     the low 13 bits of a .tf32 operand, so the raw fp32 values TMA writes
+//     are the hi parts, trunc(x); only lo = tf32(x - trunc(x)) is made, by
+//     one thread pass when a tile lands.
+//   - TF32 `wgmma` reads both shared-memory operands K-major only (the
+//     transpose bits are f16 / bf16's).  S = Q K^T: Q's and K's rows are
+//     K-major as TMA writes them; Q_lo comes from registers (made from Q's
+//     raw rows per pass), K_lo from the pass.  P V: P's hi and lo are made
+//     in registers from the score accumulators (the A operand from
+//     registers); V must be K-major along the keys, so the pass writes V^T's
+//     hi and lo parts from V's raw tile, its keys in P's fragment order.
+//   - The head's dims pass in chunks of 64 rows x 64 columns (32 at head
+//     size <= 32): each needed key tile is K's ceil(hs / 64) passes, then
+//     the V parts of the block's output columns, each one chunk of a ring of
+//     1-4 stages with a `full` and an `empty` mbarrier; thread 0 loads the
+//     chunk `stages` on once every thread has arrived on a stage's `empty`
+//     barrier.  Q's rows of the whole head stay in shared memory.  Up to
+//     head size 64 a tile's K and V chunks are waited for together and split
+//     in one pass between two barriers.  Without segments the first loads
+//     go out before the key mask is read.
+//   - Past a head size of 128 a block takes one slice of 128 output
+//     columns (grid z = H x slices x splits) and recomputes S; up to 128 the
+//     whole head.
+//   - What bounds it now is the chain of waits of a block with few key
+//     tiles (2 at the packed rows), so the plan buys blocks an SM first:
+//     the stages that let the most blocks share an SM (the registers are
+//     bounded for 4 at head size <= 32, 2 past it), then the most stages.
+//   - Where a call's blocks fill at most half of the blocks the card holds
+//     at once, the key tiles of a (row, head, query tile) are split across
+//     blocks: each writes its partial (O unnormalised, the rows' max and
+//     sum) and `merge_splits` combines them before the output is
+//     normalised, so the softmax stays exact.  A merge costs about 5 us, so
+//     a share keeps at least 8 chunks of work.
+//   - Key tiles no query of the block needs are not loaded
+//     (`BlockNeeds`): under segments those whose interval of ids misses the
+//     block's 64 queries; under kCausal (GPT's full forward) those past the
+//     block's last query, whose blocks start with the last query tile, the
+//     longest.  Every pair of a skipped tile would score -1e9 plus a small
 //     term, so each of its probabilities is exactly 0 in fp32 for a query
 //     that keeps one unmasked key of its own: every query does, itself
-//     (Tq == Tk), and the tile holding it is never skipped.  At GPT's
-//     T = 152 the causal form computes 30 of the 60 warp tiles of the bias
-//     form and loads 11 of its 15 block tiles.  Its time follows the block
-//     tiles (the staging, the 3xTF32 split and the barriers of each), not
-//     the warp products; its blocks start with the last query tile, the
-//     longest (4% faster than in order on the card).
-//   - The bias (kBias) is read per accumulator fragment from global memory.
-//   - Head sizes past 128 (`attention_kernel_sliced`): the q fragments and
-//     the accumulator of a whole head do not fit in registers, so a block
-//     takes one slice of 128 output columns, its 64 query rows kept in
-//     shared memory and split on use, each key tile streamed as K's
-//     128-wide passes then V's slice; S is recomputed by every slice.
+//     (Tq == Tk), and the tile holding it is never skipped.
+//   - The bias is read per accumulator fragment from global memory when a
+//     tile begins.
+//   - q/k/v whose strides miss TMA's rules (odd head sizes) are staged by
+//     the block's threads into the same layout.
+//   - The output goes through the work chunks to 16-byte stores of whole
+//     rows (4-6% faster than the fragments' own stores at the packed rows).
+//   The measured alternatives that lost (PERF.md): 3-4 stages at
+//   head size 64, one block an SM (K1 at C = 256 0.107 against 0.077 ms);
+//   key splits where the blocks already fill the card (the wide jets: 3
+//   splits 0.029 against 0.021 ms unsplit); the block's own tile first
+//   under segments (4-7% slower); reading the bias only for same-segment
+//   pairs at head size 64 (4% slower for K2 at C = 256; at 32 it is faster
+//   and kept); the bias loaded a tile ahead, into registers or into L2
+//   (5-15% slower for K2); skipping the key mask's zeros in the softmax
+//   when a call has none (10-30% slower: ptxas re-allocated the kernel).
+//   The host plans the call (`ops/set_attention.py:fp32_plan`): q/k/v by
+//   TMA or not, the ring's stages, the slices, the key splits and the
+//   shared memory, which the entry checks against `fp32_smem`.
 //
 // bf16 q/k/v (the encoders' compute_dtype="bfloat16"): `attention_kernel_bf16`.
 // What bounds it here is not its bytes (33.5 MB at C = 256 without a bias,
@@ -66,44 +98,42 @@
 // barrier), then read the bias of the tile from global memory into
 // registers: 4.4-6.3x above its byte bound, slower than one
 // `scaled_dot_product_attention` call.  The design:
-//   - One block is (row b, 64 queries, head h): one warpgroup of 4 warps,
-//     the 64 rows of a `wgmma` tile.  Its loads are in flight together: the
-//     first thread issues TMA loads (`cp.async.bulk.tensor.4d` with a
-//     tensor map) of Q and of the K/V tiles of 64 keys, with the bias block
-//     beside each tile, each key tile completing on its own `mbarrier`,
-//     while the threads read the key mask and the segment ids.  With
-//     Tk <= 256 and head size <= 128 the whole row fits in shared memory
-//     (at most 217 KB), so the ring of key tiles never wraps and no tile
-//     waits for another's consumer (kRing false: the layout and the loop
-//     of the kernel before key rings).  The block computes as tiles land.
+//   - Its loads are in flight together: the first thread issues the TMA
+//     loads of Q and of the K/V tiles of 64 keys, with the bias block beside
+//     each tile, each key tile completing on its own `mbarrier`, while the
+//     threads read the key mask and the segment ids.  With Tk <= 256 and
+//     head size <= 128 the whole row fits in shared memory (at most 217 KB),
+//     so the ring of key tiles never wraps and no tile waits for another's
+//     consumer (kRing false: the layout and the loop of the kernel before
+//     key rings).  The block computes as tiles land.
 //   - Past 256 keys (kRing) the key tiles pass through a ring of S stages
 //     (2-4, as many as fit), each with a `full` and an `empty` mbarrier:
 //     thread 0 loads the tile S needed tiles on into a stage once every
 //     thread has arrived on its `empty` barrier; the bias block of a tile
 //     travels in its stage.
 //   - Head sizes past 128 (`attention_kernel_bf16_sliced`): a block takes
-//     one slice of 128 output columns, as in the fp32 core; its query rows
-//     stay in shared memory as chunks of 64 x 128, and each needed key tile
-//     passes through a ring of chunks of 64 keys x 128 (K's passes, then
-//     V's slice); the bias is read per fragment.
+//     one slice of 128 output columns; its query rows stay in shared memory
+//     as chunks of 64 x 128, and each needed key tile passes through a ring
+//     of chunks of 64 keys x 128 (K's passes, then V's slice); the bias is
+//     read per fragment.
 //   - Under segments only the key tiles whose interval of ids meets the
-//     block's 64 queries (the test above, on the warpgroup's rows) are
-//     loaded, once the ids are in: measured against loading every tile at
-//     once, 2-3% faster for K1 and level for K2 at the packed rows.
+//     block's 64 queries are loaded, once the ids are in: measured against
+//     loading every tile at once, 2-3% faster for K1 and level for K2 at the
+//     packed rows.
 //   - Q, K and V land in the swizzled K-major layout that `wgmma` reads
 //     (128-byte swizzle, 64-byte at head size <= 32, head dims past the
 //     head size zero-filled by the tensor map's bounds).  S = Q K^T is
 //     `wgmma.m64n64k16` with both operands in shared memory; P V is
 //     `wgmma.m64nDk16` with P from registers (rounded to bf16 in the
-//     accumulator-to-A layout, as before) and V in shared memory read
-//     MN-major through the transpose bit.  Scores and softmax stay fp32.
+//     accumulator-to-A layout) and V in shared memory read MN-major through
+//     the transpose bit.
 //   - The bias block of a key tile (64 queries x 64 keys) lands by TMA
 //     in boxes of 128-byte rows, swizzled, where the bias's key stride is
 //     1 and its row stride and base meet TMA's 16-byte rules (the
 //     co-occurrence (B,H,T,T) bias and the pair biases at T % 4 == 0; a
 //     zero stride is a dimension of size 1); the fragments read it from
 //     there.  Other biases (T = 150: rows of 600 bytes) are read per
-//     fragment from global memory, as in the fp32 path.
+//     fragment from global memory.
 //   - q/k/v whose strides miss TMA's rules (odd head sizes) are staged by
 //     the block's threads into the same swizzled layout.
 //   - The output goes through shared memory to 16-byte stores.
@@ -115,13 +145,13 @@
 // which the entry checks against `bf16_smem`.
 // Shapes: any Tq, Tk and head size.  What bounds them is a block's 227 KB
 // of shared memory (`fp32_smem`, `bf16_smem`): the key mask and segment
-// ids of a row are staged whole (8 Tk bytes: 32 KB at Tk = 4096), and in
-// slices the query rows of the whole head (fp32 256 (hs + 4) bytes, bf16
-// 128 hs); with the tiles that leaves Tk up to about 16,000 at head size
-// 128 and head sizes up to about 700 at Tk = 4096.  The launch refuses a
-// call past it (invalid value), and the host plans raise first, naming it.
-// Offsets are 64-bit; the grid bounds Tq by 65,535 query tiles and H x
-// slices by 65,535.
+// ids of a row are staged whole (8 Tk bytes: 32 KB at Tk = 4096), and the
+// query rows of the whole head (fp32 256 hs bytes, bf16 in slices 128 hs);
+// with the tiles that leaves Tk up to about 16,000 at head size 128 and
+// head sizes up to about 700 at Tk = 1024.  The launch refuses a call past
+// it (invalid value), and the host plans raise first, naming it.  Offsets
+// are 64-bit; the grid bounds Tq by 65,535 query tiles and H x slices (x
+// key splits) by 65,535.
 
 #pragma once
 
@@ -139,9 +169,6 @@ namespace set_attention_core {
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kRowsPerWarp = 16;               // one m16 tile
-constexpr int kQTile = kWarps * kRowsPerWarp;  // query rows per block
-constexpr int kKTile = 32;                     // keys per staged tile
 constexpr int kMaxHs = 128;  // the widest head a block holds whole; wider heads go in slices
 constexpr int kSliceD = kMaxHs;  // output columns of a block of the sliced forms
 constexpr int kMaxSmem = 232448;  // the shared memory one block may use (227 KB)
@@ -180,96 +207,6 @@ __device__ __forceinline__ uint32_t to_tf32(float x) {
   uint32_t r;
   asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
   return r;
-}
-
-// x = hi + lo with both in TF32 (lo keeps the next 11 bits)
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = to_tf32(x);
-  lo = to_tf32(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d += a b at fp32 accuracy: the small products first, then hi * hi
-__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&a_hi)[4],
-                                           const uint32_t (&a_lo)[4], const float* b_hi,
-                                           const float* b_lo, int b1_offset) {
-  const uint32_t h0 = __float_as_uint(b_hi[0]), h1 = __float_as_uint(b_hi[b1_offset]);
-  mma_tf32(d, a_lo, h0, h1);
-  mma_tf32(d, a_hi, __float_as_uint(b_lo[0]), __float_as_uint(b_lo[b1_offset]));
-  mma_tf32(d, a_hi, h0, h1);
-}
-
-// kBytes of global memory to shared memory, or kBytes of zeros
-template <int kBytes>
-__device__ __forceinline__ void cp_async(float* dst, const float* src, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = valid ? kBytes : 0;
-  if constexpr (kBytes == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(n)
-                 : "memory");
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src), "r"(n)
-                 : "memory");
-  }
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// log2 of the power of two >= the units (of kUnit floats) in a padded row;
-// threads map to (row, unit) by shifts, with no divide
-template <int kUnit>
-__device__ __forceinline__ int unit_shift(int dpad) {
-  return 32 - __clz(dpad / kUnit - 1);
-}
-
-// Issue the copy of rows j0..j0+kRows-1 of one (T, D) view into a tile of
-// `stride` floats a row, dims >= hs and rows >= T as zeros.
-template <int kRows, int kUnit>
-__device__ __forceinline__ void stage_rows(float* dst, int stride, const float* src,
-                                           long long st, long long sd, int j0, int T, int hs,
-                                           int dpad) {
-  const int shift = unit_shift<kUnit>(dpad);
-  const int d = (threadIdx.x & ((1 << shift) - 1)) * kUnit;
-  if (d >= dpad) return;
-  for (int r = threadIdx.x >> shift; r < kRows; r += kThreads >> shift) {
-    const int j = j0 + r;
-    const bool ok = d < hs && j < T;
-    cp_async<4 * kUnit>(dst + r * stride + d, ok ? src + j * st + d * sd : src, ok);
-  }
-}
-
-// Split a staged tile in place into its TF32 hi part, writing lo beside it.
-__device__ __forceinline__ void split_tile(float* hi, float* lo, int stride, int dpad) {
-  const int shift = unit_shift<4>(dpad);
-  const int d = (threadIdx.x & ((1 << shift) - 1)) * 4;
-  if (d >= dpad) return;
-  for (int r = threadIdx.x >> shift; r < kKTile; r += kThreads >> shift) {
-    float4* ph = reinterpret_cast<float4*>(hi + r * stride + d);
-    const float4 x = *ph;
-    uint32_t h[4], l[4];
-    split(x.x, h[0], l[0]);
-    split(x.y, h[1], l[1]);
-    split(x.z, h[2], l[2]);
-    split(x.w, h[3], l[3]);
-    *ph = make_float4(__uint_as_float(h[0]), __uint_as_float(h[1]), __uint_as_float(h[2]),
-                      __uint_as_float(h[3]));
-    *reinterpret_cast<float4*>(lo + r * stride + d) =
-        make_float4(__uint_as_float(l[0]), __uint_as_float(l[1]), __uint_as_float(l[2]),
-                    __uint_as_float(l[3]));
-  }
 }
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -334,99 +271,29 @@ __device__ __forceinline__ bool meets(int lo, int hi, bool pad, int tlo, int thi
   return (lo <= thi && tlo <= hi) || (pad && tpad);
 }
 
-// The key tiles of 32 that the fp32 core's warps need, as bit masks over
-// a window of 32 tiles (1024 keys; one window at Tk <= 1024, so the loop
-// keeps two masks in registers as it did when Tk was capped at 256): every
-// tile; under segments (kSeg) the tiles whose interval meets the warp's
-// (`need_warp`) or any warp's (`need_block`); under kCausal the tiles up to
-// the warp's (the block's) last query row.  Under segments `init` (called
-// by every thread once the segment ids are in shared memory) writes the
-// masks of every window to `words` in shared memory, `tile_ints(Tk)` ints
-// with the intervals they are made from: a window's masks are then two
-// loads.
-__host__ __device__ constexpr int tile_ints(int Tk) {
-  return 3 * ((Tk + kKTile - 1) / kKTile) + 3 * kWarps +
-         (1 + kWarps) * ((Tk + 32 * kKTile - 1) / (32 * kKTile));
-}
-
-// the bits of tiles 0..k of a window (none for k < 0)
-__device__ __forceinline__ uint32_t tiles_upto(int k) {
-  return k < 0 ? 0u : k >= 31 ? 0xffffffffu : (2u << k) - 1u;
-}
-
-template <bool kSeg, bool kCausal>
-struct TileNeeds {
-  const uint32_t* words;  // window w: the block's at w, warp v's at (1 + v) n_windows + w
-  int n_tiles, n_windows;
-
-  __device__ __forceinline__ void init(const int* sg, int* t_ints, int Tq, int Tk, int q0) {
-    n_tiles = (Tk + kKTile - 1) / kKTile;
-    n_windows = (n_tiles + 31) / 32;
-    const int n = n_tiles + kWarps;
-    uint32_t* w_out = reinterpret_cast<uint32_t*>(t_ints + 3 * n);
-    words = w_out;
-    if constexpr (kSeg) {
-      int* lo = t_ints;
-      int* hi = t_ints + n;
-      int* pad = t_ints + 2 * n;
-      tile_intervals<kKTile>(sg, Tk, lo, hi, pad);
-      const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-      int a, z;
-      bool p;
-      rows_interval(sg, Tq, q0 + warp * kRowsPerWarp + lane, lane < kRowsPerWarp, a, z, p);
-      if (lane == 0) lo[n_tiles + warp] = a, hi[n_tiles + warp] = z, pad[n_tiles + warp] = p;
-      __syncthreads();
-      for (int i = threadIdx.x; i < (1 + kWarps) * n_windows; i += kThreads) {
-        const int who = i / n_windows, first = 32 * (i - who * n_windows);
-        uint32_t word = 0;
-        for (int j = 0; j < 32 && first + j < n_tiles; ++j) {
-          const int t = first + j;
-          bool need = false;
-          for (int v = 0; v < kWarps; ++v) {
-            const int x = n_tiles + v;
-            if ((who == 0 || who == 1 + v) && meets(lo[x], hi[x], pad[x], lo[t], hi[t], pad[t])) {
-              need = true;
-            }
-          }
-          word |= static_cast<uint32_t>(need) << j;
-        }
-        w_out[i] = word;
-      }
-      __syncthreads();
-    }
-  }
-
-  // the masks of the window of tiles first.. first + 31
-  __device__ __forceinline__ void window(int first, int q0, int Tq, int warp, uint32_t& need_warp,
-                                         uint32_t& need_block) const {
-    if constexpr (kCausal) {
-      const int row = q0 + warp * kRowsPerWarp;
-      const int last = min(row + kRowsPerWarp, Tq) - 1;
-      need_warp = row < Tq ? tiles_upto(last / kKTile - first) : 0u;
-      need_block = tiles_upto((min(q0 + kQTile, Tq) - 1) / kKTile - first);
-    } else if constexpr (kSeg) {
-      need_warp = words[(1 + warp) * n_windows + first / 32];
-      need_block = words[first / 32];
-    } else {
-      need_warp = need_block = tiles_upto(n_tiles - first - 1);
-    }
-  }
-};
-
 // The bias of the warp's accumulator fragments for the key tile at key0
 // (kNB blocks of 8 keys): two adjacent keys a thread, read as one pair
 // where `vec` (key stride 1, rows aligned to two values), 0 past Tq or Tk.
-template <typename BiasT, int kNB>
+// With kSameSeg a pair is read only where one of its keys shares the row's
+// segment id (`sg`, `seg_row`): the other scores become -1e9 whatever
+// their bias (the fp32 core at head size <= 32, where it measured faster;
+// at 64 it was slower).
+template <typename BiasT, int kNB, bool kSameSeg = false>
 __device__ __forceinline__ void load_bias(float (&bias_v)[kNB][4], const BiasT* bb,
                                           const Strides& sb, const int (&rows)[2], int Tq,
-                                          int Tk, int key0, int c, bool vec) {
+                                          int Tk, int key0, int c, bool vec,
+                                          const int* sg = nullptr, const int* seg_row = nullptr) {
 #pragma unroll
   for (int n = 0; n < kNB; ++n) {
     const int j = key0 + 8 * n + 2 * c;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       float x0 = 0.f, x1 = 0.f;
-      if (rows[r] < Tq) {
+      bool read = rows[r] < Tq;
+      if constexpr (kSameSeg) {
+        read = read && ((j < Tk && sg[j] == seg_row[r]) || (j + 1 < Tk && sg[j + 1] == seg_row[r]));
+      }
+      if (read) {
         const BiasT* bp = bb + rows[r] * sb.t + j * sb.d;
         if (vec && j + 1 < Tk) {
           float2 x;
@@ -498,437 +365,6 @@ __device__ __forceinline__ void softmax_tile(float (&s)[kNB][4], const float (&b
   for (int n = 0; n < kOut; ++n) {
     o[n][0] *= alpha[0], o[n][1] *= alpha[0];
     o[n][2] *= alpha[1], o[n][3] *= alpha[1];
-  }
-}
-
-// One block: row b = blockIdx.x, query tile blockIdx.y, head h = blockIdx.z.
-// kMaxD bounds the padded head size (32, 64 or 128) and sizes the register
-// fragments.  Fragment layouts are those of mma.m16n8k8 (g = lane / 4,
-// c = lane % 4): A holds rows g, g + 8 and columns c, c + 4; B rows (k)
-// c, c + 4 and column g; the accumulator rows g, g + 8 and columns 2c,
-// 2c + 1.  For P V the key order inside each 8-key step is permuted so
-// that A column c is key 2c and column c + 4 key 2c + 1: P then goes from
-// the score accumulator to the A operand with no shuffle, and V's B
-// fragment reads keys 2c and 2c + 1.
-template <int kMaxD, bool kBias, bool kSeg, bool kCausal, bool kLong>
-__device__ __forceinline__ void attention_block(const Params p) {
-  constexpr int kSteps = kMaxD / 8;  // 8-wide steps over the head dims
-  extern __shared__ __align__(16) float smem[];
-
-  const int hs = p.hs, Tq = p.Tq, Tk = p.Tk;
-  const int dpad = (hs + 7) & ~7;
-  const int nk = dpad / 8;
-  const int stride = dpad + 4;  // == 4 mod 8: conflict-free fragment loads
-  const int tile_floats = kKTile * stride;
-  float* kbuf = smem;                    // 2 tiles: K as copied, then its hi part
-  float* vbuf = kbuf + 2 * tile_floats;  // 2 tiles: V
-  float* klo = vbuf + 2 * tile_floats;   // lo part of the current K tile
-  float* vlo = klo + tile_floats;        // lo part of the current V tile
-  float* qs = klo;                       // before the first tile: the 64 query rows
-  float* km = vlo + tile_floats;         // Tk key mask
-  int* sg = reinterpret_cast<int*>(km + Tk);  // Tk segment ids
-  int* tiles = sg + Tk;                  // the segment intervals (TileNeeds)
-
-  const int b = blockIdx.x;
-  const int h = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int c = lane & 3;
-
-  const float* qb = p.q + b * p.sq.b + h * p.sq.h;
-  const float* kb = p.k + b * p.sk.b + h * p.sk.h;
-  const float* vb = p.v + b * p.sv.b + h * p.sv.h;
-  const float* bb = kBias ? p.bias + b * p.sb.b + h * p.sb.h : nullptr;
-  float* ob = p.out + b * p.so.b + h * p.so.h;
-
-  // the query tile, the key mask and the segment ids, all in flight at once
-  // (the causal form takes its longest query tiles, the last, first)
-  const int q0 = (kCausal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * kQTile;
-  if (p.sq.d == 1 && p.sq.t % 4 == 0 && hs % 4 == 0 && aligned(qb, 16)) {
-    stage_rows<kQTile, 4>(qs, stride, qb, p.sq.t, p.sq.d, q0, Tq, hs, dpad);
-  } else {
-    stage_rows<kQTile, 1>(qs, stride, qb, p.sq.t, p.sq.d, q0, Tq, hs, dpad);
-  }
-  for (int j = tid; j < Tk; j += kThreads) {
-    const long long at = static_cast<long long>(b) * Tk + j;
-    if (p.key_mask) cp_async<4>(km + j, p.key_mask + at, true);
-    else km[j] = 0.f;
-    if (kSeg) cp_async<4>(reinterpret_cast<float*>(sg + j),
-                          reinterpret_cast<const float*>(p.segments + at), true);
-  }
-  cp_async_commit();
-  cp_async_wait_all();
-  __syncthreads();
-
-  // the key tiles this warp, and the block, need: masks of a window of 32
-  // (made before the q fragments are held in registers)
-  TileNeeds<kSeg, kCausal> need;
-  need.init(sg, tiles, Tq, Tk, q0);
-  int first = 0;  // the window's first tile
-  uint32_t need_warp, todo;
-  need.window(first, q0, Tq, warp, need_warp, todo);
-
-  // the warp's q fragments, split once
-  uint32_t q_hi[kSteps][4], q_lo[kSteps][4];
-#pragma unroll
-  for (int ks = 0; ks < kSteps; ++ks) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = warp * kRowsPerWarp + g + ((e & 1) ? 8 : 0);
-      const int d = 8 * ks + c + ((e & 2) ? 4 : 0);
-      split(ks < nk ? qs[r * stride + d] : 0.f, q_hi[ks][e], q_lo[ks][e]);
-    }
-  }
-
-
-  const bool k_vec = p.sk.d == 1 && p.sk.t % 4 == 0 && hs % 4 == 0 && aligned(kb, 16);
-  const bool v_vec = p.sv.d == 1 && p.sv.t % 4 == 0 && hs % 4 == 0 && aligned(vb, 16);
-  auto stage = [&](int t, int buf) {
-    float* kd = kbuf + buf * tile_floats;
-    float* vd = vbuf + buf * tile_floats;
-    if (k_vec) stage_rows<kKTile, 4>(kd, stride, kb, p.sk.t, p.sk.d, t * kKTile, Tk, hs, dpad);
-    else stage_rows<kKTile, 1>(kd, stride, kb, p.sk.t, p.sk.d, t * kKTile, Tk, hs, dpad);
-    if (v_vec) stage_rows<kKTile, 4>(vd, stride, vb, p.sv.t, p.sv.d, t * kKTile, Tk, hs, dpad);
-    else stage_rows<kKTile, 1>(vd, stride, vb, p.sv.t, p.sv.d, t * kKTile, Tk, hs, dpad);
-    cp_async_commit();
-  };
-
-  __syncthreads();  // every warp holds its q fragments: qs may be overwritten
-  // some window is not empty: warp 0's first row needs its own key (in
-  // the first window where Tk <= 1024, !kLong)
-  while (kLong && !todo) {
-    first += 32;
-    need.window(first, q0, Tq, warp, need_warp, todo);
-  }
-  int t = first + __ffs(todo) - 1;
-  todo &= todo - 1;
-  stage(t, 0);
-
-  const int row0 = q0 + warp * kRowsPerWarp + g;
-  const int rows[2] = {row0, row0 + 8};
-  int seg_row[2] = {0, 0};
-  if constexpr (kSeg) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) seg_row[r] = rows[r] < Tq ? sg[rows[r]] : -1;
-  }
-  const bool bias_vec = kBias && p.sb.d == 1 && p.sb.t % 2 == 0 && aligned(bb, 8);
-
-  float o[kSteps][4];
-#pragma unroll
-  for (int n = 0; n < kSteps; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY};  // running max of each row
-  float l[2] = {0.f, 0.f};              // this thread's part of each row's sum
-
-  for (int buf = 0;; buf ^= 1) {
-    cp_async_wait_all();
-    __syncthreads();  // tile t landed; every warp is done with the previous tile
-    const bool mine = (need_warp >> (t - first)) & 1u;
-    while (kLong && !todo && first + 32 < need.n_tiles) {
-      first += 32;
-      need.window(first, q0, Tq, warp, need_warp, todo);
-    }
-    const int next = todo ? first + __ffs(todo) - 1 : -1;
-    if (next >= 0) {
-      todo &= todo - 1;
-      stage(next, buf ^ 1);
-    }
-    float* kh = kbuf + buf * tile_floats;
-    float* vh = vbuf + buf * tile_floats;
-    split_tile(kh, klo, stride, dpad);
-    split_tile(vh, vlo, stride, dpad);
-    __syncthreads();
-
-    if (mine) {
-      const int key0 = t * kKTile;
-      float bias_v[4][4];
-      if constexpr (kBias) load_bias(bias_v, bb, p.sb, rows, Tq, Tk, key0, c, bias_vec);
-
-      // scores of the warp's 16 rows against the tile's 32 keys
-      float s[4][4];
-#pragma unroll
-      for (int n = 0; n < 4; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < kSteps; ++ks) {
-        if (ks < nk) {
-#pragma unroll
-          for (int n = 0; n < 4; ++n) {
-            const int off = (8 * n + g) * stride + 8 * ks + c;
-            mma_3xtf32(s[n], q_hi[ks], q_lo[ks], kh + off, klo + off, 4);
-          }
-        }
-      }
-
-      softmax_tile<kBias, kSeg, kCausal>(s, bias_v, km, sg, seg_row, rows, key0, Tk, c, p.scale,
-                                         m, l, o);
-
-      // P V: 8 keys at a time, P straight from the score accumulator
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        uint32_t a_hi[4], a_lo[4];
-        split(s[kk][0], a_hi[0], a_lo[0]);
-        split(s[kk][2], a_hi[1], a_lo[1]);
-        split(s[kk][1], a_hi[2], a_lo[2]);
-        split(s[kk][3], a_hi[3], a_lo[3]);
-        const int base = (8 * kk + 2 * c) * stride + g;
-#pragma unroll
-        for (int n = 0; n < kSteps; ++n) {
-          if (n < nk) mma_3xtf32(o[n], a_hi, a_lo, vh + base + 8 * n, vlo + base + 8 * n, stride);
-        }
-      }
-    }
-    if (next < 0) break;
-    t = next;
-  }
-
-  float inv[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) inv[r] = 1.f / quad_sum(l[r]);
-#pragma unroll
-  for (int n = 0; n < kSteps; ++n) {
-    if (n < nk) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = rows[e >> 1];
-        const int d = 8 * n + 2 * c + (e & 1);
-        if (i < Tq && d < hs) ob[i * p.so.t + d * p.so.d] = o[n][e] * inv[e >> 1];
-      }
-    }
-  }
-}
-
-template <int kMaxD, bool kBias, bool kSeg, bool kCausal, bool kLong>
-__global__ void __launch_bounds__(kThreads) attention_kernel(const Params p) {
-  attention_block<kMaxD, kBias, kSeg, kCausal, kLong>(p);
-}
-
-// Head size 33-64 keeps 3 blocks an SM (<= 168 registers a thread), the
-// allocation it had before the need masks moved to windows: left to
-// itself, ptxas gave the bias + segments form 178-190 registers and 2
-// blocks, 14-20% slower at the packed rows.  (A bound of 1 block on the
-// other head sizes changes their allocation too, so they keep none.)
-template <bool kBias, bool kSeg, bool kCausal, bool kLong>
-__global__ void __launch_bounds__(kThreads, 3) attention_kernel_64(const Params p) {
-  attention_block<64, kBias, kSeg, kCausal, kLong>(p);
-}
-
-// Rows j0..j0+kRows-1 of a (T, D) view of any width into rows of `stride`
-// floats, dims >= hs (to dpad) and rows >= T as zeros; the fp32 sliced
-// form's query rows, staged once a block.
-template <int kRows, int kUnit>
-__device__ __forceinline__ void stage_rows_any(float* dst, int stride, const float* src,
-                                               long long st, long long sd, int j0, int T, int hs,
-                                               int dpad) {
-  const int units = dpad / kUnit;
-  for (int e = threadIdx.x; e < kRows * units; e += kThreads) {
-    const int r = e / units, d = (e - r * units) * kUnit, j = j0 + r;
-    const bool ok = d < hs && j < T;
-    cp_async<4 * kUnit>(dst + r * stride + d, ok ? src + j * st + d * sd : src, ok);
-  }
-}
-
-// The fp32 sliced form, head sizes past kMaxHs.  The q fragments (hi and
-// lo) and the output accumulator of a whole head do not fit in registers
-// there (about 2 hs + hs / 2 a thread), so a block takes one slice of
-// kSliceD output columns: blockIdx.z = h * n_slices + slice.  Its 64 query
-// rows stay in shared memory as fp32 (64 (hs + 4) floats: 132 KB at head
-// size 512) and are split on use.  Each key tile it needs streams through
-// the double buffer as n_slices + 1 chunks of 32 keys x kSliceD columns:
-// K in kSliceD-wide passes (S = Q K^T accumulated over them), then V's
-// slice for P V.  S is recomputed by every slice of a head: the price of
-// keeping the registers of the whole-head form (no spills) at any width.
-// Skipping, masks, bias, causal term and softmax are those of
-// `attention_kernel`.
-template <bool kBias, bool kSeg, bool kCausal>
-__global__ void __launch_bounds__(kThreads) attention_kernel_sliced(const Params p) {
-  constexpr int kSteps = kSliceD / 8;
-  constexpr int kStride = kSliceD + 4;  // == 4 mod 8, as `stride` above
-  constexpr int kChunk = kKTile * kStride;
-  extern __shared__ __align__(16) float smem[];
-
-  const int hs = p.hs, Tq = p.Tq, Tk = p.Tk;
-  const int n_slices = (hs + kSliceD - 1) / kSliceD;  // also the passes of Q K^T
-  const int dpad = (hs + 7) & ~7;
-  const int qstride = dpad + 4;
-  float* qs = smem;                         // the 64 query rows, whole head
-  float* cbuf = qs + kQTile * qstride;      // 2 chunks, as copied, then their hi part
-  float* clo = cbuf + 2 * kChunk;           // lo part of the current chunk
-  float* km = clo + kChunk;                 // Tk key mask
-  int* sg = reinterpret_cast<int*>(km + Tk);  // Tk segment ids
-  int* tiles = sg + Tk;                     // the segment intervals (TileNeeds)
-
-  const int b = blockIdx.x;
-  const int h = blockIdx.z / n_slices;
-  const int col0 = (blockIdx.z - h * n_slices) * kSliceD;  // the slice's first column
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int c = lane & 3;
-
-  const float* qb = p.q + b * p.sq.b + h * p.sq.h;
-  const float* kb = p.k + b * p.sk.b + h * p.sk.h;
-  const float* vb = p.v + b * p.sv.b + h * p.sv.h;
-  const float* bb = kBias ? p.bias + b * p.sb.b + h * p.sb.h : nullptr;
-  float* ob = p.out + b * p.so.b + h * p.so.h;
-
-  const int q0 = (kCausal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * kQTile;
-  if (p.sq.d == 1 && p.sq.t % 4 == 0 && hs % 4 == 0 && aligned(qb, 16)) {
-    stage_rows_any<kQTile, 4>(qs, qstride, qb, p.sq.t, p.sq.d, q0, Tq, hs, dpad);
-  } else {
-    stage_rows_any<kQTile, 1>(qs, qstride, qb, p.sq.t, p.sq.d, q0, Tq, hs, dpad);
-  }
-  for (int j = tid; j < Tk; j += kThreads) {
-    const long long at = static_cast<long long>(b) * Tk + j;
-    if (p.key_mask) cp_async<4>(km + j, p.key_mask + at, true);
-    else km[j] = 0.f;
-    if (kSeg) cp_async<4>(reinterpret_cast<float*>(sg + j),
-                          reinterpret_cast<const float*>(p.segments + at), true);
-  }
-  cp_async_commit();
-  cp_async_wait_all();
-  __syncthreads();
-
-  TileNeeds<kSeg, kCausal> need;
-  need.init(sg, tiles, Tq, Tk, q0);
-  int first = 0;  // the window of the tile in turn
-  uint32_t need_warp, todo;
-  need.window(first, q0, Tq, warp, need_warp, todo);
-
-  // chunk `part` of key tile t: K's columns kSliceD * part.. for part <
-  // n_slices, then V's slice; its first column and padded width
-  auto chunk_cols = [&](int part, int& c0, int& wpad) {
-    c0 = part < n_slices ? part * kSliceD : col0;
-    wpad = (min(kSliceD, hs - c0) + 7) & ~7;
-  };
-  const bool k_vec = p.sk.d == 1 && p.sk.t % 4 == 0 && hs % 4 == 0 && aligned(kb, 16);
-  const bool v_vec = p.sv.d == 1 && p.sv.t % 4 == 0 && hs % 4 == 0 && aligned(vb, 16);
-  auto stage = [&](int t, int part, int buf) {
-    int c0, wpad;
-    chunk_cols(part, c0, wpad);
-    const bool is_k = part < n_slices;
-    const Strides& sx = is_k ? p.sk : p.sv;
-    const float* src = (is_k ? kb : vb) + c0 * sx.d;
-    const int w = min(kSliceD, hs - c0);
-    float* d = cbuf + buf * kChunk;
-    const int j0 = t * kKTile;
-    if (is_k ? k_vec : v_vec) stage_rows<kKTile, 4>(d, kStride, src, sx.t, sx.d, j0, Tk, w, wpad);
-    else stage_rows<kKTile, 1>(d, kStride, src, sx.t, sx.d, j0, Tk, w, wpad);
-    cp_async_commit();
-  };
-
-  while (!todo) {  // some window is not empty: warp 0's first row needs its own key
-    first += 32;
-    need.window(first, q0, Tq, warp, need_warp, todo);
-  }
-  int t = first + __ffs(todo) - 1, part = 0;
-  todo &= todo - 1;
-  bool mine = (need_warp >> (t - first)) & 1u;
-  stage(t, 0, 0);
-
-  const int row0 = q0 + warp * kRowsPerWarp + g;
-  const int rows[2] = {row0, row0 + 8};
-  int seg_row[2] = {0, 0};
-  if constexpr (kSeg) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) seg_row[r] = rows[r] < Tq ? sg[rows[r]] : -1;
-  }
-  const bool bias_vec = kBias && p.sb.d == 1 && p.sb.t % 2 == 0 && aligned(bb, 8);
-  const int nv = (min(kSliceD, hs - col0) + 7) / 8;  // 8-wide output blocks of the slice
-
-  float o[kSteps][4];
-#pragma unroll
-  for (int n = 0; n < kSteps; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY};
-  float l[2] = {0.f, 0.f};
-  float s[4][4];
-
-  for (int buf = 0;; buf ^= 1) {
-    cp_async_wait_all();
-    __syncthreads();  // the chunk landed; every warp is done with the previous one
-    const bool needed = mine;  // by this warp, the tile of this chunk
-    int next_t = t, next_part = part + 1;
-    if (next_part > n_slices) {
-      while (!todo && first + 32 < need.n_tiles) {
-        first += 32;
-        need.window(first, q0, Tq, warp, need_warp, todo);
-      }
-      next_t = todo ? first + __ffs(todo) - 1 : -1, next_part = 0;
-      todo &= todo - 1;
-      if (next_t >= 0) mine = (need_warp >> (next_t - first)) & 1u;
-    }
-    if (next_t >= 0) stage(next_t, next_part, buf ^ 1);
-    int c0, wpad;
-    chunk_cols(part, c0, wpad);
-    float* ch = cbuf + buf * kChunk;
-    split_tile(ch, clo, kStride, wpad);
-    __syncthreads();
-
-    if (needed) {
-      if (part < n_slices) {  // S += Q[:, c0..] K[keys, c0..]^T, q split on use
-        if (part == 0) {
-#pragma unroll
-          for (int n = 0; n < 4; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-        }
-#pragma unroll
-        for (int ks = 0; ks < kSteps; ++ks) {
-          if (ks < wpad / 8) {
-            uint32_t a_hi[4], a_lo[4];
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const int r = warp * kRowsPerWarp + g + ((e & 1) ? 8 : 0);
-              const int d = c0 + 8 * ks + c + ((e & 2) ? 4 : 0);
-              split(qs[r * qstride + d], a_hi[e], a_lo[e]);
-            }
-#pragma unroll
-            for (int n = 0; n < 4; ++n) {
-              const int off = (8 * n + g) * kStride + 8 * ks + c;
-              mma_3xtf32(s[n], a_hi, a_lo, ch + off, clo + off, 4);
-            }
-          }
-        }
-      } else {  // the scores are whole: softmax, then P V on the slice
-        const int key0 = t * kKTile;
-        float bias_v[4][4];
-        if constexpr (kBias) load_bias(bias_v, bb, p.sb, rows, Tq, Tk, key0, c, bias_vec);
-        softmax_tile<kBias, kSeg, kCausal>(s, bias_v, km, sg, seg_row, rows, key0, Tk, c,
-                                           p.scale, m, l, o);
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          uint32_t a_hi[4], a_lo[4];
-          split(s[kk][0], a_hi[0], a_lo[0]);
-          split(s[kk][2], a_hi[1], a_lo[1]);
-          split(s[kk][1], a_hi[2], a_lo[2]);
-          split(s[kk][3], a_hi[3], a_lo[3]);
-          const int base = (8 * kk + 2 * c) * kStride + g;
-#pragma unroll
-          for (int n = 0; n < kSteps; ++n) {
-            if (n < nv) {
-              mma_3xtf32(o[n], a_hi, a_lo, ch + base + 8 * n, clo + base + 8 * n, kStride);
-            }
-          }
-        }
-      }
-    }
-    if (next_t < 0) break;
-    t = next_t, part = next_part;
-  }
-
-  float inv[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) inv[r] = 1.f / quad_sum(l[r]);
-  const int width = min(kSliceD, hs - col0);
-#pragma unroll
-  for (int n = 0; n < kSteps; ++n) {
-    if (n < nv) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = rows[e >> 1];
-        const int d = 8 * n + 2 * c + (e & 1);
-        if (i < Tq && d < width) ob[i * p.so.t + (col0 + d) * p.so.d] = o[n][e] * inv[e >> 1];
-      }
-    }
   }
 }
 
@@ -1213,21 +649,23 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&x);
 }
 
-// The key tiles of 64 that the bf16 block's 64 query rows at q0 need:
-// every tile, or under segments (kSeg) the tiles whose interval meets the
-// rows' (the test of `TileNeeds`, on the warpgroup's rows).  Every thread
-// calls `init` once the segment ids are in shared memory, and gets the same
-// answers; `scratch` holds bf16_scratch_ints(Tk) ints.
-template <bool kSeg>
+// The key tiles of 64 that a block's 64 query rows at q0 need: every
+// tile; under segments (kSeg) the tiles whose interval of ids meets the
+// rows' (`meets`); under kCausal the tiles whose first key is at or before
+// the block's last query.  Every thread calls `init` once the segment ids
+// are in shared memory, and gets the same answers; `scratch` holds
+// bf16_scratch_ints(Tk) ints.
+template <bool kSeg, bool kCausal = false>
 struct BlockNeeds {
   const int* lo;
   const int* hi;
   const int* pad;
-  int n_tiles, rlo, rhi;
+  int n_tiles, rlo, rhi, last;
   bool rpad;
 
   __device__ __forceinline__ void init(const int* sg, int* scratch, int Tq, int Tk, int q0) {
     n_tiles = (Tk + kTileRows - 1) / kTileRows;
+    if constexpr (kCausal) last = min(q0 + kTileRows, Tq) - 1;
     if constexpr (kSeg) {
       int* tl = scratch + 8;
       lo = tl, hi = tl + n_tiles, pad = tl + 2 * n_tiles;
@@ -1248,16 +686,19 @@ struct BlockNeeds {
 
   __device__ __forceinline__ bool needs(int t) const {
     if constexpr (kSeg) return meets(rlo, rhi, rpad, lo[t], hi[t], pad[t]);
+    else if constexpr (kCausal) return t * kTileRows <= last;
     else return true;
   }
 
-  // the first needed tile after t, -1 past the last
-  __device__ __forceinline__ int next(int t) const {
-    for (int u = t + 1; u < n_tiles; ++u) {
+  // the first needed tile after t and before `end`, -1 past the last
+  __device__ __forceinline__ int next_before(int t, int end) const {
+    for (int u = t + 1; u < end; ++u) {
       if (needs(u)) return u;
     }
     return -1;
   }
+
+  __device__ __forceinline__ int next(int t) const { return next_before(t, n_tiles); }
 
   // the needed tiles of first.. first + 31 as a bit mask
   __device__ __forceinline__ uint32_t window(int first) const {
@@ -1804,6 +1245,572 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ---------------------------------------------------------------- fp32
+//
+// The fp32 path (see the header): 3xTF32 on `wgmma`, the loads of the bf16
+// path.  Fragment layouts as in the bf16 path, with the A operand from
+// registers of `wgmma...k8.tf32` that of mma.m16n8k8's tf32 A per warp:
+// registers 0..3 hold (g, c), (g + 8, c), (g, c + 4), (g + 8, c + 4).  So
+// P's A fragment for 8 keys is the score accumulators of one 8-key block
+// with the keys taken in the order 0, 2, 4, 6, 1, 3, 5, 7 (column c is key
+// 2c, column c + 4 key 2c + 1), with no shuffle, and V^T is written in that
+// key order.
+
+constexpr int kBlockBytes32 = kTileRows * 128;  // a column block: 64 rows of 32 fp32
+
+// The tensor core reads a .tf32 operand's sign, exponent and top 10
+// mantissa bits and ignores the low 13, so a raw fp32 value serves as its
+// own hi part, trunc(x); lo is what the truncation drops, rounded to TF32.
+__device__ __forceinline__ float tf32_lo(float x) {
+  return __uint_as_float(to_tf32(x - __uint_as_float(__float_as_uint(x) & 0xffffe000u)));
+}
+
+// byte offset of (row r, column d) in a chunk of 64 rows as TMA writes it:
+// column blocks of 32 fp32 (128-byte rows, swizzled)
+__device__ __forceinline__ uint32_t chunk_off(int r, int d) {
+  return swizzle<128>((d >> 5) * kBlockBytes32 + r * 128 + (d & 31) * 4);
+}
+
+// Byte offsets of the fp32 kernel's shared memory from a 1024-aligned base,
+// for a block of `out_cols` output columns (32, 64, or 128 for head sizes
+// past 64, in slices past 128) in chunks of w = min(out_cols, 64) columns
+// (64 rows x w fp32): the query rows of the whole head as ceil(hs / w)
+// chunks, `stages` chunks of the ring (a K pass or a V part of a key tile
+// each), the work chunks (K's lo part, V^T's hi and lo parts: three up to
+// head size 64, where a tile's K and V are split in one pass; two past it,
+// K's lo part taking V^T's hi part's place), the key
+// mask, the segment ids, the scratch of the tile intervals and the
+// barriers: Q, one `full` and one `empty` a stage.  `total` is what the
+// launch asks for, 1024 bytes of slack for the alignment included.
+// ops/set_attention.py:fp32_smem_bytes computes the same numbers.
+struct Fp32Smem {
+  int q, stage, work, km, sg, scratch, bar, n_bars, total;
+};
+
+__host__ __device__ inline Fp32Smem fp32_smem(int out_cols, int hs, int Tk, int stages) {
+  const int w = out_cols < 64 ? out_cols : 64;
+  const int chunk = kTileRows * w * 4;
+  Fp32Smem s{};
+  s.q = 0;
+  s.stage = (hs + w - 1) / w * chunk;
+  s.work = s.stage + stages * chunk;
+  s.km = s.work + (out_cols <= 64 ? 3 : 2) * chunk;
+  s.sg = s.km + 4 * Tk;
+  s.scratch = s.sg + 4 * Tk;
+  s.bar = round_up(s.scratch + 4 * bf16_scratch_ints(Tk), 8);
+  s.n_bars = 1 + 2 * stages;
+  s.total = s.bar + 8 * s.n_bars + 1024;
+  return s;
+}
+
+// Rows r0.. r0 + 63 of one (T, D) fp32 view into a chunk at `dst`
+// (1024-aligned) in the layout TMA writes, columns >= width and rows >= T
+// as zeros.  For the views TMA cannot read.
+template <int kW>
+__device__ __forceinline__ void stage_chunk(unsigned char* dst, const float* src, long long st,
+                                            long long sd, int r0, int T, int width) {
+  for (int e = threadIdx.x; e < kTileRows * kW; e += kThreads) {
+    const int r = e / kW, d = e % kW, j = r0 + r;
+    *reinterpret_cast<float*>(dst + chunk_off(r, d)) =
+        d < width && j < T ? src[j * st + d * sd] : 0.f;
+  }
+}
+
+// K's lo part beside its raw chunk, in the same layout
+template <int kW>
+__device__ __forceinline__ void split_lo(const unsigned char* raw, unsigned char* lo) {
+  for (int e = threadIdx.x; e < kTileRows * kW / 4; e += kThreads) {
+    const float4 x = reinterpret_cast<const float4*>(raw)[e];
+    reinterpret_cast<float4*>(lo)[e] =
+        make_float4(tf32_lo(x.x), tf32_lo(x.y), tf32_lo(x.z), tf32_lo(x.w));
+  }
+}
+
+// V's raw chunk (64 keys x kW columns) to V^T's hi and lo parts: kW rows of
+// 64 keys, K-major in column blocks of 32 keys (kW * 128 bytes each), the
+// keys of each 8 in P's order.  A warp takes 32 keys of one column: its
+// stores hit 32 banks.
+template <int kW>
+__device__ __forceinline__ void split_transposed(const unsigned char* raw, unsigned char* hi,
+                                                 unsigned char* lo) {
+  for (int e = threadIdx.x; e < kTileRows * kW / 4; e += kThreads) {
+    const int j = e & (kTileRows - 1), u = e / kTileRows;  // key j, columns 4u.. 4u + 3
+    const float4 x = *reinterpret_cast<const float4*>(raw + chunk_off(j, 4 * u));
+    const int pos = (j & ~7) | ((j & 1) << 2) | ((j & 7) >> 1);
+    const float v[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const uint32_t off =
+          swizzle<128>((pos >> 5) * (kW * 128) + (4 * u + i) * 128 + (pos & 31) * 4);
+      *reinterpret_cast<float*>(hi + off) = v[i];
+      *reinterpret_cast<float*>(lo + off) = tf32_lo(v[i]);
+    }
+  }
+}
+
+// d[kOff..] (64 x 64, fp32) += A (64 x 8 tf32, K-major in shared memory) B (8 x 64, K-major)
+template <int kOff, int kRows>
+__device__ __forceinline__ void tf32_ss_n64(float (&d)[kRows][4], uint64_t desc_a,
+                                            uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[kOff + 0][0]), "+f"(d[kOff + 0][1]), "+f"(d[kOff + 0][2]), "+f"(d[kOff + 0][3]),
+        "+f"(d[kOff + 1][0]), "+f"(d[kOff + 1][1]), "+f"(d[kOff + 1][2]), "+f"(d[kOff + 1][3]),
+        "+f"(d[kOff + 2][0]), "+f"(d[kOff + 2][1]), "+f"(d[kOff + 2][2]), "+f"(d[kOff + 2][3]),
+        "+f"(d[kOff + 3][0]), "+f"(d[kOff + 3][1]), "+f"(d[kOff + 3][2]), "+f"(d[kOff + 3][3]),
+        "+f"(d[kOff + 4][0]), "+f"(d[kOff + 4][1]), "+f"(d[kOff + 4][2]), "+f"(d[kOff + 4][3]),
+        "+f"(d[kOff + 5][0]), "+f"(d[kOff + 5][1]), "+f"(d[kOff + 5][2]), "+f"(d[kOff + 5][3]),
+        "+f"(d[kOff + 6][0]), "+f"(d[kOff + 6][1]), "+f"(d[kOff + 6][2]), "+f"(d[kOff + 6][3]),
+        "+f"(d[kOff + 7][0]), "+f"(d[kOff + 7][1]), "+f"(d[kOff + 7][2]), "+f"(d[kOff + 7][3])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// d[kOff..] (64 x 32, fp32) += A (64 x 8 tf32, registers) B (8 x 32, K-major in shared memory)
+template <int kOff, int kRows>
+__device__ __forceinline__ void tf32_rs_n32(float (&d)[kRows][4], const uint32_t (&a)[4],
+                                            uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[kOff + 0][0]), "+f"(d[kOff + 0][1]), "+f"(d[kOff + 0][2]), "+f"(d[kOff + 0][3]),
+        "+f"(d[kOff + 1][0]), "+f"(d[kOff + 1][1]), "+f"(d[kOff + 1][2]), "+f"(d[kOff + 1][3]),
+        "+f"(d[kOff + 2][0]), "+f"(d[kOff + 2][1]), "+f"(d[kOff + 2][2]), "+f"(d[kOff + 2][3]),
+        "+f"(d[kOff + 3][0]), "+f"(d[kOff + 3][1]), "+f"(d[kOff + 3][2]), "+f"(d[kOff + 3][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// d[kOff..] (64 x 64, fp32) += A (64 x 8 tf32, registers) B (8 x 64, K-major in shared memory)
+template <int kOff, int kRows>
+__device__ __forceinline__ void tf32_rs_n64(float (&d)[kRows][4], const uint32_t (&a)[4],
+                                            uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[kOff + 0][0]), "+f"(d[kOff + 0][1]), "+f"(d[kOff + 0][2]), "+f"(d[kOff + 0][3]),
+        "+f"(d[kOff + 1][0]), "+f"(d[kOff + 1][1]), "+f"(d[kOff + 1][2]), "+f"(d[kOff + 1][3]),
+        "+f"(d[kOff + 2][0]), "+f"(d[kOff + 2][1]), "+f"(d[kOff + 2][2]), "+f"(d[kOff + 2][3]),
+        "+f"(d[kOff + 3][0]), "+f"(d[kOff + 3][1]), "+f"(d[kOff + 3][2]), "+f"(d[kOff + 3][3]),
+        "+f"(d[kOff + 4][0]), "+f"(d[kOff + 4][1]), "+f"(d[kOff + 4][2]), "+f"(d[kOff + 4][3]),
+        "+f"(d[kOff + 5][0]), "+f"(d[kOff + 5][1]), "+f"(d[kOff + 5][2]), "+f"(d[kOff + 5][3]),
+        "+f"(d[kOff + 6][0]), "+f"(d[kOff + 6][1]), "+f"(d[kOff + 6][2]), "+f"(d[kOff + 6][3]),
+        "+f"(d[kOff + 7][0]), "+f"(d[kOff + 7][1]), "+f"(d[kOff + 7][2]), "+f"(d[kOff + 7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+template <int kN>
+__device__ __forceinline__ void fence_frags(uint32_t (&a)[kN][4]) {
+#pragma unroll
+  for (int n = 0; n < kN; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[n][e])::"memory");
+  }
+}
+
+__device__ __forceinline__ uint32_t bits(float x) { return __float_as_uint(x); }
+
+// The kernel's arguments: the strided views, the tensor maps of q, k and v
+// (read only where `qkv_tma`), the stages of the ring and the key splits;
+// with splits > 1 each block writes its partial (O unnormalised, then the
+// rows' max and sum) to `part` and `merge_splits` finishes the rows.
+struct Fp32Args {
+  CUtensorMap qmap, kmap, vmap;
+  Params p;
+  float* part;  // O (splits, B, H, Tq, hs), then m and l (splits, B, H, Tq) each
+  int B, H, qkv_tma, stages, splits;
+};
+
+// One block: row b = blockIdx.x, queries 64 * blockIdx.y.. (the causal form
+// takes the last, longest, first), blockIdx.z = ((h * slices) + slice) *
+// splits + split; one warpgroup.  kOut output columns (32, 64 or 128; a
+// slice past head size 128); the head's dims pass in chunks of kW.  Up to
+// head size 64 a key tile is one K chunk and one V chunk, waited for and
+// split together (two barriers a tile); past it each chunk in turn.  The
+// registers are bounded for 4 blocks an SM at head size <= 32 and 2 past
+// it, as the host plan's shared memory is.
+template <int kOut, bool kBias, bool kSeg, bool kCausal>
+__global__ void __launch_bounds__(kThreads, kOut == 32 ? 4 : 2)
+    attention_kernel_tf32(const __grid_constant__ Fp32Args a) {
+  constexpr int kW = kOut < 64 ? kOut : 64;     // columns of a chunk
+  constexpr int kChunkBytes = kTileRows * kW * 4;
+  constexpr int kNV = kOut / kW;                // V parts of the block's columns
+  constexpr int kOutN = kOut / 8;               // 8-wide output blocks
+  constexpr int kVtBlock = kW * 128;            // V^T: kW rows of 32 keys
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+
+  const Params& p = a.p;
+  const int hs = p.hs, Tq = p.Tq, Tk = p.Tk;
+  const int S = a.stages;
+  const int n_k = (hs + kW - 1) / kW;  // K passes of a key tile, Q's chunks
+  const int slices = (hs + kOut - 1) / kOut;
+  const Fp32Smem L = fp32_smem(kOut, hs, Tk, S);
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* sm = smem_raw + (base - raw);
+  float* km = reinterpret_cast<float*>(sm + L.km);
+  int* sg = reinterpret_cast<int*>(sm + L.sg);
+  const uint32_t bar = base + L.bar;  // 0: Q; 1 + st: stage st full; 1 + S + st: empty
+
+  const int b = blockIdx.x;
+  const int split = blockIdx.z % a.splits;
+  const int hz = blockIdx.z / a.splits;
+  const int h = hz / slices;
+  const int col0 = (hz - h * slices) * kOut;  // the block's first output column
+  const int q0 = (kCausal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * kTileRows;
+  const int n_v = min(kNV, (hs - col0 + kW - 1) / kW);  // V parts with columns < hs
+  const int parts = n_k + n_v;  // chunks a key tile: K's passes, then V's parts
+  const int n_tiles = (Tk + kTileRows - 1) / kTileRows;
+  const int t_lo = split * n_tiles / a.splits, t_hi = (split + 1) * n_tiles / a.splits;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int c = lane & 3;
+  const float* qb = p.q + b * p.sq.b + h * p.sq.h;
+  const float* kb = p.k + b * p.sk.b + h * p.sk.h;
+  const float* vb = p.v + b * p.sv.b + h * p.sv.h;
+
+  auto first_col = [&](int part) { return part < n_k ? part * kW : col0 + (part - n_k) * kW; };
+  auto issue_chunk = [&](int t, int part, int st) {
+    const uint32_t full = bar + 8 * (1 + st);
+    mbar_arrive_tx(full, a.qkv_tma ? kChunkBytes : 0);
+    if (!a.qkv_tma) return;
+    const CUtensorMap* map = part < n_k ? &a.kmap : &a.vmap;
+    for (int cb = 0; cb < kW / 32; ++cb) {
+      tma_load(base + L.stage + st * kChunkBytes + cb * kBlockBytes32, map, full,
+               first_col(part) + 32 * cb, t * kTileRows, h, b);
+    }
+  };
+
+  // The needed key tiles of this split, ascending, through the ring.
+  // Without segments they are known at once and every load goes out before
+  // the key mask is read; under segments once the ids are in.  (Taking the
+  // block's own tile first under segments, so that its loads went out
+  // before the ids, was 4-7% slower at the packed rows.)
+  BlockNeeds<kSeg, kCausal> need;
+  auto next_tile = [&](int t) { return need.next_before(t, t_hi); };
+  int next_t = -1, next_part = 0;  // (thread 0) the next chunk to load
+  auto produce = [&]() {  // the first `stages` chunks
+    next_t = next_tile(t_lo - 1);
+    for (int st = 0; st < S && next_t >= 0; ++st) {
+      issue_chunk(next_t, next_part, st);
+      if (++next_part == parts) next_part = 0, next_t = next_tile(next_t);
+    }
+  };
+  if constexpr (!kSeg) need.init(sg, reinterpret_cast<int*>(sm + L.scratch), Tq, Tk, q0);
+  if (tid == 0) {
+    for (int i = 0; i < L.n_bars; ++i) mbar_init(bar + 8 * i, i <= S ? 1 : kThreads);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_arrive_tx(bar, a.qkv_tma ? n_k * kChunkBytes : 0);
+    if (a.qkv_tma) {
+      for (int part = 0; part < n_k; ++part) {
+        for (int cb = 0; cb < kW / 32; ++cb) {
+          tma_load(base + L.q + part * kChunkBytes + cb * kBlockBytes32, &a.qmap, bar,
+                   part * kW + 32 * cb, q0, h, b);
+        }
+      }
+    }
+    if (!kSeg) produce();
+  }
+  for (int j = tid; j < Tk; j += kThreads) {
+    const long long at = static_cast<long long>(b) * Tk + j;
+    km[j] = p.key_mask ? p.key_mask[at] : 0.f;
+    if (kSeg) sg[j] = p.segments[at];
+  }
+  if (!a.qkv_tma) {
+    for (int part = 0; part < n_k; ++part) {
+      stage_chunk<kW>(sm + L.q + part * kChunkBytes, qb + part * kW * p.sq.d, p.sq.t, p.sq.d, q0,
+                      Tq, min(kW, hs - part * kW));
+    }
+    fence_proxy_async();
+  }
+  __syncthreads();  // the barriers, key mask, segment ids and staged Q
+  if constexpr (kSeg) {
+    need.init(sg, reinterpret_cast<int*>(sm + L.scratch), Tq, Tk, q0);
+    if (tid == 0) produce();
+  }
+
+  const int lr = warp * 16 + g;  // the thread's first local row; the other is lr + 8
+  const int rows[2] = {q0 + lr, q0 + lr + 8};
+  int seg_row[2] = {0, 0};
+  if constexpr (kSeg) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) seg_row[r] = rows[r] < Tq ? sg[rows[r]] : -1;
+  }
+  const float* bb = kBias ? p.bias + b * p.sb.b + h * p.sb.h : nullptr;
+  const bool bias_vec = kBias && p.sb.d == 1 && p.sb.t % 2 == 0 && aligned(bb, 8);
+
+  float o[kOutN][4];
+#pragma unroll
+  for (int n = 0; n < kOutN; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};
+
+  mbar_wait(bar, 0);
+  int st = 0;        // the stage of the chunk in turn
+  uint32_t use = 0;  // the phase of its barriers
+  // wait for chunk `part` of key tile t in stage `at`, phase `phase`
+  // (staged by the threads where TMA cannot read q/k/v); `release` frees
+  // the stage of the chunk in turn, and thread 0 loads the chunk `stages`
+  // on into it
+  auto wait_chunk = [&](int t, int part, int at, uint32_t phase) {
+    if (!a.qkv_tma) {
+      const bool is_k = part < n_k;
+      const int c0 = first_col(part);
+      __syncthreads();  // every warp is done with the stage's previous chunk
+      const Strides& sx = is_k ? p.sk : p.sv;
+      stage_chunk<kW>(sm + L.stage + at * kChunkBytes, (is_k ? kb : vb) + c0 * sx.d, sx.t, sx.d,
+                      t * kTileRows, Tk, min(kW, hs - c0));
+      fence_proxy_async();
+    }
+    mbar_wait(bar + 8 * (1 + at), phase);
+  };
+  auto release = [&]() {
+    const uint32_t empty = bar + 8 * (1 + S + st);
+    mbar_arrive_tx(empty, 0);
+    if (tid == 0 && next_t >= 0) {
+      mbar_wait(empty, use);
+      issue_chunk(next_t, next_part, st);
+      if (++next_part == parts) next_part = 0, next_t = next_tile(next_t);
+    }
+    if (++st == S) st = 0, use ^= 1u;
+  };
+  // the work chunks: K's lo part, V^T's hi and lo parts (past head size
+  // 64, K's lo part in V^T's hi part's place)
+  unsigned char* work_klo = sm + L.work;
+  unsigned char* work_vhi = work_klo + (kOut <= 64 ? kChunkBytes : 0);
+  unsigned char* work_vlo = work_vhi + kChunkBytes;
+
+  // S += Q K^T over the dims of K's chunk in stage `at` (Q's chunk
+  // `part`): per 8 dims Q_lo K_hi (Q_lo from registers), Q_hi K_lo, Q_hi
+  // K_hi, hi being the raw values; K's lo part in work_klo
+  auto scores = [&](float (&s)[8][4], int part, int at) {
+    uint32_t q_lo[kW / 8][4];
+    const unsigned char* qc = sm + L.q + part * kChunkBytes;
+#pragma unroll
+    for (int ks = 0; ks < kW / 8; ++ks) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int d = 8 * ks + c + 4 * (e >> 1);
+        q_lo[ks][e] =
+            bits(tf32_lo(*reinterpret_cast<const float*>(qc + chunk_off(lr + 8 * (e & 1), d))));
+      }
+    }
+    const uint32_t q_at = base + L.q + part * kChunkBytes;
+    const uint32_t k_at = base + L.stage + at * kChunkBytes;
+    const uint32_t lo_at = base + L.work;
+    fence_regs(s);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < kW / 8; ++ks) {
+      const uint32_t off = (ks / 4) * kBlockBytes32 + (ks % 4) * 32;
+      tf32_rs_n64<0>(s, q_lo[ks], desc_k_major<128>(k_at + off));
+      tf32_ss_n64<0>(s, desc_k_major<128>(q_at + off), desc_k_major<128>(lo_at + off));
+      tf32_ss_n64<0>(s, desc_k_major<128>(q_at + off), desc_k_major<128>(k_at + off));
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+    fence_frags(q_lo);
+  };
+  // O[:, 64 v..] += P V over the tile's 64 keys, V^T's parts in the work
+  // chunks; P split in registers (hi: the raw probabilities)
+  auto products = [&](auto vc, const float (&s)[8][4], const uint32_t (&p_lo)[8][4]) {
+    constexpr int v = decltype(vc)::value;
+    const uint32_t hi_at = smem_u32(work_vhi), lo_at = smem_u32(work_vlo);
+    fence_regs(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      const uint32_t off = (kk / 4) * kVtBlock + (kk % 4) * 32;
+      const uint32_t p_hi[4] = {bits(s[kk][0]), bits(s[kk][2]), bits(s[kk][1]), bits(s[kk][3])};
+      if constexpr (kW == 32) {
+        tf32_rs_n32<4 * v>(o, p_lo[kk], desc_k_major<128>(hi_at + off));
+        tf32_rs_n32<4 * v>(o, p_hi, desc_k_major<128>(lo_at + off));
+        tf32_rs_n32<4 * v>(o, p_hi, desc_k_major<128>(hi_at + off));
+      } else {
+        tf32_rs_n64<8 * v>(o, p_lo[kk], desc_k_major<128>(hi_at + off));
+        tf32_rs_n64<8 * v>(o, p_hi, desc_k_major<128>(lo_at + off));
+        tf32_rs_n64<8 * v>(o, p_hi, desc_k_major<128>(hi_at + off));
+      }
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(o);
+  };
+
+  for (int t = next_tile(t_lo - 1); t >= 0; t = next_tile(t)) {
+    const int key0 = t * kTileRows;
+    float bias_v[8][4];
+    if constexpr (kBias) {
+      load_bias<float, 8, kSeg && kOut == 32>(bias_v, bb, p.sb, rows, Tq, Tk, key0, c, bias_vec,
+                                              sg, seg_row);
+    }
+    // the accumulators are zeroed outside the products' stage
+    float s[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+    if constexpr (kOut <= 64) {
+      // one K chunk and one V chunk (stages >= 2): both waited for, then
+      // split in one pass between two barriers
+      const int st_v = st + 1 == S ? 0 : st + 1;
+      wait_chunk(t, 0, st, use);
+      wait_chunk(t, 1, st_v, st + 1 == S ? use ^ 1u : use);
+      __syncthreads();  // every warp is done with the work chunks
+      split_lo<kW>(sm + L.stage + st * kChunkBytes, work_klo);
+      split_transposed<kW>(sm + L.stage + st_v * kChunkBytes, work_vhi, work_vlo);
+      fence_proxy_async();
+      __syncthreads();  // K's lo part and V^T's parts are in
+      scores(s, 0, st);
+      release();
+      release();
+    } else {
+      for (int part = 0; part < n_k; ++part) {
+        wait_chunk(t, part, st, use);
+        __syncthreads();  // every warp is done with the work chunks
+        split_lo<kW>(sm + L.stage + st * kChunkBytes, work_klo);
+        fence_proxy_async();
+        __syncthreads();  // K's lo part is in
+        scores(s, part, st);
+        release();
+      }
+    }
+
+    // the scores are whole: softmax, then P V on the block's columns
+    softmax_tile<kBias, kSeg, kCausal>(s, bias_v, km, sg, seg_row, rows, key0, Tk, c, p.scale, m,
+                                       l, o);
+    uint32_t p_lo[8][4];
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      p_lo[kk][0] = bits(tf32_lo(s[kk][0]));
+      p_lo[kk][1] = bits(tf32_lo(s[kk][2]));
+      p_lo[kk][2] = bits(tf32_lo(s[kk][1]));
+      p_lo[kk][3] = bits(tf32_lo(s[kk][3]));
+    }
+    if constexpr (kOut <= 64) {
+      products(std::integral_constant<int, 0>{}, s, p_lo);
+    } else {
+      auto v_part = [&](auto vc) {
+        wait_chunk(t, n_k + decltype(vc)::value, st, use);
+        __syncthreads();  // every warp is done with the work chunks
+        split_transposed<kW>(sm + L.stage + st * kChunkBytes, work_vhi, work_vlo);
+        fence_proxy_async();
+        __syncthreads();  // V^T's parts are in; the raw chunk is no longer read
+        release();
+        products(vc, s, p_lo);
+      };
+      v_part(std::integral_constant<int, 0>{});
+      if (n_v > 1) v_part(std::integral_constant<int, 1>{});
+    }
+    fence_regs(s);
+    fence_frags(p_lo);
+  }
+
+  float sum[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) sum[r] = quad_sum(l[r]);
+  if (a.splits == 1) {
+    float* ob = p.out + b * p.so.b + h * p.so.h;
+    if (p.so.d == 1 && p.so.t % 4 == 0 && hs % 4 == 0 && aligned(ob, 16)) {
+      // through the work chunks (free once every warp's products are done)
+      // to 16-byte stores of whole rows; the 16-byte units of row r XOR
+      // r % 8, so that the pair writes of a warp's 8 rows hit 32 banks
+      __syncthreads();
+      float* os = reinterpret_cast<float*>(work_klo);
+#pragma unroll
+      for (int n = 0; n < kOutN; ++n) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = lr + 8 * r, unit = (2 * n + (c >> 1)) ^ (row & 7);
+          *reinterpret_cast<float2*>(os + row * kOut + 4 * unit + 2 * (c & 1)) =
+              make_float2(o[n][2 * r] / sum[r], o[n][2 * r + 1] / sum[r]);
+        }
+      }
+      __syncthreads();
+      const int units = min(kOut, hs - col0) / 4, n_rows = min(kTileRows, Tq - q0);
+      for (int e = tid; e < n_rows * units; e += kThreads) {
+        const int row = e / units, u = e - row * units;
+        *reinterpret_cast<float4*>(ob + (q0 + row) * p.so.t + col0 + 4 * u) =
+            *reinterpret_cast<const float4*>(os + row * kOut + 4 * (u ^ (row & 7)));
+      }
+      return;
+    }
+#pragma unroll
+    for (int n = 0; n < kOutN; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = rows[e >> 1], d = col0 + 8 * n + 2 * c + (e & 1);
+        if (i < Tq && d < hs) ob[i * p.so.t + d * p.so.d] = o[n][e] / sum[e >> 1];
+      }
+    }
+    return;
+  }
+  // a partial: O unnormalised, and (from the first slice) each row's max and sum
+  const long long n_rows = static_cast<long long>(a.B) * a.H * Tq;
+  const long long row0 = ((static_cast<long long>(split) * a.B + b) * a.H + h) * Tq;
+  float* po = a.part + row0 * hs;
+#pragma unroll
+  for (int n = 0; n < kOutN; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = rows[e >> 1], d = col0 + 8 * n + 2 * c + (e & 1);
+      if (i < Tq && d < hs) po[static_cast<long long>(i) * hs + d] = o[n][e];
+    }
+  }
+  if (col0 == 0 && c == 0) {
+    float* pm = a.part + a.splits * n_rows * hs;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (rows[r] < Tq) pm[row0 + rows[r]] = m[r], pm[a.splits * n_rows + row0 + rows[r]] = sum[r];
+    }
+  }
+}
+
+// The rows of a call whose keys were split: out = sum_s w_s O_s / sum_s w_s
+// l_s with w_s = exp(m_s - max_s m_s), each row of each head once; a split
+// that had no key tile (m = -inf) weighs 0.
+__global__ void __launch_bounds__(256) merge_splits(const __grid_constant__ Fp32Args a) {
+  const Params& p = a.p;
+  const long long n_rows = static_cast<long long>(a.B) * a.H * p.Tq;
+  const float* pm = a.part + a.splits * n_rows * p.hs;
+  const float* pl = pm + a.splits * n_rows;
+  for (long long e = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
+       e < n_rows * p.hs; e += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const long long r = e / p.hs;
+    const int d = static_cast<int>(e - r * p.hs);
+    float mx = -INFINITY;
+    for (int s = 0; s < a.splits; ++s) mx = fmaxf(mx, pm[s * n_rows + r]);
+    float num = 0.f, den = 0.f;
+    for (int s = 0; s < a.splits; ++s) {
+      const float ms = pm[s * n_rows + r];
+      const float w = ms == -INFINITY ? 0.f : expf(ms - mx);
+      den += w * pl[s * n_rows + r];
+      num += w * a.part[(s * n_rows + r) * p.hs + d];
+    }
+    const int i = static_cast<int>(r % p.Tq);
+    const long long bh = r / p.Tq;
+    const int h = static_cast<int>(bh % a.H), b = static_cast<int>(bh / a.H);
+    p.out[b * p.so.b + h * p.so.h + i * p.so.t + d * p.so.d] = num / den;
+  }
+}
+
 // --------------------------------------------------------- host side
 
 // cuTensorMapEncodeTiled, through the runtime (no link against libcuda)
@@ -1926,58 +1933,76 @@ int launch_bf16(const ParamsT<bf16, BiasT>& p, int B, int H, int qkv_tma, int bi
   return launch_bf16_padded<kMaxHs, kBias, kSeg>(p, B, H, qkv_tma, bias_tma, stages, smem, s);
 }
 
-// The fp32 core's shared memory in bytes: the K/V ring and the query
-// rows (whole head at head sizes <= kMaxHs: 6 tiles of 32 padded rows; in
-// slices: 64 query rows of the whole head and 3 chunks of kSliceD
-// columns), the key mask, the segment ids and their tile intervals.
-// ops/set_attention.py:fp32_smem_bytes computes the same number.
-__host__ __device__ inline long long fp32_smem(int hs, int Tk) {
-  const long long dpad = (hs + 7) & ~7;
-  const long long floats = hs <= kMaxHs ? 6LL * kKTile * (dpad + 4)
-                                        : kQTile * (dpad + 4) + 3LL * kKTile * (kSliceD + 4);
-  return 4 * (floats + Tk) + 4LL * Tk + 4LL * tile_ints(Tk);
+// the map of one (B, H, T, D) fp32 view: boxes of (32 dims, 64 rows), the
+// 128-byte swizzle
+inline int view_map_fp32(CUtensorMap* map, const float* ptr, const Strides& s, int B, int H,
+                         int T, int hs) {
+  return make_map(map, ptr, false, {hs, T, H, B}, {s.d, s.t, s.h, s.b}, 32, kTileRows, false);
 }
 
-template <typename Kernel>
-int launch_fp32_kernel(Kernel kernel, const Params& p, dim3 grid, cudaStream_t stream) {
-  const long long smem = fp32_smem(p.hs, p.Tk);
-  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
+template <int kOut, bool kBias, bool kSeg, bool kCausal>
+int launch_fp32_padded(const Params& p, int B, int H, int qkv_tma, int stages, int splits,
+                       int smem, float* part, cudaStream_t stream) {
+  const int slices = (p.hs + kOut - 1) / kOut;
+  const int n_tiles = (p.Tk + kTileRows - 1) / kTileRows;
+  if (stages < (kOut <= 64 ? 2 : 1) || splits < 1 || splits > n_tiles ||
+      (splits > 1) != (part != nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  kernel<<<grid, kThreads, static_cast<size_t>(smem), stream>>>(p);
+  const Fp32Smem L = fp32_smem(kOut, p.hs, p.Tk, stages);
+  if (smem != L.total || smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  const long long z = static_cast<long long>(H) * slices * splits;
+  if (z > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  Fp32Args a{};
+  a.p = p;
+  a.part = part;
+  a.B = B;
+  a.H = H;
+  a.qkv_tma = qkv_tma;
+  a.stages = stages;
+  a.splits = splits;
+  int e = 0;
+  if (qkv_tma) {
+    if ((e = view_map_fp32(&a.qmap, p.q, p.sq, B, H, p.Tq, p.hs)) ||
+        (e = view_map_fp32(&a.kmap, p.k, p.sk, B, H, p.Tk, p.hs)) ||
+        (e = view_map_fp32(&a.vmap, p.v, p.sv, B, H, p.Tk, p.hs))) {
+      return e;
+    }
+  }
+  auto kernel = attention_kernel_tf32<kOut, kBias, kSeg, kCausal>;
+  const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid(B, (p.Tq + kTileRows - 1) / kTileRows, static_cast<unsigned>(z));
+  kernel<<<grid, kThreads, smem, stream>>>(a);
+  const cudaError_t launched = cudaGetLastError();
+  if (launched != cudaSuccess || splits == 1) return static_cast<int>(launched);
+  const long long n = static_cast<long long>(B) * H * p.Tq * p.hs;
+  merge_splits<<<static_cast<int>(n / 256 + 1 < 4096 ? n / 256 + 1 : 4096), 256, 0, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launches the fp32 core on `stream` for B rows and H heads; returns the
-// launch's cudaError_t, invalid value where the shared memory
-// (`fp32_smem`) passes the 227 KB a block has.  Head sizes past kMaxHs go
-// to the sliced form, ceil(hs / kSliceD) blocks a (row, query tile, head).
+// Launches the fp32 core on `stream` for B rows and H heads as planned by
+// the host (`qkv_tma`, `stages`, `splits`, `smem`:
+// ops/set_attention.py:fp32_plan), with `part` the scratch of the split
+// rows (splits > 1, (splits B H Tq (hs + 2)) floats) or null; returns the
+// launch's cudaError_t, invalid value where the plan is not the kernel's
+// (its shared memory is not `fp32_smem`'s count, or passes 227 KB).  Head
+// sizes past kMaxHs go in slices of kSliceD output columns.
 template <bool kBias, bool kSeg, bool kCausal = false>
-int launch(const Params& p, int B, int H, void* stream) {
+int launch_fp32(const Params& p, int B, int H, int qkv_tma, int stages, int splits, int smem,
+                float* part, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int q_tiles = (p.Tq + kQTile - 1) / kQTile;
-  const dim3 grid(B, q_tiles, H);
-  if (p.hs <= kMaxHs && p.Tk > 32 * kKTile) {  // more than one window of key tiles
-    if (p.hs <= 32) return launch_fp32_kernel(attention_kernel<32, kBias, kSeg, kCausal, true>, p,
-                                              grid, s);
-    if (p.hs <= 64) return launch_fp32_kernel(attention_kernel_64<kBias, kSeg, kCausal, true>, p,
-                                              grid, s);
-    return launch_fp32_kernel(attention_kernel<kMaxHs, kBias, kSeg, kCausal, true>, p, grid, s);
+  if (p.hs <= 32) {
+    return launch_fp32_padded<32, kBias, kSeg, kCausal>(p, B, H, qkv_tma, stages, splits, smem,
+                                                        part, s);
   }
-  if (p.hs <= 32) return launch_fp32_kernel(attention_kernel<32, kBias, kSeg, kCausal, false>, p,
-                                            grid, s);
-  if (p.hs <= 64) return launch_fp32_kernel(attention_kernel_64<kBias, kSeg, kCausal, false>, p,
-                                            grid, s);
-  if (p.hs <= kMaxHs) {
-    return launch_fp32_kernel(attention_kernel<kMaxHs, kBias, kSeg, kCausal, false>, p, grid, s);
+  if (p.hs <= 64) {
+    return launch_fp32_padded<64, kBias, kSeg, kCausal>(p, B, H, qkv_tma, stages, splits, smem,
+                                                        part, s);
   }
-  const long long z = static_cast<long long>(H) * ((p.hs + kSliceD - 1) / kSliceD);
-  if (z > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_fp32_kernel(attention_kernel_sliced<kBias, kSeg, kCausal>, p,
-                            dim3(B, q_tiles, static_cast<unsigned>(z)), s);
+  return launch_fp32_padded<kSliceD, kBias, kSeg, kCausal>(p, B, H, qkv_tma, stages, splits, smem,
+                                                           part, s);
 }
 
 }  // namespace set_attention_core

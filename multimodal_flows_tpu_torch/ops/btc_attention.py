@@ -5,14 +5,15 @@ Replaces the Pallas TPU kernel `_btc_kernel`
 segment-masked set attention, q/k/v (B, T, C) fp32 or bf16 with the heads
 packed in C, the output in their dtype (the Pallas kernel takes the input
 dtype and returns `v.dtype`).  The source file says what bounds the kernel
-on the card; its design is the shared core `csrc/set_attention_core.cuh`
-(fp32: 3xTF32 tensor cores at fp32 parity, cp.async key/value tiles;
-bf16: a block's TMA loads in flight together and `wgmma`, planned by
-`ops.set_attention.bf16_plan`; fp32 softmax and cross-jet key tiles
-skipped in both).  Any T and head size run (key rings past 256 tokens,
-slices of 128 output columns past a head size of 128); a block's shared
-memory is the only bound, and `fp32_plan` / `bf16_plan` raise, naming it,
-where it does not fit.
+on the card; its design is the shared core `csrc/set_attention_core.cuh`:
+a block's TMA loads on mbarriers and `wgmma` products in both dtypes
+(fp32: 3xTF32 at fp32 parity, the raw tiles serving as the hi parts, a
+ring of key-tile chunks, the key tiles split across blocks on grids that
+fill at most half of the card, planned by `ops.set_attention.fp32_plan`; bf16:
+planned by `ops.set_attention.bf16_plan`; fp32 softmax and cross-jet key
+tiles not loaded in both).  Any T and head size run (slices of 128 output
+columns past a head size of 128); a block's shared memory is the only
+bound, and the plans raise, naming it, where it does not fit.
 
 Build: `ops/cuda_build.py` compiles the source with nvcc for `sm_90a` at
 first use and loads it with ctypes; nothing is compiled at import.
@@ -47,10 +48,11 @@ DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    # q, k, v, key_mask, segments, out, B, T, C, n_head, scale,
-    # [qkv_tma, stages, smem,] stream
+    # q, k, v, key_mask, segments, out, B, T, C, n_head, scale, then the plan:
+    # fp32 qkv_tma, stages, splits, smem, split scratch; bf16 qkv_tma, stages,
+    # smem; then the stream
     head = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_float]
-    lib.btc_attention_fwd.argtypes = head + [ctypes.c_void_p]
+    lib.btc_attention_fwd.argtypes = head + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
     lib.btc_attention_bf16_fwd.argtypes = head + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     for fn in (lib.btc_attention_fwd, lib.btc_attention_bf16_fwd):
         fn.restype = ctypes.c_int
@@ -114,13 +116,16 @@ def _launch(q: Tensor, k: Tensor, v: Tensor, n_head: int,
     B, T, C = q.shape
     bf16 = q.dtype == torch.bfloat16
     # the host plans; they raise where a block's shared memory does not fit
-    plan = []  # the bf16 core's: q/k/v by TMA, the ring's stages, shared memory
+    views = [t.unflatten(-1, (n_head, C // n_head)).transpose(1, 2) for t in (q, k, v)]
     if bf16:
-        p = bf16_plan(*(t.unflatten(-1, (n_head, C // n_head)).transpose(1, 2)
-                        for t in (q, k, v)))
+        p = bf16_plan(*views)
         plan = [int(p.qkv_tma), p.stages, p.smem_bytes]
     else:
-        fp32_plan(C // n_head, T)
+        p = fp32_plan(*views)
+        part = (torch.empty(p.scratch_floats(B, n_head, T, C // n_head), device=q.device)
+                if p.splits > 1 else None)
+        plan = [int(p.qkv_tma), p.stages, p.splits, p.smem_bytes,
+                None if part is None else part.data_ptr()]
     lib = build()
     out = torch.empty_like(q)
     scale = 1.0 / float(C // n_head) ** 0.5

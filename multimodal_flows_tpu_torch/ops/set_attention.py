@@ -23,17 +23,17 @@ kernel returns `v.dtype`); with bf16 q/k/v the bias may be fp32 or bf16.
 Both hand the kernel strided views, so neither layout is copied, and a
 broadcast bias (a zero stride) is never expanded.  The source file says
 what bounds the kernel on the card; its design is the core it shares with
-K1, `csrc/set_attention_core.cuh` (fp32: 3xTF32 tensor cores at fp32
-parity, cp.async key/value tiles, cross-jet key tiles and their bias
-skipped; bf16: TMA loads and `wgmma`).  `bf16_plan` decides on the host
-how a bf16 call runs (which operands go by TMA, the ring's stages, the
-slices, the shared memory) and `fp32_plan` how an fp32 one does, and K1's
-wrapper takes them too.  Any Tq, Tk and head size run: past 256 keys the
-bf16 key tiles pass through a ring of stages, past a head size of 128 a
-block computes one slice of 128 output columns; the only bound is a
-block's shared memory (the key mask and segment ids are staged whole), and
-the plans raise, naming it, where it does not fit.  Build: `ops/cuda_build.py` (nvcc for `sm_90a`
-at first use, ctypes).
+K1, `csrc/set_attention_core.cuh`: TMA loads on mbarriers and `wgmma` for
+both dtypes (fp32: 3xTF32 at fp32 parity; cross-jet key tiles and their
+bias skipped).  `fp32_plan` and `bf16_plan` decide on the host how a call
+runs (which operands go by TMA, the ring's stages, the slices, for fp32
+the key splits, the shared memory), and K1's wrapper takes them too.  Any
+Tq, Tk and head size run: the key tiles pass through a ring of stages
+(bf16: past 256 keys), past a head size of 128 a block computes one slice
+of 128 output columns; the only bound is a block's shared memory (the key
+mask and segment ids are staged whole), and the plans raise, naming it,
+where it does not fit.  Build: `ops/cuda_build.py` (nvcc for `sm_90a` at
+first use, ctypes).
 
 The wrappers take CUDA tensors only and launch the kernel or raise; the
 plain versions (`ops/attention.py`) serve CPU tensors through the
@@ -73,9 +73,16 @@ DTYPES = (torch.float32, torch.bfloat16)
 #: the bf16 core's tiles: 64 query rows a block (one warpgroup), 64 keys a
 #: key tile; a bias box is 64 rows of 128 bytes
 BF16_TILE = 64
-#: the fp32 core's key tiles (32 keys) and query tile (64 rows)
-FP32_KEY_TILE = 32
-FP32_QUERY_TILE = 64
+#: the fp32 core's ring stages at most (chunks of 64 rows x 64 columns, 32
+#: at head size <= 32)
+MAX_FP32_STAGES = 4
+#: the SMs of an H100: an fp32 call whose blocks fill at most half of the
+#: blocks the card holds at once splits its key tiles across blocks, at
+#: most MAX_SPLITS ways
+NUM_SMS = 132
+MAX_SPLITS = 8
+#: an SM's shared memory (228 KB), of which 1 KB is reserved a block
+SM_SHARED_BYTES = 233_472
 #: the widest head a block holds whole; wider heads run in slices of this
 #: many output columns (both cores)
 SLICE = 128
@@ -89,12 +96,15 @@ MAX_SHARED_BYTES = 232_448
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    tail = [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
-    lib.set_attention_fwd.argtypes = [ctypes.c_void_p] * 8 + tail
+    # the fp32 plan's qkv_tma, stages, splits, smem; the split scratch; the stream
+    plan = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+    # q, k, v, key_mask, bias, segments, out, strides, B, H, Tq, Tk, hs, scale, plan
+    lib.set_attention_fwd.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+                                      + [ctypes.c_float] + plan)
     lib.set_attention_fwd.restype = ctypes.c_int
-    # q, k, v, key_mask, out, strides, B, H, T, hs, scale, stream
+    # q, k, v, key_mask, out, strides, B, H, T, hs, scale, plan
     lib.set_attention_causal_fwd.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
-                                             + [ctypes.c_float, ctypes.c_void_p])
+                                             + [ctypes.c_float] + plan)
     lib.set_attention_causal_fwd.restype = ctypes.c_int
     # q, k, v, key_mask, bias, bias_bf16, segments, out, strides, B, H, Tq, Tk,
     # hs, scale, qkv_tma, bias_tma, stages, smem, stream
@@ -138,45 +148,133 @@ def _too_big(form: str, smem: int, Tk: int, hs: int) -> ValueError:
 
 @dataclasses.dataclass(frozen=True)
 class Fp32Plan:
-    """How the fp32 core runs one call (`csrc/set_attention_core.cuh`): the
-    head-size template (32, 64 or 128; SLICE in slices), the slices a head
-    is cut into (1: the whole head a block; more: `attention_kernel_sliced`,
-    one block a slice of SLICE output columns) and the launch's shared
-    memory (`fp32_smem` in the core)."""
+    """How the fp32 core runs one call (`csrc/set_attention_core.cuh`,
+    `attention_kernel_tf32`): the output columns of a block (32, 64 or
+    SLICE; SLICE in slices past a head size of 128), the columns of a chunk
+    (64 rows x `chunk` fp32: min(head_bucket, 64)), the slices a head is cut
+    into, its key tiles of 64, whether q/k/v go by TMA (else the block's
+    threads stage them), the stages of the ring of chunks (each a K pass or
+    a V part of a key tile), the key splits (each block one contiguous
+    share of the key tiles, its partial merged by `merge_splits`) and the
+    launch's shared memory, which the C entry checks against its own
+    count."""
 
     head_bucket: int
+    chunk: int
     slices: int
+    key_tiles: int
+    qkv_tma: bool
+    stages: int
+    splits: int
     smem_bytes: int
 
-
-def fp32_smem_bytes(hs: int, Tk: int) -> int:
-    """The fp32 kernel's shared memory (`fp32_smem` in the core): the K/V
-    ring (and the query rows) in rows padded to 8 + 4 floats: 6 tiles of 32
-    rows of the whole head, or in slices 64 query rows of the whole head and
-    3 chunks of 32 rows x SLICE columns; then the key mask, the segment ids,
-    the intervals of the key tiles and of the 4 warps (3 ints each) and the
-    need masks of the block and the 4 warps for each window of 32 tiles."""
-    dpad = _round_up(hs, 8)
-    if hs <= SLICE:
-        floats = 6 * FP32_KEY_TILE * (dpad + 4)
-    else:
-        floats = FP32_QUERY_TILE * (dpad + 4) + 3 * FP32_KEY_TILE * (SLICE + 4)
-    n_tiles = -(-Tk // FP32_KEY_TILE)
-    tile_ints = 3 * (n_tiles + 4) + 5 * -(-n_tiles // 32)
-    return 4 * (floats + Tk) + 4 * Tk + 4 * tile_ints
+    def scratch_floats(self, B: int, H: int, Tq: int, hs: int) -> int:
+        """The split rows' partials: O (splits, B, H, Tq, hs), then each
+        row's max and sum (splits, B, H, Tq); 0 without splits."""
+        return 0 if self.splits == 1 else self.splits * B * H * Tq * (hs + 2)
 
 
-def fp32_plan(hs: int, Tk: int) -> Fp32Plan:
-    """The plan of one fp32 call at head size `hs` and Tk keys.  The only
-    bound on the shapes is the shared memory of a block: the key mask and
-    segment ids staged whole (8 Tk bytes) beside the tiles, and in slices the
-    query rows of the whole head (256 (hs + 4) bytes).  Raises where it
-    passes MAX_SHARED_BYTES (e.g. Tk past about 16,000 at head size 128)."""
+def fp32_smem_bytes(head_bucket: int, hs: int, Tk: int, stages: int) -> int:
+    """The fp32 kernel's shared memory (`fp32_smem` in the core), in chunks
+    of 64 rows x w fp32, w = min(head_bucket, 64): the query rows of the
+    whole head (ceil(hs / w) chunks), `stages` chunks of the ring, the work
+    chunks (K's lo part, V^T's hi and lo parts: 3 up to head size 64, 2
+    past it), the key mask and the segment ids (4 Tk bytes each), a scratch
+    of the tile intervals (at least 32 ints), one mbarrier for Q and a
+    `full` and an `empty` one a stage, and 1024 bytes to align the base."""
+    w = min(head_bucket, 64)
+    chunk = BF16_TILE * w * 4
+    km = (-(-hs // w) + stages + (3 if head_bucket <= 64 else 2)) * chunk
+    scratch_ints = max(32, 8 + 3 * -(-Tk // BF16_TILE))
+    bar = _round_up(km + 8 * Tk + 4 * scratch_ints, 8)
+    return bar + 8 * (1 + 2 * stages) + 1024
+
+
+def fp32_plan(q4: Tensor, k4: Tensor, v4: Tensor) -> Fp32Plan:
+    """The plan of one fp32 call on (B, H, T, D) views (K1's token-major
+    views included).  q/k/v go by TMA where all three can (`_tma_readable`).
+    The ring: the stages (up to MAX_FP32_STAGES, no more than the block's
+    chunks; at least 2 up to head size 64, where a tile's K and V chunks are
+    held together) that give the most blocks an SM, by shared memory and by
+    the kernel's registers (4 at head size <= 32, else 2), and of those the
+    most.  The key tiles are split across blocks where the call's blocks (B
+    x query tiles x H x slices) fill at most half of the card's resident
+    blocks (NUM_SMS x blocks an SM): into as many shares as the resident
+    blocks hold, at most MAX_SPLITS, one a key tile, and one a whole 8
+    chunks of the block's work (a split below that costs its merge more
+    than it saves).  Raises where even the fewest stages pass
+    MAX_SHARED_BYTES (the key mask and segment ids, 8 Tk bytes, and the
+    query rows of the whole head, 256 hs bytes, are what grow)."""
+    B, H, Tq, hs = q4.shape
+    Tk = k4.shape[2]
     bucket = 32 if hs <= 32 else 64 if hs <= 64 else SLICE
-    plan = Fp32Plan(head_bucket=bucket, slices=_slices(hs), smem_bytes=fp32_smem_bytes(hs, Tk))
-    if plan.smem_bytes > MAX_SHARED_BYTES:
-        raise _too_big("fp32", plan.smem_bytes, Tk, hs)
-    return plan
+    w = min(bucket, 64)
+    slices = _slices(hs)
+    n_tiles = -(-Tk // BF16_TILE)
+    chunks = n_tiles * (-(-hs // w) + bucket // w)  # a block's K passes and V parts
+    least = 2 if bucket <= 64 else 1
+    fits = [st for st in range(max(least, min(MAX_FP32_STAGES, chunks)), least - 1, -1)
+            if fp32_smem_bytes(bucket, hs, Tk, st) <= MAX_SHARED_BYTES]
+    if not fits:
+        raise _too_big("fp32", fp32_smem_bytes(bucket, hs, Tk, least), Tk, hs)
+
+    def blocks_an_sm(stages: int) -> int:
+        return min(4 if bucket == 32 else 2,
+                   SM_SHARED_BYTES // (fp32_smem_bytes(bucket, hs, Tk, stages) + 1024))
+
+    stages = max(fits, key=lambda st: (blocks_an_sm(st), st))
+    resident = NUM_SMS * blocks_an_sm(stages)
+    blocks = B * -(-Tq // BF16_TILE) * H * slices
+    splits = 1
+    if 2 * blocks <= resident:
+        splits = max(1, min(resident // blocks, n_tiles, MAX_SPLITS, chunks // 8))
+    return Fp32Plan(head_bucket=bucket, chunk=w, slices=slices, key_tiles=n_tiles,
+                    qkv_tma=all(_tma_readable(t) for t in (q4, k4, v4)), stages=stages,
+                    splits=splits, smem_bytes=fp32_smem_bytes(bucket, hs, Tk, stages))
+
+
+def split_partials(q4: Tensor, k4: Tensor, v4: Tensor, splits: int,
+                   key_mask: Optional[Tensor] = None, bias: Optional[Tensor] = None):
+    """The plain version of what the blocks of a split call write: for
+    each share s of the key tiles of 64 (tiles s n / splits.. (s + 1) n /
+    splits - 1 of n), the unnormalised output O_s = sum_j exp(s_j - m_s)
+    v_j, the rows' max m_s and sum l_s over the share's keys (head-major
+    (B, H, Tq, Dh) views; the scores as `attention_reference` makes them).
+    A share with no key has m = -inf, l = 0, O = 0.  Returns (O, m, l),
+    (splits, B, H, Tq, Dh) and (splits, B, H, Tq)."""
+    scores = (q4 @ k4.transpose(-1, -2)) / float(q4.shape[-1]) ** 0.5
+    if key_mask is not None:
+        scores = scores + key_mask[:, None, None, :]
+    if bias is not None:
+        scores = scores + bias
+    Tk = k4.shape[2]
+    n_tiles = -(-Tk // BF16_TILE)
+    outs, maxes, sums = [], [], []
+    for s in range(splits):
+        j0 = min(Tk, s * n_tiles // splits * BF16_TILE)
+        j1 = min(Tk, (s + 1) * n_tiles // splits * BF16_TILE)
+        part = scores[..., j0:j1]
+        if j1 == j0:
+            m = torch.full(scores.shape[:-1], -torch.inf, dtype=scores.dtype)
+            outs.append(torch.zeros(scores.shape[:-1] + v4.shape[-1:], dtype=scores.dtype))
+            maxes.append(m)
+            sums.append(torch.zeros_like(m))
+            continue
+        m = part.amax(dim=-1)
+        e = torch.exp(part - m[..., None])
+        outs.append(e @ v4[..., j0:j1, :])
+        maxes.append(m)
+        sums.append(e.sum(dim=-1))
+    return torch.stack(outs), torch.stack(maxes), torch.stack(sums)
+
+
+def merge_partials(o: Tensor, m: Tensor, l: Tensor) -> Tensor:
+    """The plain version of the core's `merge_splits`: rows split over
+    shares s, out = sum_s w_s O_s / sum_s w_s l_s with w_s = exp(m_s -
+    max_s m_s) (0 for a share without keys), from O (splits, ..., D) and m,
+    l (splits, ...)."""
+    w = torch.where(m == -torch.inf, 0.0, torch.exp(m - m.amax(dim=0)))
+    return (w[..., None] * o).sum(dim=0) / (w * l).sum(dim=0)[..., None]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -356,18 +454,23 @@ def _launch(q4: Tensor, k4: Tensor, v4: Tensor, key_mask: Optional[Tensor],
     B, H, Tq, hs = q4.shape
     Tk = k4.shape[2]
     # the shared memory bounds the shapes: the plans raise where it does not fit
-    plan = bf16_plan(q4, k4, v4, bias4) if bf16 else fp32_plan(hs, Tk)
+    plan = bf16_plan(q4, k4, v4, bias4) if bf16 else fp32_plan(q4, k4, v4)
     lib = build()
     scale = 1.0 / float(hs) ** 0.5
     mask = None if key_mask is None else key_mask.data_ptr()
     with torch.cuda.device(q4.device):
         stream = torch.cuda.current_stream(q4.device).cuda_stream
+        if not bf16:
+            part = (torch.empty(plan.scratch_floats(B, H, Tq, hs), device=q4.device)
+                    if plan.splits > 1 else None)
+            fp32 = [int(plan.qkv_tma), plan.stages, plan.splits, plan.smem_bytes,
+                    None if part is None else part.data_ptr(), stream]
         if causal:
             packed = (ctypes.c_longlong * 16)(*q4.stride(), *k4.stride(), *v4.stride(),
                                               *out4.stride())
             rc = lib.set_attention_causal_fwd(q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), mask,
                                               out4.data_ptr(), packed, B, H, Tq, hs, scale,
-                                              stream)
+                                              *fp32)
         else:
             packed = (ctypes.c_longlong * 20)(
                 *q4.stride(), *k4.stride(), *v4.stride(),
@@ -382,7 +485,7 @@ def _launch(q4: Tensor, k4: Tensor, v4: Tensor, key_mask: Optional[Tensor],
                     int(plan.bias_tma), plan.stages, plan.smem_bytes, stream)
             else:
                 rc = lib.set_attention_fwd(*pointers, seg, out4.data_ptr(), packed, B, H, Tq, Tk,
-                                           hs, scale, stream)
+                                           hs, scale, *fp32)
     _LIB.check(rc)
     (LAUNCHES_BF16 if bf16 else LAUNCHES)[_form(key_mask, bias, segments, causal)] += 1
 

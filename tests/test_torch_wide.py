@@ -210,10 +210,12 @@ def test_plans_fit_with_a_ring_and_slices(Tk, hs):
     assert plan.smem_bytes <= k2.MAX_SHARED_BYTES
     # the query rows of the whole head, the ring's chunks, mask and ids
     assert plan.smem_bytes >= (slices + plan.stages) * 64 * 128 * 2 + 8 * Tk
-    f = k2.fp32_plan(hs, Tk)
-    assert (f.slices, f.head_bucket) == (slices, 128)
+    f = k2.fp32_plan(q.float(), kv.float(), kv.float())
+    assert (f.slices, f.head_bucket, f.chunk) == (slices, 128, 64)
+    assert 1 <= f.stages <= k2.MAX_FP32_STAGES
     assert f.smem_bytes <= k2.MAX_SHARED_BYTES
-    assert f.smem_bytes >= 64 * (hs + 4) * 4 + 8 * Tk
+    # the query rows of the whole head, a stage and the work chunks, mask and ids
+    assert f.smem_bytes >= 64 * hs * 4 + 3 * 64 * 64 * 4 + 8 * Tk
 
 
 @pytest.mark.parametrize("hs, bucket", [(9, 32), (64, 64), (128, 128)])
@@ -229,7 +231,7 @@ def test_whole_head_ring_past_256_keys(Tk, hs, bucket, bias_dtype):
     assert 2 <= plan.stages <= k2.MAX_RING_STAGES < plan.key_tiles
     assert plan.smem_bytes <= k2.MAX_SHARED_BYTES
     assert plan.bias_tma == (bias is not None and Tk % 4 == 0)
-    assert k2.fp32_plan(hs, Tk).slices == 1
+    assert k2.fp32_plan(q.float(), kv.float(), kv.float()).slices == 1
 
 
 def _pr10_bf16_smem(bucket, Tk, bias_tile):
@@ -247,20 +249,25 @@ def _pr10_bf16_smem(bucket, Tk, bias_tile):
 def test_plans_at_the_old_shapes_are_unchanged(Tk, hs, bias_dtype):
     """At Tk <= 256 and head size <= 128 the bf16 plan keeps every key tile
     resident (the ring never wraps) with the shared memory of the capped
-    kernel, and the fp32 kernel adds only the tile intervals."""
+    kernel; the fp32 plan holds the whole head in one block, in chunks of
+    64 rows x 64 columns (32 at head size <= 32): Q's, the ring's and the
+    work chunks, then the mask, the ids and the tile intervals."""
     q, kv = _views(Tk, Tk, hs)
     bias = None if bias_dtype is None else torch.zeros(1, 1, Tk, Tk, dtype=bias_dtype)
     plan = k2.bf16_plan(q, kv, kv, bias)
     bias_tile = 64 * 64 * bias.element_size() if plan.bias_tma else 0
     assert plan.stages == plan.key_tiles == -(-Tk // 64) and plan.slices == 1
     assert plan.smem_bytes == _pr10_bf16_smem(plan.head_bucket, Tk, bias_tile)
-    dpad = -(-hs // 8) * 8
-    pr10 = 4 * (6 * 32 * (dpad + 4) + Tk) + 4 * Tk
-    n_tiles = -(-Tk // 32)
-    assert k2.fp32_plan(hs, Tk).smem_bytes == pr10 + 4 * (3 * (n_tiles + 4) + 5 * -(-n_tiles // 32))
+    f = k2.fp32_plan(q.float(), kv.float(), kv.float())
+    w = 32 if hs <= 32 else 64
+    chunks = -(-hs // w) + f.stages + (3 if hs <= 64 else 2)
+    ints = max(32, 8 + 3 * -(-Tk // 64))
+    at_bars = -(-(chunks * 64 * w * 4 + 8 * Tk + 4 * ints) // 8) * 8
+    assert (f.slices, f.chunk, f.key_tiles) == (1, w, -(-Tk // 64))
+    assert f.smem_bytes == at_bars + 8 * (1 + 2 * f.stages) + 1024
 
 
-@pytest.mark.parametrize("hs, Tk, form", [(128, 16384, "fp32"), (256, 16384, "fp32"),
+@pytest.mark.parametrize("hs, Tk, form", [(128, 20480, "fp32"), (256, 16384, "fp32"),
                                           (512, 16384, "bf16"), (2048, 1024, "bf16"),
                                           (1024, 4096, "fp32")])
 def test_the_shared_memory_bound_is_named(hs, Tk, form):
@@ -268,7 +275,8 @@ def test_the_shared_memory_bound_is_named(hs, Tk, form):
     staged whole, the query rows of a whole head in slices)."""
     with pytest.raises(ValueError, match=f"the {form} kernel needs .* shared memory"):
         if form == "fp32":
-            k2.fp32_plan(hs, Tk)
+            q, kv = _views(64, Tk, hs, torch.float32)
+            k2.fp32_plan(q, kv, kv)
         else:
             k2.bf16_plan(*_views(64, Tk, hs)[:1], *[_views(64, Tk, hs)[1]] * 2)
 
