@@ -1,0 +1,14 @@
+"""The least time the training forwards' attention calls need
+(`counts.attention_bound_s`) over the device time of the program's
+hand-written attention kernels, which run the forward only (the backward
+recomputes through the plain attention) (%)."""
+
+from bench_torch import counts
+from bench_torch.trace import CSRC_KERNELS
+
+
+def read(ctx):
+    device_s = ctx.trace.device_s(CSRC_KERNELS)
+    if device_s <= 0 or not ctx.work:
+        return None
+    return 100.0 * sum(counts.attention_bound_s(r, ctx.cfg) for r in ctx.work) / device_s
