@@ -756,12 +756,6 @@ def _jets(rng, n, n_wide, D=150):
     return np.concatenate([_multiplicities(rng, n, D), rng.integers(135, D + 1, size=n_wide)])
 
 
-def _reset_counts():
-    k1.reset_launch_counts()
-    k2.reset_launch_counts()
-    attention.reset_plain_dropout_calls()
-
-
 def _counts():
     """The launch counts of both kernels by form, fp32 (K1, K2) and bf16
     (K1_bf16, K2_bf16), and the attention calls that took the plain version
@@ -789,7 +783,7 @@ def drive(name, system, mult, steps, expect, counters=("K1", "K2")):
     kw = dict(pack_width=128, batch_size=128, seed=0)
     generate_packed(system, pad_masks[-40:], num_timesteps=2, **kw)  # warm-up
 
-    _reset_counts()
+    profiling.take_counters()
     res = generate_packed(system, pad_masks, num_timesteps=steps, **kw)
     launches = _counts()
     print(f"{name}: launches {launches}")
@@ -912,7 +906,7 @@ def train_card_vs_cpu(dev, train_ds, cfg_kw=TRAIN):
     for side, (d, system) in sides.items():
         b = batch.to(d)
         state = MultiModal(**{f: torch.from_numpy(a) for f, a in states.items()}).to(d)
-        _reset_counts()
+        profiling.take_counters()
         out = system.module.packed_training_loss(state, torch.from_numpy(drift).to(d),
                                                  b.discrete, torch.from_numpy(t_jets).to(d),
                                                  b.segments, b.jet_valid)
@@ -964,7 +958,7 @@ def fit_fixed_batch(dev, train_ds, steps=30, name="flagship", kind="MMF", cfg_kw
     gen = torch.Generator(device=dev)
     system.module.train()
     losses = []
-    _reset_counts()
+    profiling.take_counters()
     for _ in range(steps):
         gen.manual_seed(0)
         losses.append(trainer._train_step(state, batch, gen)["loss"])
@@ -990,7 +984,7 @@ def train_flagship(dev, train_ds, val_ds, out_dir):
     trainer = Trainer(system, cfg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    _reset_counts()
+    profiling.take_counters()
     t0 = time.perf_counter()
     state = trainer.fit(train_ds, val_ds)
     torch.cuda.synchronize()
@@ -1072,7 +1066,7 @@ def time_training(dev, trainer, state, train_ds, n=20, n_prof=5, label="flagship
     jets_per_s = sum(step_jets) / sum(walls)
 
     prof = profiling.profile_steps(
-        lambda i: profiling.step_phases(trainer, state, batches[i % len(batches)], gen), n_prof)
+        lambda i: trainer._train_step(state, batches[i % len(batches)], gen), n_prof)
     state.module.eval()
     split, total_ms, launches = prof.phases, prof.device_ms, prof.launches
     print(f"train step ({label}, {rows} rows x {width}, ~{np.mean(jets):.1f} jets): median wall "
@@ -1116,7 +1110,7 @@ def train_coocc(dev, train_ds, steps=5, cfg_kw=TRAIN_COOCC, k2_counter="K2"):
                               epoch=0)[:steps]
     gen = torch.Generator(device=dev).manual_seed(0)
     system.module.train()
-    _reset_counts()
+    profiling.take_counters()
     metrics = [trainer._train_step(state, b, gen)
                for b in trainer._batches(trainer._resident(unit), idx)]
     torch.cuda.synchronize()
@@ -1172,7 +1166,7 @@ def train_physics_eval(dev, train_ds, val_ds, out_dir):
 
     physics_eval.physics_metrics = recorded
     try:
-        _reset_counts()
+        profiling.take_counters()
         Trainer(system, cfg).fit(train_ds, val_ds)
         launches = _counts()
     finally:
@@ -1218,12 +1212,12 @@ def train_dropout(dev, train_ds, steps=3):
     batches = list(trainer._batches(trainer._resident(unit), idx))
     gen = torch.Generator(device=dev).manual_seed(0)
     system.module.train()
-    _reset_counts()
+    profiling.take_counters()
     losses = torch.stack([trainer._train_step(state, b, gen)["loss"] for b in batches])
     torch.cuda.synchronize()
     train_counts = _counts()
     system.module.eval()
-    _reset_counts()
+    profiling.take_counters()
     with torch.no_grad():
         held = [system.loss_fn(batches[0], gen.manual_seed(3), train=False)[0].item()
                 for _ in range(2)]
@@ -1294,7 +1288,7 @@ def train_bucketed(dev, out_dir):
 
     k1.btc_attention = spied
     try:
-        _reset_counts()
+        profiling.take_counters()
         state = trainer.fit(train_ds, val_ds)
         torch.cuda.synchronize()
         launches = _counts()
@@ -1431,7 +1425,7 @@ def modes_vs_cpu(dev, steps=8, n_jets=256):
         noise = (rng.normal(size=shape) if noise_name == "normals"
                  else rng.uniform(size=shape)).astype(np.float32)
         outs, rates = [], []
-        _reset_counts()
+        profiling.take_counters()
         for d in (dev, torch.device("cpu")):
             system = _system(kind, cfg_kw, d)
             if sigmoid:
@@ -1576,7 +1570,7 @@ def cli_entry_points(dev, out_dir):
     train_ds, val_ds = train_mmf.split_jets(jets, cfg)
 
     t0 = time.perf_counter()
-    _reset_counts()
+    profiling.take_counters()
     with _Forwards() as forwards:
         _, state = train_mmf.train(cfg, "MMF", train_ds, val_ds, device=dev)
         torch.cuda.synchronize()
@@ -1615,7 +1609,7 @@ def cli_entry_points(dev, out_dir):
     tx, tk, tmask = _physical_jets(rng, _jets(rng, 1024, 32))
     test = MultiModal(continuous=tx, discrete=tk, mask=tmask)
     t0 = time.perf_counter()
-    _reset_counts()
+    profiling.take_counters()
     with _Forwards() as forwards:
         results = sample_mmf.sample(cfg, "MMF", tmask, dev, checkpoint="best",
                                     temperatures=cfg.temperature,
@@ -1670,7 +1664,7 @@ def toy_phase(dev, out_dir):
 
     cfg = toy_tutorial.toy_config(TOY_EPOCHS, out_dir)
     t0 = time.perf_counter()
-    _reset_counts()
+    profiling.take_counters()
     out = toy_tutorial.run(cfg, num_points=TOY_POINTS, num_timesteps=TOY_STEPS, device=dev)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
@@ -1859,7 +1853,7 @@ def gpt_phase(dev, out_dir):
 
     # the training entry point's compute half: the main path
     t0 = time.perf_counter()
-    _reset_counts()
+    profiling.take_counters()
     with _Forwards(FlavorSeqGPT) as forwards:
         trainer, state = train_mmf.train(cfg, "GPT", train_ds, val_ds, device=dev)
         torch.cuda.synchronize()
@@ -1900,7 +1894,7 @@ def gpt_phase(dev, out_dir):
     batch = train_ds[np.arange(cfg.batch_size)].to(dev)
     gen = torch.Generator(device=dev)
     system.module.train()
-    _reset_counts()
+    profiling.take_counters()
     losses = []
     for _ in range(30):
         gen.manual_seed(0)
@@ -1937,7 +1931,7 @@ def gpt_phase(dev, out_dir):
     GPT.generate = recorded
     try:
         t0 = time.perf_counter()
-        _reset_counts()
+        profiling.take_counters()
         sample = sample_mmf.sample_gpt(cfg, dev, checkpoint="last", temperature=1.0)
         sample_launches = _counts()
         sample_s = time.perf_counter() - t0
@@ -2058,7 +2052,7 @@ def _layout_step(dev, cfg_kw, mesh, batch):
     state = trainer.init_state(10)
     state.module.train()
     batch = batch.to(dev)
-    _reset_counts()
+    profiling.take_counters()
     loss, _ = system.loss_fn(batch, torch.Generator(device=dev).manual_seed(3), train=True,
                              module=state.module, rows=data_rows(len(batch), trainer.mesh))
     launches = _counts()
@@ -2785,7 +2779,7 @@ def time_wide_kernels(dev) -> dict:
 def _counted(fn, model_cls=particle_transformers.ParticleFormer):
     """(fn's result, the launch counts, the forwards of `model_cls`) with
     the counts set to 0 just before fn and read just after."""
-    _reset_counts()
+    profiling.take_counters()
     with _Forwards(model_cls) as forwards:
         out = fn()
         torch.cuda.synchronize()

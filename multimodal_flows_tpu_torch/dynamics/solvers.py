@@ -36,6 +36,7 @@ from multimodal_flows_tpu_torch.dynamics.bridges import (
     top_k_filter,
     top_p_filter,
 )
+from multimodal_flows_tpu_torch.utils.profiling import span
 
 Tensor = torch.Tensor
 
@@ -339,14 +340,15 @@ def simulate(solver, source: MultiModal, num_timesteps: int,
                               dtype=torch.float32, device=device)[:, rows]
     state, rates, trajectory = source, None, []
     for i in range(num_timesteps):
-        state = state.replace(time=ts[i].expand(B))
-        if uniforms is not None:
-            noise = uniforms[i]
-        else:
-            noise = solver.step_noise(generator, state, n_rows)
-            noise = None if noise is None else noise[rows]
-        out = solver.fwd_step_u(noise, state, dt)
-        state, rates = out if isinstance(out, tuple) else (out, None)
+        with span("solver.step"):
+            state = state.replace(time=ts[i].expand(B))
+            if uniforms is not None:
+                noise = uniforms[i]
+            else:
+                noise = solver.step_noise(generator, state, n_rows)
+                noise = None if noise is None else noise[rows]
+            out = solver.fwd_step_u(noise, state, dt)
+            state, rates = out if isinstance(out, tuple) else (out, None)
         if return_trajectory:
             trajectory.append(state)
     if use_final_max_rates:

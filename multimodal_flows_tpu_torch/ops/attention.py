@@ -50,11 +50,6 @@ Tensor = torch.Tensor
 PLAIN_DROPOUT_CALLS = {"head_major": 0, "token_major": 0}
 
 
-def reset_plain_dropout_calls() -> None:
-    for form in PLAIN_DROPOUT_CALLS:
-        PLAIN_DROPOUT_CALLS[form] = 0
-
-
 @functools.lru_cache(maxsize=None)
 def causal_bias(T: int, device: torch.device) -> Tensor:
     """The (1, 1, T, T) additive causal bias, 0 on and below the diagonal

@@ -61,12 +61,6 @@ def _declare(lib: ctypes.CDLL) -> None:
 _LIB = CudaLibrary("btc_attention.cu", _declare)
 
 
-def reset_launch_counts() -> None:
-    for counts in (LAUNCHES, LAUNCHES_BF16):
-        for form in counts:
-            counts[form] = 0
-
-
 def library_path() -> Path:
     return _LIB.path()
 

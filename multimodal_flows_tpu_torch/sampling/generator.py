@@ -20,6 +20,10 @@ rows (`simulate(draw_rows=)`), so a sample on n ranks is the sample on one
 from the same seed, and `gather_multihost` hands every rank all the jets.
 The module is whatever the system holds (replicated, or sharded by the
 trainer, whose ranks then run every batch in step).
+
+A call is the span `sample.call` (`utils/profiling.py`): `sample.pack`,
+a `sample.batch` a batch (its `solver.step`s inside), `sample.fetch`,
+`sample.unpack`, `sample.finalize`.
 """
 
 from __future__ import annotations
@@ -50,6 +54,7 @@ from multimodal_flows_tpu_torch.parallel.mesh import (
     is_primary,
 )
 from multimodal_flows_tpu_torch.utils.logger import SimpleLogger as log
+from multimodal_flows_tpu_torch.utils.profiling import span, spanned
 
 Tensor = torch.Tensor
 
@@ -112,6 +117,7 @@ def _check_batch(batch_size: int, mesh) -> None:
                          f"{n_data}-device data axis")
 
 
+@spanned("sample.batch")
 def _simulate_batch(system, gen: torch.Generator, masks: Tensor, segments: Optional[Tensor],
                     mesh, **kw) -> MultiModal:
     """One batch of `masks` (B, W, 1): its noise source drawn at the
@@ -165,6 +171,7 @@ def _finalize(sample: MultiModal, metadata: Optional[Dict]) -> MultiModal:
                       discrete=(sample.discrete.cpu() * m).to(torch.int32), mask=m)
 
 
+@spanned("sample.call")
 def generate(system, pad_masks: np.ndarray, *, num_timesteps: int,
              temperature: float = 1.0, top_k: Optional[int] = None,
              top_p: Optional[float] = None, use_final_max_rates: bool = False,
@@ -200,21 +207,25 @@ def generate(system, pad_masks: np.ndarray, *, num_timesteps: int,
         masks = np.concatenate([masks, np.repeat(masks[-1:], total - num_jets, axis=0)])
 
     t_start = time.perf_counter()
-    masks_dev = torch.as_tensor(masks, dtype=torch.int32, device=device)
+    with span("sample.pack"):
+        masks_dev = torch.as_tensor(masks, dtype=torch.int32, device=device)
     gen = torch.Generator(device=device).manual_seed(seed)
     finals = [_simulate_batch(system, gen, masks_dev[i * batch_size:(i + 1) * batch_size],
                               None, mesh, num_timesteps=num_timesteps,
                               temperature=temperature, top_k=top_k, top_p=top_p,
                               use_final_max_rates=use_final_max_rates)
               for i in range(n_batches)]
-    sample = _gather_batches(finals, mesh)[:num_jets]
-    _synchronize(device)
+    with span("sample.fetch"):
+        sample = _gather_batches(finals, mesh)[:num_jets]
+        _synchronize(device)
     wall = time.perf_counter() - t_start
-    return GenerationResult(sample=_finalize(sample, metadata),
-                            jets_per_sec=num_jets / wall, wall_time_s=wall,
+    with span("sample.finalize"):
+        sample = _finalize(sample, metadata)
+    return GenerationResult(sample=sample, jets_per_sec=num_jets / wall, wall_time_s=wall,
                             num_timesteps=num_timesteps, temperature=temperature)
 
 
+@spanned("sample.call")
 def generate_bucketed(system, pad_masks: np.ndarray, *, num_timesteps: int,
                       bucket_widths=(32, 40, 48, 56, 64, 128), **kw) -> GenerationResult:
     """Multiplicity-bucketed generation: jets are grouped by multiplicity
@@ -243,13 +254,15 @@ def generate_bucketed(system, pad_masks: np.ndarray, *, num_timesteps: int,
         pieces.append(s)
     wall = time.perf_counter() - t0
 
-    inv = torch.from_numpy(np.argsort(np.concatenate(order)))
-    return GenerationResult(sample=MultiModal.concat(pieces)[inv],
-                            jets_per_sec=num_jets / wall, wall_time_s=wall,
+    with span("sample.unpack"):
+        inv = torch.from_numpy(np.argsort(np.concatenate(order)))
+        sample = MultiModal.concat(pieces)[inv]
+    return GenerationResult(sample=sample, jets_per_sec=num_jets / wall, wall_time_s=wall,
                             num_timesteps=num_timesteps,
                             temperature=kw.get("temperature", 1.0))
 
 
+@spanned("sample.call")
 def generate_packed(system, pad_masks: np.ndarray, *, num_timesteps: int,
                     pack_width: int = 128, temperature: float = 1.0,
                     top_k: Optional[int] = None, top_p: Optional[float] = None,
@@ -274,17 +287,23 @@ def generate_packed(system, pad_masks: np.ndarray, *, num_timesteps: int,
                                  metadata=metadata, **kw)
 
     t_start = time.perf_counter()
-    mult = pad_masks[..., 0].sum(axis=1)
-    row_of, offset_of, n_rows = pack_jets(mult, pack_width)
+    with span("sample.pack"):
+        mult = pad_masks[..., 0].sum(axis=1)
+        row_of, offset_of, n_rows = pack_jets(mult, pack_width)
+        if n_rows > 0:
+            row_mask, row_seg = build_packed_rows(pad_masks, row_of, offset_of, n_rows,
+                                                  pack_width)
+            num_segments = int(row_seg.max()) + 1
+            # packed rows run at most 128 to a batch (the JAX package's
+            # operating point); `batch_size` still governs the bucketed tail
+            rows_dev, row_bs = _packed_rows_on_device(system, row_mask, row_seg,
+                                                      min(batch_size, 128), mesh)
 
     if n_rows > 0:
-        row_mask, row_seg = build_packed_rows(pad_masks, row_of, offset_of, n_rows,
-                                              pack_width)
-        # packed rows run at most 128 to a batch (the JAX package's
-        # operating point); `batch_size` still governs the bucketed tail
-        rows = _run_packed_rows(system, row_mask, row_seg, batch_size=min(batch_size, 128),
-                                seed=seed, num_segments=int(row_seg.max()) + 1, **kw)
-        sample = unpack_rows(rows, pad_masks, row_of, offset_of, pack_width)
+        rows = _run_packed_rows(system, *rows_dev, n_rows=n_rows, batch_size=row_bs, seed=seed,
+                                num_segments=num_segments, **kw)
+        with span("sample.unpack"):
+            sample = unpack_rows(rows, pad_masks, row_of, offset_of, pack_width)
     else:
         sample = MultiModal(
             continuous=torch.zeros((num_jets, D, cfg.dim_continuous), dtype=torch.float32),
@@ -296,13 +315,15 @@ def generate_packed(system, pad_masks: np.ndarray, *, num_timesteps: int,
     if len(left):
         res = generate_bucketed(system, pad_masks[left], batch_size=batch_size,
                                 seed=seed + 15485863, metadata=None, **kw)
-        idx = torch.from_numpy(left)
-        sample.continuous[idx] = res.sample.continuous
-        sample.discrete[idx] = res.sample.discrete
+        with span("sample.unpack"):
+            idx = torch.from_numpy(left)
+            sample.continuous[idx] = res.sample.continuous
+            sample.discrete[idx] = res.sample.discrete
 
     wall = time.perf_counter() - t_start
-    return GenerationResult(sample=_finalize(sample, metadata),
-                            jets_per_sec=num_jets / wall, wall_time_s=wall,
+    with span("sample.finalize"):
+        sample = _finalize(sample, metadata)
+    return GenerationResult(sample=sample, jets_per_sec=num_jets / wall, wall_time_s=wall,
                             num_timesteps=num_timesteps, temperature=temperature)
 
 
@@ -325,42 +346,47 @@ def _rebalanced_batch(n_rows: int, batch_size: int, gran: int = 8) -> int:
     return batch_size
 
 
-def _run_packed_rows(system, row_masks: np.ndarray, row_segs: np.ndarray, *,
-                     num_timesteps: int, temperature: float, top_k, top_p,
-                     use_final_max_rates: bool, batch_size: int,
-                     seed: int, num_segments: Optional[int] = None,
-                     mesh=None) -> MultiModal:
-    """Sample packed rows (R, W): noise per row on the device, the segment
-    ids fixed through each trajectory; `num_segments` (the most jets a row
-    holds) sizes EPiC's per-jet global stream.  Returns the rows on the
-    CPU."""
-    device = system.device
+def _packed_rows_on_device(system, row_masks: np.ndarray, row_segs: np.ndarray,
+                           batch_size: int, mesh):
+    """The packed rows (R, W) padded to whole batches with empty rows (mask
+    0, segment -1), on the device: ((masks, segments), rows a batch)."""
     n_rows, W = row_masks.shape[0], row_masks.shape[1]
     _check_batch(batch_size, mesh)
     gran = _granule(mesh)
     if n_rows < batch_size:
         batch_size = min(_ceil_to(_snap_batch(n_rows), gran), batch_size)
     batch_size = _rebalanced_batch(n_rows, batch_size, gran)
-    n_batches = (n_rows + batch_size - 1) // batch_size
-    total = n_batches * batch_size
-    if total > n_rows:  # pad with empty rows (mask 0, segment -1)
+    total = _ceil_to(n_rows, batch_size)
+    if total > n_rows:
         row_masks = np.concatenate(
             [row_masks, np.zeros((total - n_rows,) + row_masks.shape[1:], row_masks.dtype)])
         row_segs = np.concatenate(
             [row_segs, np.full((total - n_rows, W), -1, row_segs.dtype)])
+    return ((torch.as_tensor(row_masks, dtype=torch.int32, device=system.device),
+             torch.as_tensor(row_segs, dtype=torch.int32, device=system.device)), batch_size)
 
-    masks_dev = torch.as_tensor(row_masks, dtype=torch.int32, device=device)
-    segs_dev = torch.as_tensor(row_segs, dtype=torch.int32, device=device)
-    gen = torch.Generator(device=device).manual_seed(seed)
+
+def _run_packed_rows(system, masks_dev: Tensor, segs_dev: Tensor, *, n_rows: int,
+                     num_timesteps: int, temperature: float, top_k, top_p,
+                     use_final_max_rates: bool, batch_size: int,
+                     seed: int, num_segments: Optional[int] = None,
+                     mesh=None) -> MultiModal:
+    """Sample the first `n_rows` of the padded packed rows on the device,
+    `batch_size` rows a batch: noise per row on the device, the segment ids
+    fixed through each trajectory; `num_segments` (the most jets a row
+    holds) sizes EPiC's per-jet global stream.  Returns the rows on the
+    CPU."""
+    gen = torch.Generator(device=system.device).manual_seed(seed)
     finals = []
-    for i in range(n_batches):
+    for i in range(len(masks_dev) // batch_size):
         sl = slice(i * batch_size, (i + 1) * batch_size)
         finals.append(_simulate_batch(system, gen, masks_dev[sl], segs_dev[sl], mesh,
                                       num_timesteps=num_timesteps, temperature=temperature,
                                       top_k=top_k, top_p=top_p,
                                       use_final_max_rates=use_final_max_rates,
                                       num_segments=num_segments))
-    return _gather_batches(finals, mesh)[:n_rows].to("cpu")
+    with span("sample.fetch"):
+        return _gather_batches(finals, mesh)[:n_rows].to("cpu")
 
 
 def save_generation(result: GenerationResult, config: Config, res_dir: str) -> str:

@@ -24,6 +24,7 @@ from multimodal_flows_tpu_torch.config import Config
 from multimodal_flows_tpu_torch.data.state import DataCoupling
 from multimodal_flows_tpu_torch.models.gpt import FlavorSeqGPT
 from multimodal_flows_tpu_torch.train.systems import _device, _dropout_mode, _placed, _rank_total
+from multimodal_flows_tpu_torch.utils.profiling import span, spanned
 
 Tensor = torch.Tensor
 
@@ -86,6 +87,7 @@ class GPT:
     # ------------------------------------------------------------- sampling
 
     @torch.no_grad()
+    @spanned("gpt.generate")
     def generate(self, batch_size: int, generator: Optional[torch.Generator] = None,
                  temperature=None, top_k: Optional[int] = None,
                  gumbel: Optional[Tensor] = None,
@@ -116,16 +118,17 @@ class GPT:
         prev = tokens[:, 0]
         done = torch.zeros(batch_size, dtype=torch.bool, device=self.device)
         for t in range(T - 1):
-            logits, caches = module.decode(prev, t, caches)
-            logits = logits.to(torch.float32) / float(temperature)
-            if top_k is not None:
-                thresh = torch.topk(logits, top_k, dim=-1).values[:, -1:]
-                logits = torch.where(logits >= thresh, logits, -1e9)
-            nxt = torch.argmax(logits + gumbel[t], dim=-1).to(torch.int32)
-            nxt = torch.where(done, self.pad_token, nxt)
-            done = done | (nxt == self.end_token)
-            tokens[:, t + 1] = nxt
-            prev = nxt
+            with span("gpt.decode_step"):
+                logits, caches = module.decode(prev, t, caches)
+                logits = logits.to(torch.float32) / float(temperature)
+                if top_k is not None:
+                    thresh = torch.topk(logits, top_k, dim=-1).values[:, -1:]
+                    logits = torch.where(logits >= thresh, logits, -1e9)
+                nxt = torch.argmax(logits + gumbel[t], dim=-1).to(torch.int32)
+                nxt = torch.where(done, self.pad_token, nxt)
+                done = done | (nxt == self.end_token)
+                tokens[:, t + 1] = nxt
+                prev = nxt
         return tokens
 
     def sample_jets(self, batch_size: int, generator: Optional[torch.Generator] = None,

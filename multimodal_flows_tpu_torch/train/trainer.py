@@ -51,6 +51,11 @@ on the whole batch.  The per-step metrics are averaged over the data axis
 in one collective at the end of a unit's epoch.  Checkpoints hold the
 full tensors whatever the layout (`parallel.tensor_parallel`); rank 0
 writes them and the metric files.
+
+A step is the span `train.step` (`utils/profiling.py`): `train.loss`,
+`train.backward`, `train.update` (`train.clip`, `train.adam`, `train.ema`);
+`fit` adds `train.batch`, `train.fetch`, `train.validate`,
+`train.physics_eval` and `train.checkpoint`.
 """
 
 from __future__ import annotations
@@ -90,6 +95,7 @@ from multimodal_flows_tpu_torch.train.checkpoints import CheckpointManager
 from multimodal_flows_tpu_torch.train.ema import ema_update
 from multimodal_flows_tpu_torch.train.lr_schedules import warmup_cosine_epoch_schedule
 from multimodal_flows_tpu_torch.utils.logger import MetricsLogger, SimpleLogger as log
+from multimodal_flows_tpu_torch.utils.profiling import span, spanned
 
 # Adam as optax.adam builds it: eps outside the square root, no weight decay
 ADAM_BETAS, ADAM_EPS = (0.9, 0.999), 1e-8
@@ -159,29 +165,34 @@ class Trainer:
         only when norm >= max), Adam at schedule(step) (optax evaluates the
         schedule before counting the update), EMA."""
         state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        with span("train.backward"):
+            loss.backward()
         out = {k: v.detach() for k, v in metrics.items()}
         out["grad_norm"] = self._update(state)
         return out
 
+    @spanned("train.update")
     def _update(self, state: TrainState) -> torch.Tensor:
         """One update from the gradients in `.grad`; returns their global
         norm before clipping."""
         cfg = self.config
         params = list(state.module.parameters())
-        for p in params:  # optax updates a parameter the loss does not reach too
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        grads = [p.grad for p in params]
-        self._average_gradients(grads)
-        grad_norm = tpar.grad_norm(params, grads)
-        torch._foreach_mul_(tpar.local_tensors(grads),
-                            torch.clamp(cfg.gradient_clip_val / grad_norm, max=1.0))
-        for group in state.optimizer.param_groups:
-            group["lr"] = self.lr_schedule(state.step)
-        state.optimizer.step()
+        with span("train.clip"):
+            for p in params:  # optax updates a parameter the loss does not reach too
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            grads = [p.grad for p in params]
+            self._average_gradients(grads)
+            grad_norm = tpar.grad_norm(params, grads)
+            torch._foreach_mul_(tpar.local_tensors(grads),
+                                torch.clamp(cfg.gradient_clip_val / grad_norm, max=1.0))
+        with span("train.adam"):
+            for group in state.optimizer.param_groups:
+                group["lr"] = self.lr_schedule(state.step)
+            state.optimizer.step()
         if state.ema is not None:
-            ema_update(state.ema.parameters(), params, cfg.ema_decay)
+            with span("train.ema"):
+                ema_update(state.ema.parameters(), params, cfg.ema_decay)
         state.step += 1
         return grad_norm.detach()
 
@@ -197,14 +208,18 @@ class Trainer:
         if (self.mesh is None or self.config.fsdp
                 or (n_data == 1 and self.config.tensor_parallel > 1)):
             return
-        flat = torch._utils._flatten_dense_tensors(grads)
-        torch.distributed.all_reduce(flat, group=self.mesh.get_group(DATA_AXIS))
-        flat /= n_data
-        torch._foreach_copy_(grads, torch._utils._unflatten_dense_tensors(flat, grads))
+        with span("train.allreduce"):
+            flat = torch._utils._flatten_dense_tensors(grads)
+            torch.distributed.all_reduce(flat, group=self.mesh.get_group(DATA_AXIS))
+            flat /= n_data
+            torch._foreach_copy_(grads, torch._utils._unflatten_dense_tensors(flat, grads))
 
+    @spanned("train.step")
     def _train_step(self, state: TrainState, batch, generator: torch.Generator):
-        loss, metrics = self.system.loss_fn(batch, generator, train=True, module=state.module,
-                                            rows=data_rows(len(batch), self.mesh))
+        with span("train.loss"):
+            loss, metrics = self.system.loss_fn(batch, generator, train=True,
+                                                module=state.module,
+                                                rows=data_rows(len(batch), self.mesh))
         return self._apply_gradients(state, loss, metrics)
 
     @torch.no_grad()
@@ -212,6 +227,7 @@ class Trainer:
         return self.system.loss_fn(batch, generator, train=False, module=module,
                                    rows=data_rows(len(batch), self.mesh))[1]
 
+    @spanned("train.fetch")
     def _fetch_metrics(self, metrics_seq: List[Dict[str, torch.Tensor]]) -> Dict[str, np.ndarray]:
         """{name: (n_batches,)} of a unit's epoch, averaged over the data
         axis in one collective, in one device -> host copy.  Each rank's
@@ -379,7 +395,9 @@ class Trainer:
         device; the index matrix goes to the unit's device in one copy."""
         rows = torch.from_numpy(idx).long().to(next(_leaves(data)).device)
         for i in range(len(idx)):
-            yield data[rows[i]].to(self.device)
+            with span("train.batch"):
+                batch = data[rows[i]].to(self.device)
+            yield batch
 
     def _val_sets(self, val_units, bs: int):
         """Per val unit: (resident data, fixed row order with the tail
@@ -483,8 +501,9 @@ class Trainer:
             state.module.eval()
             train_metrics = _combine_stacked(accum, weights, prefix="train_")
 
-            val_metrics = self._validate(state.ema if state.ema is not None else state.module,
-                                         val_sets, epoch)
+            with span("train.validate"):
+                val_metrics = self._validate(
+                    state.ema if state.ema is not None else state.module, val_sets, epoch)
 
             # the periodic physics eval: the validation losses rank sample
             # quality badly, W1 of generated jets against the val set does not
@@ -492,7 +511,8 @@ class Trainer:
             if cfg.physics_eval_every_n_epochs > 0 and (
                     (epoch + 1) % cfg.physics_eval_every_n_epochs == 0
                     or epoch == cfg.max_epochs - 1):
-                val_metrics.update(self._run_physics_eval(state, val_ds, epoch))
+                with span("train.physics_eval"):
+                    val_metrics.update(self._run_physics_eval(state, val_ds, epoch))
                 did_physics = "val_w1_physics" in val_metrics
 
             epoch_metrics = {**train_metrics, **val_metrics, "epoch": epoch,
@@ -501,7 +521,8 @@ class Trainer:
             logger.log(state.step, epoch_metrics)
             if ((epoch + 1) % cfg.checkpoint_every_n_epochs == 0 or epoch == cfg.max_epochs - 1
                     or did_physics):
-                ckpt.save(self._to_ckpt(state, epoch + 1), val_metrics, epoch + 1)
+                with span("train.checkpoint"):
+                    ckpt.save(self._to_ckpt(state, epoch + 1), val_metrics, epoch + 1)
             log.info(f"epoch {epoch}: train_loss={train_metrics.get('train_loss', math.nan):.4f} "
                      f"val_loss={val_metrics.get('val_loss', math.nan):.4f} "
                      f"({epoch_metrics['epoch_time_s']:.1f}s)")

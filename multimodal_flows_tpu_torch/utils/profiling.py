@@ -1,27 +1,42 @@
 """Profiling helpers (PyTorch port of `multimodal_flows_tpu/utils/profiling.py`,
-with the card's timers that `chip_smoke.py` uses).
+with the card's timers that `chip_smoke.py` uses) and the port's spans and
+counters.
 
+- `span(name)`: a named interval of the program's host work, kept in memory
+  while tracing is on (during any `torch.profiler` session, or after
+  `record_spans(True)`) and, under the profiler, also a `record_function`
+  range of the same name; a shared no-op when tracing is off;
+- `take_spans()` / `peek_spans()`: the buffered spans, emptied or not;
+  `requests(spans, root)`: the spans grouped by request;
+- `take_counters()`: every counter of the port by dotted name, zeroed;
 - `trace(logdir)`: a `torch.profiler` trace of the block, written as a
   Chrome trace into `logdir` (a no-op for None);
 - `force_completion(tree)`: waits for the device and returns the sum of
   every float tensor of a nested structure, a host number;
-- `device_timer(fn, *args)`: the median wall time of `fn(*args)`, each call
-  forced to completion (seconds, any device);
 - `median_device_ms(fns)`: the median CUDA-event device time of each fn,
   run in turns with the stream held while the host enqueues, so the time is
   the kernels' own and not the host's launch overhead;
-- `step_phases` and `profile_steps`: train steps under `torch.profiler`,
-  their device time split into forward, backward and optimizer, the busy
-  share's numerator, the launches and the kernels by name.
+- `profile_steps`: train steps under `torch.profiler`, their device time
+  split into forward (the trainer's `train.loss` spans), optimizer
+  (`train.update`) and backward (the rest), the busy share's numerator,
+  the launches and the kernels by name.
+
+The spans' stamps are `time.time_ns()`, the clock of the profiler's
+events, so a span lines up with the device records of the same trace.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
+import itertools
 import os
+import threading
 import time
-from typing import Callable, Dict, Iterator, List, Mapping, Optional, Sequence, Tuple
+from collections import deque
+from typing import (Callable, Deque, Dict, Iterator, List, Mapping, NamedTuple, Optional,
+                    Sequence, Tuple)
 
 import numpy as np
 import torch
@@ -30,6 +45,153 @@ import torch
 # each timed call, so the host has enqueued the call's kernels when the
 # start event runs
 HOLD_CYCLES = 2_000_000
+
+#: the most spans the buffer holds; past it the oldest are dropped, and
+#: counted under `spans.dropped`
+SPAN_BUFFER = 1 << 18
+
+
+class Span(NamedTuple):
+    """One span: `start_ns` and `end_ns` on `time.time_ns()`'s clock,
+    `parent` the enclosing span's name (None at the top), `root` the number
+    shared by every span of one request (its top-level span's)."""
+
+    name: str
+    start_ns: int
+    end_ns: int
+    parent: Optional[str]
+    root: int
+
+
+_record = False
+_spans: Deque[Span] = deque(maxlen=SPAN_BUFFER)
+_dropped = 0
+_roots = itertools.count(1)
+# set by torch.profiler while a session is active
+_autograd_profiler = torch.autograd.profiler
+
+
+class _Stack(threading.local):
+    def __init__(self):
+        self.open: List["_Span"] = []
+
+
+_stack = _Stack()
+
+
+class _NoSpan:
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NO_SPAN = _NoSpan()
+
+
+class _Span:
+    __slots__ = ("name", "parent", "root", "start_ns", "range")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        open_ = _stack.open
+        if open_:
+            self.parent, self.root = open_[-1].name, open_[-1].root
+        else:
+            self.parent, self.root = None, next(_roots)
+        open_.append(self)
+        self.range = None
+        if _autograd_profiler._is_profiler_enabled:
+            self.range = _autograd_profiler.record_function(self.name)
+            self.range.__enter__()
+        self.start_ns = time.time_ns()
+        return self
+
+    def __exit__(self, *exc):
+        global _dropped
+        end_ns = time.time_ns()
+        if self.range is not None:
+            self.range.__exit__(*exc)
+        _stack.open.pop()
+        if len(_spans) == _spans.maxlen:
+            _dropped += 1
+        _spans.append(Span(self.name, self.start_ns, end_ns, self.parent, self.root))
+        return False
+
+
+def span(name: str):
+    """A context manager that records the block as the span `name` while
+    tracing is on; otherwise the shared no-op (no allocation, no profiler
+    range, no device call)."""
+    if _record or _autograd_profiler._is_profiler_enabled:
+        return _Span(name)
+    return _NO_SPAN
+
+
+def spanned(name: str):
+    """Decorator: every call of the function is the span `name`."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return call
+    return wrap
+
+
+def record_spans(on: bool) -> None:
+    """Keep spans without a profiler session (`on`), or only during one."""
+    global _record
+    _record = bool(on)
+
+
+def take_spans() -> List[Span]:
+    """The buffered spans in the order they ended; empties the buffer."""
+    out = list(_spans)
+    _spans.clear()
+    return out
+
+
+def peek_spans() -> List[Span]:
+    """The buffered spans in the order they ended; the buffer keeps them."""
+    return list(_spans)
+
+
+def requests(spans: Sequence[Span], root: str, after_ns: int = 0) -> List[List[Span]]:
+    """The spans of each request whose top-level span is named `root` and
+    starts after `after_ns`, a list a request, in the order they started."""
+    tops = sorted((s.start_ns, s.root) for s in spans
+                  if s.parent is None and s.name == root and s.start_ns > after_ns)
+    by_root: Dict[int, List[Span]] = {r: [] for _, r in tops}
+    for s in spans:
+        if s.root in by_root:
+            by_root[s.root].append(s)
+    return [by_root[r] for _, r in tops]
+
+
+def take_counters() -> Dict[str, int]:
+    """Every counter of the port by dotted name (`k1.segments`,
+    `k2_bf16.bias`, `attn.plain_dropout.head_major`, `spans.dropped`, ...),
+    each set to zero.  The kernels' counters live in their modules'
+    dicts."""
+    global _dropped
+    from multimodal_flows_tpu_torch.ops import attention, btc_attention, set_attention
+
+    stores = {"k1": btc_attention.LAUNCHES, "k1_bf16": btc_attention.LAUNCHES_BF16,
+              "k2": set_attention.LAUNCHES, "k2_bf16": set_attention.LAUNCHES_BF16,
+              "attn.plain_dropout": attention.PLAIN_DROPOUT_CALLS}
+    out = {}
+    for prefix, store in stores.items():
+        for key in store:
+            out[f"{prefix}.{key}"] = store[key]
+            store[key] = 0
+    out["spans.dropped"], _dropped = _dropped, 0
+    return out
 
 
 @contextlib.contextmanager
@@ -73,19 +235,6 @@ def force_completion(tree) -> float:
     return float(sum(float(t.sum()) for t in leaves if t.is_floating_point()))
 
 
-def device_timer(fn: Callable, *args, iters: int = 3, warmup: int = 1) -> float:
-    """Median wall seconds of `fn(*args)` (the upper one of an even count),
-    each call forced to completion."""
-    for _ in range(warmup):
-        force_completion(fn(*args))
-    times = []
-    for _ in range(iters):
-        t0 = time.perf_counter()
-        force_completion(fn(*args))
-        times.append(time.perf_counter() - t0)
-    return sorted(times)[len(times) // 2]
-
-
 def median_device_ms(fns: Sequence[Callable], n: int = 40, warmup: int = 5) -> List[float]:
     """Median CUDA-event device time (ms) of each fn, the fns run in turns.
     The stream is held while the host enqueues fn, so the time is the
@@ -107,23 +256,6 @@ def median_device_ms(fns: Sequence[Callable], n: int = 40, warmup: int = 5) -> L
             end.synchronize()
             ts.append(start.elapsed_time(end))
     return [float(np.median(ts)) for ts in times]
-
-
-def step_phases(trainer, state, batch, gen) -> None:
-    """One train step of `trainer` with its phases named for the profiler:
-    `train_forward` (the loss) and `train_optimizer` (the update); the
-    backward between them is launched by autograd's own thread."""
-    from torch.profiler import record_function
-
-    from multimodal_flows_tpu_torch.parallel.mesh import data_rows
-
-    with record_function("train_forward"):
-        loss, _ = trainer.system.loss_fn(batch, gen, train=True, module=state.module,
-                                         rows=data_rows(len(batch), trainer.mesh))
-    state.optimizer.zero_grad(set_to_none=True)
-    loss.backward()
-    with record_function("train_optimizer"):
-        trainer._update(state)
 
 
 @dataclasses.dataclass
@@ -155,10 +287,10 @@ class StepProfile:
 
 def profile_steps(step: Callable[[int], None], n: int) -> StepProfile:
     """Run `step(i)` for i < n under `torch.profiler` (CPU and CUDA), ending
-    in a synchronize.  The device time of the `train_forward` and
-    `train_optimizer` ranges (`step_phases`) is the forward and the
-    optimizer; the rest of the top-level events' device time is the
-    backward."""
+    in a synchronize.  The device time of the trainer's `train.loss` and
+    `train.update` spans is the forward and the optimizer; the rest of the
+    top-level events' device time is the backward (autograd launches it
+    from its own thread)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -168,9 +300,9 @@ def profile_steps(step: Callable[[int], None], n: int) -> StepProfile:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n
     events = prof.events()
-    phases = {name: sum(e.device_time_total for e in events
-                        if e.name == f"train_{name}" and e.device_type.name == "CPU") / n / 1e3
-              for name in ("forward", "optimizer")}
+    phases = {phase: sum(e.device_time_total for e in events
+                         if e.name == name and e.device_type.name == "CPU") / n / 1e3
+              for phase, name in (("forward", "train.loss"), ("optimizer", "train.update"))}
     total_ms = sum(e.device_time_total for e in events
                    if e.device_type.name == "CPU" and e.cpu_parent is None) / n / 1e3
     phases["backward"] = total_ms - phases["forward"] - phases["optimizer"]

@@ -18,6 +18,7 @@ from multimodal_flows_tpu_torch.ops.attention import (
     attention_btc_reference,
     multihead_attention_btc,
 )
+from multimodal_flows_tpu_torch.utils import profiling
 
 torch.set_num_threads(2)
 
@@ -98,7 +99,7 @@ def test_all_pad_row_stays_finite(form):
 def test_cpu_dispatch_takes_plain_path_without_launching():
     (q, k, v), km, seg, _ = _case("segments", 8, 12, 32)
     q, k, v, seg = map(_torch, (q, k, v, seg))
-    k1.reset_launch_counts()
+    profiling.take_counters()
     out = multihead_attention_btc(q, k, v, 4, segments=seg)
     assert k1.LAUNCHES == {"segments": 0, "key_mask": 0, "none": 0}
     torch.testing.assert_close(out, attention_btc_reference(q, k, v, 4, segments=seg),
@@ -111,7 +112,7 @@ def test_kernel_wrapper_refuses_cpu_tensors_and_unported_forms():
         k1.btc_attention(q, k, v, 4)
     # probability dropout is ported: it takes the plain version, by name,
     # with or without a bias, and never a kernel
-    attention.reset_plain_dropout_calls()
+    profiling.take_counters()
     gen = torch.Generator().manual_seed(0)
     out = multihead_attention_btc(q, k, v, 4, dropout_rate=0.1, generator=gen)
     biased = multihead_attention_btc(q, k, v, 4, bias=torch.zeros(2, 1, 6, 6),

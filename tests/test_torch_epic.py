@@ -29,6 +29,7 @@ from multimodal_flows_tpu_torch.ops import pooling
 from multimodal_flows_tpu_torch.ops import set_attention as k2
 from multimodal_flows_tpu_torch.sampling.generator import generate_packed
 from multimodal_flows_tpu_torch.train import systems
+from multimodal_flows_tpu_torch.utils import profiling
 
 torch.set_num_threads(2)
 
@@ -343,8 +344,7 @@ def test_generate_packed_epic_equals_unpacked_per_jet(monkeypatch):
                               discrete=mask.clone(), mask=mask)
         return make
 
-    k1.reset_launch_counts()
-    k2.reset_launch_counts()
+    profiling.take_counters()
     monkeypatch.setattr(gen_mod, "make_noise_source", source_from(packed_noise))
     packed = generate_packed(system, pad_masks, num_timesteps=5, pack_width=12, batch_size=16)
     monkeypatch.setattr(gen_mod, "make_noise_source", source_from(noise))

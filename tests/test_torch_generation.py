@@ -21,6 +21,7 @@ from multimodal_flows_tpu_torch.sampling.generator import (
     save_generation,
 )
 from multimodal_flows_tpu_torch.train.systems import MMF
+from multimodal_flows_tpu_torch.utils import profiling
 
 torch.set_num_threads(2)
 
@@ -75,7 +76,7 @@ def generated():
     rng = np.random.default_rng(1)
     mults = np.concatenate([rng.integers(2, 11, size=30), [15, 20]])  # 2 wider than a row
     pad_masks = _pad_masks(mults, 20)
-    k1.reset_launch_counts()
+    profiling.take_counters()
     res = generate_packed(system, pad_masks, num_timesteps=4, pack_width=12, batch_size=8,
                           seed=0, metadata={"mean": [1.0, 0.0, 0.0], "std": [2.0, 1.0, 1.0]})
     return cfg, pad_masks, res

@@ -172,7 +172,7 @@ def test_each_dropout_acts_in_train_mode_only(rate):
     probability dropout takes the plain version."""
     _, _, system = _pair(seed=10, **{rate: 0.5})
     batch = DataCoupling(target=_sequences(B=8, seed=11).to("cpu"))
-    attention.reset_plain_dropout_calls()
+    profiling.take_counters()
     with torch.no_grad():
         det = [system.loss_fn(batch, torch.Generator().manual_seed(s), train=False)[0]
                for s in (0, 1)]
@@ -261,11 +261,15 @@ def test_trace_writes_a_chrome_trace(tmp_path):
         torch.ones(3).sum()
     assert not os.listdir(tmp_path)
     with profiling.trace(str(tmp_path / "tr")):
-        (torch.ones(8, 8) @ torch.ones(8, 8)).sum()
+        with profiling.span("test.span"):
+            (torch.ones(8, 8) @ torch.ones(8, 8)).sum()
     (name,) = os.listdir(tmp_path / "tr")
     assert name.startswith("trace_") and name.endswith(".json")
     events = json.load(open(tmp_path / "tr" / name))["traceEvents"]
     assert any("mm" in e.get("name", "") for e in events)
+    # a program span is a range of the trace
+    assert any(e.get("name") == "test.span" for e in events)
+    assert [s.name for s in profiling.take_spans()] == ["test.span"]
 
 
 def test_force_completion_sums_the_float_leaves():
@@ -274,17 +278,6 @@ def test_force_completion_sums_the_float_leaves():
                                                                                dtype=torch.int32))}
     assert profiling.force_completion(tree) == pytest.approx(3 + 5 + 4)
     assert profiling.force_completion({"n": 1}) == 0.0
-
-
-def test_device_timer_gives_the_median_of_completed_calls():
-    calls = []
-
-    def fn(x):
-        calls.append(1)
-        return x * 2
-
-    seconds = profiling.device_timer(fn, torch.ones(4), iters=5, warmup=2)
-    assert len(calls) == 7 and 0 <= seconds < 1.0
 
 
 def test_epoch_progress_is_a_no_op_off_a_tty(monkeypatch):

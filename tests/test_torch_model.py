@@ -21,6 +21,7 @@ from multimodal_flows_tpu_torch.convert import load_flax_params
 from multimodal_flows_tpu_torch.data.state import MultiModal
 from multimodal_flows_tpu_torch.models import blocks
 from multimodal_flows_tpu_torch.train.systems import MMF
+from multimodal_flows_tpu_torch.utils import profiling
 
 torch.set_num_threads(2)
 
@@ -351,16 +352,14 @@ def test_dropout_train_step_takes_plain_attention_and_is_seeded():
                          target=MultiModal(continuous=torch.from_numpy(x),
                                            discrete=torch.from_numpy(k),
                                            mask=torch.from_numpy(mask)))
-    k1.reset_launch_counts()
-    k2.reset_launch_counts()
-    attention.reset_plain_dropout_calls()
+    profiling.take_counters()
     losses = [dropped.loss_fn(batch, torch.Generator().manual_seed(s), train=True)[0].item()
               for s in (0, 0, 1)]
     assert attention.PLAIN_DROPOUT_CALLS == {"head_major": 0, "token_major": 3 * 5}
     assert losses[0] == losses[1] != losses[2] and np.isfinite(losses).all()
     assert not dropped.module.training
 
-    attention.reset_plain_dropout_calls()
+    profiling.take_counters()
     with torch.no_grad():
         held = float(dropped.loss_fn(batch, torch.Generator().manual_seed(0), train=False)[0])
         ref = float(plain.loss_fn(batch, torch.Generator().manual_seed(0), train=True)[0])

@@ -45,6 +45,7 @@ from multimodal_flows_tpu_torch.sampling.generator import generate_packed
 from multimodal_flows_tpu_torch.train import systems
 from multimodal_flows_tpu_torch.train.trainer import Trainer
 from multimodal_flows_tpu_torch.utils.jet_features import JetFeatures
+from multimodal_flows_tpu_torch.utils import profiling
 
 torch.set_num_threads(2)
 
@@ -367,8 +368,7 @@ def test_generate_packed_runs_each_system_on_cpu(kind, cfg_kw):
         system.module.lambda_u.data.fill_(LAMBDA_U)
     mults = np.concatenate([np.random.default_rng(1).integers(2, 11, size=20), [15, 20]])
     pad_masks = _pad_masks(mults, 20)
-    k1.reset_launch_counts()
-    k2.reset_launch_counts()
+    profiling.take_counters()
     res = generate_packed(system, pad_masks, num_timesteps=3, pack_width=12, batch_size=8)
     s = res.sample
     assert s.continuous.shape == (22, 20, 3) and s.discrete.shape == (22, 20, 1)

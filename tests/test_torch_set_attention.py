@@ -35,6 +35,7 @@ from multimodal_flows_tpu_torch.ops.attention import (
     multihead_attention,
     multihead_attention_btc,
 )
+from multimodal_flows_tpu_torch.utils import profiling
 
 torch.set_num_threads(2)
 
@@ -223,8 +224,7 @@ def test_cpu_dispatch_never_launches_k2():
     q, k, v = (torch.from_numpy(_normal((B, T, C), s)) for s in range(3))
     bias = torch.from_numpy(_normal((B, H, T, T), 3))
     seg = torch.from_numpy(_packed_segments(B, T))
-    k1.reset_launch_counts()
-    k2.reset_launch_counts()
+    profiling.take_counters()
     out = multihead_attention_btc(q, k, v, H, bias, segments=seg)
     torch.testing.assert_close(out, attention_btc_reference(q, k, v, H, None, seg, bias),
                                rtol=0, atol=0)
@@ -244,7 +244,7 @@ def test_k2_wrappers_refuse_cpu_tensors():
         k2.set_attention_btc(x, x, x, 2, bias=torch.zeros(2, 1, 6, 6))
     # probability dropout is ported: the head-major call takes the plain
     # version and never K2; at rate 0 the generator is not touched
-    attention.reset_plain_dropout_calls()
+    profiling.take_counters()
     gen = torch.Generator().manual_seed(0)
     dropped = multihead_attention(q, k, v, bias, km, dropout_rate=0.5, generator=gen)
     assert attention.PLAIN_DROPOUT_CALLS == {"head_major": 1, "token_major": 0}

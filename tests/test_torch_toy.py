@@ -29,6 +29,7 @@ from multimodal_flows_tpu_torch.models.registry import build_model
 from multimodal_flows_tpu_torch.ops import btc_attention as k1
 from multimodal_flows_tpu_torch.ops import set_attention as k2
 from multimodal_flows_tpu_torch.train import systems
+from multimodal_flows_tpu_torch.utils import profiling
 
 torch.set_num_threads(2)
 
@@ -168,8 +169,7 @@ def test_trained_toy_trajectory_matches_jax_on_shared_uniforms(trained_toy):
     jsrc = JaxMultiModal(**{f: jnp.asarray(getattr(src, f).numpy())
                             for f in ("time", "continuous", "discrete", "mask")})
     jfinal, jtraj = jsys.simulate(params, key, jsrc, steps, return_trajectory=True)
-    k1.reset_launch_counts()
-    k2.reset_launch_counts()
+    profiling.take_counters()
     final, traj = tsys.simulate(src, steps, uniforms=torch.from_numpy(us),
                                 return_trajectory=True)
     assert sum(k1.LAUNCHES.values()) + sum(k2.LAUNCHES.values()) == 0   # no attention at all

@@ -1,0 +1,377 @@
+"""The port's spans and counters (`utils/profiling.py`) on the CPU: the
+no-op when tracing is off, nesting and the bounded buffer, the profiler's
+clock, the spans of the sampler, the GPT decode and the trainer, the
+counters behind `take_counters`, and the benchmark's readers of the spans
+(`bench_torch/metrics/*_host_*.py`) on a hand-built trace."""
+
+import sys
+import time
+import tracemalloc
+from collections import deque
+from pathlib import Path
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from multimodal_flows_tpu_torch.config import Config
+from multimodal_flows_tpu_torch.data import packing
+from multimodal_flows_tpu_torch.data.datasets import ArrayDataset
+from multimodal_flows_tpu_torch.data.state import DataCoupling, MultiModal
+from multimodal_flows_tpu_torch.ops import attention
+from multimodal_flows_tpu_torch.ops import btc_attention as k1
+from multimodal_flows_tpu_torch.ops import set_attention as k2
+from multimodal_flows_tpu_torch.sampling import generator as gen_mod
+from multimodal_flows_tpu_torch.train import systems
+from multimodal_flows_tpu_torch.train.gpt import GPT
+from multimodal_flows_tpu_torch.train.trainer import Trainer
+from multimodal_flows_tpu_torch.utils import profiling
+from multimodal_flows_tpu_torch.utils.profiling import Span
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+from bench_torch.harness import read_metric  # noqa: E402
+
+torch.set_num_threads(2)
+
+TINY = dict(model="ParticleFormer", n_embd=16, n_inner=32, n_layer=1, n_layer_fused=1,
+            n_head=2, vocab_size=9, dim_continuous=3, max_num_particles=20)
+#: how far a span's stamps lie from its profiler range's, the median of a
+#: run of spans (the range opens just before the first stamp and closes
+#: just after the second; a busy host can preempt a few of them longer)
+CLOCK_NS = 100_000
+#: how far a stamp may lie outside its range: the profiler converts its
+#: own clock to the Unix epoch's, to within a few microseconds
+CONVERT_NS = 10_000
+
+
+@pytest.fixture
+def spans():
+    """Spans recorded without a profiler for the test, the buffer empty
+    before and after."""
+    profiling.take_spans()
+    profiling.record_spans(True)
+    try:
+        yield profiling.take_spans
+    finally:
+        profiling.record_spans(False)
+        profiling.take_spans()
+        profiling.take_counters()
+
+
+def _pad_masks(mults, D):
+    return (np.arange(D)[None, :] < np.asarray(mults)[:, None]).astype(np.int64)[..., None]
+
+
+def _children(spans, parent):
+    return [s.name for s in sorted(spans, key=lambda s: s.start_ns) if s.parent == parent]
+
+
+# ------------------------------------------------------------ the facility
+
+def test_span_is_the_shared_no_op_when_tracing_is_off(monkeypatch):
+    def refuse(*a, **kw):
+        raise AssertionError("a span opened a profiler range or called the device")
+
+    monkeypatch.setattr(profiling._autograd_profiler, "record_function", refuse)
+    monkeypatch.setattr(torch.cuda, "synchronize", refuse)
+    monkeypatch.setattr(time, "time_ns", refuse)
+    profiling.take_spans()
+    assert profiling.span("a") is profiling.span("b") is profiling._NO_SPAN
+    with profiling.span("a"):
+        pass
+    for _ in range(100):  # let the interpreter's caches settle
+        with profiling.span("a"):
+            pass
+    tracemalloc.start()
+    try:
+        before = tracemalloc.take_snapshot()
+        for _ in range(20_000):
+            with profiling.span("a"):
+                pass
+        after = tracemalloc.take_snapshot()
+    finally:
+        tracemalloc.stop()
+    grown = sum(d.size_diff for d in after.compare_to(before, "filename")
+                if d.traceback[0].filename == profiling.__file__)
+    assert grown == 0
+    assert profiling.take_spans() == []
+
+
+def test_nested_spans_carry_their_parent_and_request(spans):
+    with profiling.span("a"):
+        with profiling.span("b"):
+            with profiling.span("c"):
+                pass
+        with profiling.span("d"):
+            pass
+    with profiling.span("e"):
+        pass
+    got = spans()
+    assert [s.name for s in got] == ["c", "b", "d", "a", "e"]  # the order they ended
+    by = {s.name: s for s in got}
+    assert [by[n].parent for n in "abcde"] == [None, "a", "b", "a", None]
+    assert len({by[n].root for n in "abcd"}) == 1 and by["e"].root != by["a"].root
+    assert by["a"].start_ns <= by["b"].start_ns <= by["c"].start_ns <= by["c"].end_ns
+    assert by["d"].end_ns <= by["a"].end_ns <= by["e"].start_ns
+    assert spans() == []
+    reqs = profiling.requests(got, "a")
+    assert len(reqs) == 1 and sorted(s.name for s in reqs[0]) == list("abcd")
+    assert profiling.requests(got, "a", after_ns=by["a"].start_ns) == []
+    assert profiling.requests(got, "b") == []  # not a request's top-level span
+
+
+def test_the_bounded_buffer_drops_the_oldest_and_counts_them(spans, monkeypatch):
+    monkeypatch.setattr(profiling, "_spans", deque(maxlen=3))
+    for i in range(5):
+        with profiling.span(f"s{i}"):
+            pass
+    assert [s.name for s in profiling.peek_spans()] == ["s2", "s3", "s4"]
+    assert [s.name for s in spans()] == ["s2", "s3", "s4"]
+    assert profiling.take_counters()["spans.dropped"] == 2
+    assert profiling.take_counters()["spans.dropped"] == 0
+
+
+def test_a_profiler_session_records_spans_on_its_clock():
+    profiling.take_spans()
+    torch.autograd.profiler.record_function("warm-up").__enter__().__exit__(None, None, None)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with profiling.span("outer"):
+            for i in range(20):
+                with profiling.span(f"inner{i}"):
+                    torch.ones(64, 64).sum()
+            time.sleep(0.002)
+    with profiling.span("after"):
+        pass
+    got = profiling.take_spans()
+    assert [s.name for s in got] == [f"inner{i}" for i in range(20)] + ["outer"]
+    ranges = {e.name(): (e.start_ns(), e.end_ns())
+              for e in prof.profiler.kineto_results.events() if e.name() in {s.name for s in got}}
+    opens, closes = [], []
+    for s in got:
+        start, end = ranges[s.name]
+        opens.append(s.start_ns - start)
+        closes.append(end - s.end_ns)
+    # each span lies inside its range, on one clock, and close to its ends
+    assert min(opens + closes) > -CONVERT_NS, (opens, closes)
+    assert np.median(opens) < CLOCK_NS and np.median(closes) < CLOCK_NS, (opens, closes)
+
+
+def test_take_counters_reads_and_zeroes_every_counter():
+    profiling.take_counters()
+    k1.LAUNCHES["segments"] += 3
+    k1.LAUNCHES_BF16["none"] += 1
+    k2.LAUNCHES["causal"] += 5
+    k2.LAUNCHES_BF16["bias"] += 2
+    attention.PLAIN_DROPOUT_CALLS["head_major"] += 4
+    got = profiling.take_counters()
+    expect = ({f"k1.{f}" for f in k1.LAUNCHES} | {f"k1_bf16.{f}" for f in k1.LAUNCHES_BF16}
+              | {f"k2.{f}" for f in k2.LAUNCHES} | {f"k2_bf16.{f}" for f in k2.LAUNCHES_BF16}
+              | {f"attn.plain_dropout.{f}" for f in attention.PLAIN_DROPOUT_CALLS}
+              | {"spans.dropped"})
+    assert set(got) == expect
+    assert {k: v for k, v in got.items() if v} == {
+        "k1.segments": 3, "k1_bf16.none": 1, "k2.causal": 5, "k2_bf16.bias": 2,
+        "attn.plain_dropout.head_major": 4}
+    for store in (k1.LAUNCHES, k1.LAUNCHES_BF16, k2.LAUNCHES, k2.LAUNCHES_BF16,
+                  attention.PLAIN_DROPOUT_CALLS):
+        assert not any(store.values())
+    assert not any(profiling.take_counters().values())
+
+
+# ------------------------------------------------------ spans in the program
+
+def test_generate_packed_spans_one_request(spans):
+    cfg = Config(**TINY)
+    system = systems.MMF(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    mults = np.random.default_rng(1).integers(2, 11, size=40)
+    pad_masks = _pad_masks(mults, 20)
+    steps = 3
+    gen_mod.generate_packed(system, pad_masks, num_timesteps=steps, pack_width=12,
+                            batch_size=8, seed=0)
+    got = spans()
+    (call,) = [s for s in got if s.parent is None]
+    assert call.name == "sample.call" and {s.root for s in got} == {call.root}
+    row_of, offset_of, n_rows = packing.pack_jets(mults, 12)
+    row_mask, row_seg = packing.build_packed_rows(pad_masks, row_of, offset_of, n_rows, 12)
+    (masks, _), bs = gen_mod._packed_rows_on_device(system, row_mask, row_seg, 8, None)
+    n_batches = len(masks) // bs
+    assert n_batches >= 2
+    assert _children(got, "sample.call") == (["sample.pack"] + ["sample.batch"] * n_batches
+                                             + ["sample.fetch", "sample.unpack",
+                                                "sample.finalize"])
+    assert [s.parent for s in got if s.name == "solver.step"] == ["sample.batch"] * (
+        steps * n_batches)
+    for b in (s for s in got if s.name == "sample.batch"):
+        inside = [s for s in got if s.name == "solver.step"
+                  and b.start_ns <= s.start_ns <= s.end_ns <= b.end_ns]
+        assert len(inside) == steps
+
+    # jets wider than a row: the bucketed tail is a call within the call
+    gen_mod.generate_packed(system, _pad_masks(np.concatenate([mults, [15, 20]]), 20),
+                            num_timesteps=steps, pack_width=12, batch_size=8, seed=0)
+    got = spans()
+    assert len({s.root for s in got}) == 1
+    top = _children(got, "sample.call")
+    assert top[0] == "sample.pack" and top[-1] == "sample.finalize"
+    assert "sample.call" in top and top.count("sample.unpack") >= 2
+
+
+def test_gpt_generate_spans_each_decode_step(spans):
+    cfg = Config(vocab_size=9, max_seq_length=6, n_embd=32, n_inner=64, n_layer=2, n_head=2)
+    system = GPT(cfg, device="cpu")
+    system.generate(4, torch.Generator().manual_seed(0))
+    got = spans()
+    (top,) = [s for s in got if s.parent is None]
+    assert top.name == "gpt.generate"
+    assert _children(got, "gpt.generate") == ["gpt.decode_step"] * (system.module.seq_len - 1)
+    assert {s.root for s in got} == {top.root}
+
+
+def _packed_trainer(tmp_path, **kw):
+    rng = np.random.default_rng(14)
+    mults = np.clip(rng.poisson(8, 48), 2, 20)
+    D = 20
+    mask = (np.arange(D)[None, :] < mults[:, None]).astype(np.int32)[..., None]
+    x = rng.normal(size=(48, D, 3)).astype(np.float32) * mask
+    k = (rng.integers(1, 9, size=(48, D, 1)) * mask).astype(np.int32)
+    ds = ArrayDataset(DataCoupling(source=MultiModal(mask=mask),
+                                   target=MultiModal(continuous=x, discrete=k, mask=mask)))
+    cfg = Config(**dict(TINY, batch_size=8, packed_training=True, pack_width=16,
+                        use_ema_weights=True, dir=str(tmp_path), experiment_id="spans", **kw))
+    system = systems.build_system(cfg, "MMF", device="cpu",
+                                  generator=torch.Generator().manual_seed(0))
+    return Trainer(system, cfg), ds
+
+
+def test_a_train_step_spans_its_phases(spans, tmp_path):
+    trainer, ds = _packed_trainer(tmp_path)
+    (unit,) = trainer._pack_units(ds)
+    state = trainer.init_state(4)
+    batch = unit.coupling[np.arange(trainer._packed_row_bs)].to("cpu")
+    trainer._train_step(state, batch, torch.Generator().manual_seed(1))
+    got = spans()
+    (top,) = [s for s in got if s.parent is None]
+    assert top.name == "train.step" and {s.root for s in got} == {top.root}
+    assert _children(got, "train.step") == ["train.loss", "train.backward", "train.update"]
+    assert _children(got, "train.update") == ["train.clip", "train.adam", "train.ema"]
+    assert len(got) == 7
+
+
+def test_the_gradients_all_reduce_is_a_span_on_a_data_mesh(spans, tmp_path, monkeypatch):
+    trainer, _ = _packed_trainer(tmp_path)
+    reduced = []
+    monkeypatch.setattr(torch.distributed, "all_reduce",
+                        lambda flat, group=None: reduced.append(flat.numel()))
+    trainer.mesh = SimpleNamespace(mesh_dim_names=("data",), size=lambda dim=None: 2,
+                                   get_group=lambda axis: None)
+    trainer._average_gradients([torch.ones(3), torch.ones(2, 2)])
+    assert reduced == [7]
+    assert [(s.name, s.parent) for s in spans()] == [("train.allreduce", None)]
+
+
+def test_fit_spans_the_epochs_work(spans, tmp_path):
+    trainer, ds = _packed_trainer(tmp_path, max_epochs=1, physics_eval_every_n_epochs=1,
+                                  physics_eval_num_jets=8, physics_eval_num_timesteps=2)
+    train_ds, val_ds = ds.split(0.75, seed=0)
+    trainer.fit(train_ds, val_ds)
+    names = {s.name for s in spans() if s.parent is None}
+    assert {"train.step", "train.batch", "train.fetch", "train.validate",
+            "train.physics_eval", "train.checkpoint"} <= names
+
+
+# ------------------------------------------------- the benchmark's readers
+
+def _ctx(work, steps, after=1_500):
+    """A traced run's context: the host-and-device window's last device
+    record ends at `after`; the device-only window did `work` records and
+    `steps` steps."""
+    detail = SimpleNamespace(device=[(after - 500, after, "kernel", 1)])
+    return SimpleNamespace(detail=detail, trace=SimpleNamespace(device=[]), work=[{}] * work,
+                           steps=steps)
+
+
+def _s(name, start, end, parent, root):
+    return Span(name, start, end, parent, root)
+
+
+def _sampler_spans():
+    """One call before the threshold (the host-and-device window's) and
+    two after: 2 batches x 2 steps each, steps of 10 and 30 ns; pack,
+    unpack and finalize 200 ns a call."""
+    out = [_s("sample.call", 100, 900, None, 1), _s("solver.step", 200, 999_999, "sample.batch", 1)]
+    for root, t0 in ((2, 2_000), (3, 10_000)):
+        out += [_s("sample.call", t0, t0 + 5_000, None, root),
+                _s("sample.pack", t0 + 10, t0 + 110, "sample.call", root),
+                _s("sample.fetch", t0 + 3_000, t0 + 4_000, "sample.call", root),
+                _s("sample.unpack", t0 + 4_000, t0 + 4_050, "sample.call", root),
+                _s("sample.finalize", t0 + 4_050, t0 + 4_100, "sample.call", root)]
+        for b in range(2):
+            out.append(_s("sample.batch", t0 + 200 + b * 1_000, t0 + 900 + b * 1_000,
+                          "sample.call", root))
+            out += [_s("solver.step", t0 + 300 + b * 1_000, t0 + 310 + b * 1_000,
+                       "sample.batch", root),
+                    _s("solver.step", t0 + 400 + b * 1_000, t0 + 430 + b * 1_000,
+                       "sample.batch", root)]
+    return out
+
+
+def _decode_spans():
+    """One call before the threshold, one after: steps of 40, 60, 80 ns."""
+    out = []
+    for root, t0 in ((1, 0), (2, 2_000)):
+        out.append(_s("gpt.generate", t0, t0 + 1_000, None, root))
+        out += [_s("gpt.decode_step", t0 + 10 + 100 * i, t0 + 10 + 100 * i + 40 + 20 * i,
+                   "gpt.generate", root) for i in range(3)]
+    return out
+
+
+def _train_spans():
+    """A step before the threshold, a batch (its own request), then three
+    steps of 2 ms: loss 0.5 ms, backward 1 ms."""
+    out = [_s("train.step", 500, 900, None, 1), _s("train.batch", 1_500, 1_600, None, 2)]
+    for i, t0 in enumerate((2_000, 5_000, 8_000)):
+        root = 10 + i
+        out += [_s("train.step", t0, t0 + 2_000_000, None, root),
+                _s("train.loss", t0 + 1, t0 + 500_001, "train.step", root),
+                _s("train.backward", t0 + 500_001, t0 + 1_500_001, "train.step", root),
+                _s("train.update", t0 + 1_500_001, t0 + 1_999_000, "train.step", root)]
+    return out
+
+
+READS = {
+    # (metric, spans, work, steps): value
+    ("sample.step_host_us", "sampler", 2, 4): 0.02,
+    ("sample.step_host_us", "decode", 3, 3): 0.06,
+    ("sample.call_host_ms", "sampler", 2, 4): 2e-4,
+    ("train.step_host_ms", "train", 3, 3): 2.0,
+    ("train.loss_host_ms", "train", 3, 3): 0.5,
+    ("train.backward_host_ms", "train", 3, 3): 1.0,
+}
+SPANS = {"sampler": _sampler_spans, "decode": _decode_spans, "train": _train_spans}
+
+
+@pytest.mark.parametrize("case", sorted(READS), ids=lambda c: f"{c[0]}-{c[1]}")
+def test_span_readers_read_the_device_only_window(case, monkeypatch):
+    metric, kind, work, steps = case
+    monkeypatch.setattr(profiling, "_spans", deque(SPANS[kind]()))
+    ctx = _ctx(work, steps)
+    assert read_metric(metric, ctx) == pytest.approx(READS[case])
+    assert len(profiling.peek_spans()) == len(SPANS[kind]())  # the readers do not drain
+    # a count that is not the window's reads nothing
+    ctx.steps += 1
+    ctx.work = ctx.work + [{}]
+    assert read_metric(metric, ctx) is None
+
+
+@pytest.mark.parametrize("metric", ["sample.step_host_us", "sample.call_host_ms",
+                                    "train.step_host_ms", "train.loss_host_ms",
+                                    "train.backward_host_ms"])
+def test_span_readers_read_nothing_without_spans(metric, monkeypatch):
+    monkeypatch.setattr(profiling, "_spans", deque())
+    ctx = _ctx(work=2, steps=4)
+    assert read_metric(metric, ctx) is None
+    monkeypatch.delattr(profiling, "peek_spans")  # a program without spans
+    assert read_metric(metric, ctx) is None
