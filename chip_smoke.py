@@ -1807,15 +1807,70 @@ def _gpt_card_vs_cpu(dev, system, cpu, ids):
     return dict(logits_max_abs_err=err, loss_rel_err=rel, tokens_equal=same)
 
 
+def decode_graph_check(system, batch_size: int, calls: int = 3) -> dict:
+    """`GPT.generate` with its decode step captured as one CUDA graph against
+    the same steps run eagerly (the graph path switched off), `calls` calls
+    of `batch_size` from seeds 0, 1, ...: identical tokens call by call; K2's
+    key-mask form counted n_layer x (seq_len - 1) a call on both paths (a
+    replay adds the captured step's launches); one capture over the calls.
+    Prints each call's wall, synchronised, graph beside eager (the graph's
+    first call captures)."""
+    from unittest import mock
+
+    from multimodal_flows_tpu_torch.train import gpt as gpt_train
+
+    steps = system.module.seq_len - 1
+    n_layer = system.config.n_layer
+
+    def run():
+        out = []
+        for seed in range(calls):
+            gen = torch.Generator(device=system.device).manual_seed(seed)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tokens = system.generate(batch_size, gen, temperature=1.0, top_k=None)
+            torch.cuda.synchronize()
+            out.append((tokens.cpu(), time.perf_counter() - t0))
+        return out, profiling.take_counters()
+
+    profiling.take_counters()
+    graph, graph_counts = run()
+    with mock.patch.object(gpt_train, "_graphable", return_value=False):
+        eager, eager_counts = run()
+    n = calls * steps
+    equal = [torch.equal(a, b) for (a, _), (b, _) in zip(graph, eager)]
+    checks = {
+        "graph and eager tokens identical, every call": all(equal),
+        f"K2 key-mask {n_layer} x {steps} a call through the replays":
+            {f: graph_counts[f"k2.{f}"] for f in k2.LAUNCHES} == _only("key_mask", n_layer * n),
+        f"K2 key-mask {n_layer} x {steps} a call eagerly":
+            {f: eager_counts[f"k2.{f}"] for f in k2.LAUNCHES} == _only("key_mask", n_layer * n),
+        f"one capture over {calls} calls, {n - 1} replays after one eager step":
+            (graph_counts["gpt_decode.captures"], graph_counts["gpt_decode.graph_steps"],
+             graph_counts["gpt_decode.eager_steps"]) == (1, n - 1, 1),
+        f"eagerly: {n} eager steps, no replay, no capture":
+            (eager_counts["gpt_decode.captures"], eager_counts["gpt_decode.graph_steps"],
+             eager_counts["gpt_decode.eager_steps"]) == (0, 0, n),
+    }
+    walls = {"graph_s": [round(w, 4) for _, w in graph], "eager_s": [round(w, 4) for _, w in eager]}
+    print(f"GPT decode as one CUDA graph vs eager, batch {batch_size}, {calls} calls of {steps} "
+          f"steps: wall a call graph {walls['graph_s']} s, eager {walls['eager_s']} s; tokens "
+          f"equal by call {equal}; checks {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"GPT decode graph failed {checks}")
+    return walls
+
+
 def gpt_phase(dev, out_dir):
     """The GPT baseline at the training CLI's defaults with `--system GPT`:
     the decode against the full forward on the card, the card against the
     CPU, the training entry point's compute half (K2's causal form exactly 5
     launches a forward, nothing else), 30 steps on a fixed batch, the step's
     time, then the sampling entry point's GPT compute half on the
-    checkpoint (K2's key-mask form exactly 5 x 151 launches a batch) and the
-    decode step's time.  Returns the launch counts of both halves and the
-    phase's numbers."""
+    checkpoint (K2's key-mask form exactly 5 x 151 launches a batch), the
+    decode step captured as a CUDA graph against its eager run
+    (`decode_graph_check`) and the decode step's time.  Returns the launch
+    counts of both halves and the phase's numbers."""
     from multimodal_flows_tpu_torch.models.gpt import FlavorSeqGPT
     from multimodal_flows_tpu_torch.train.gpt import GPT
 
@@ -1964,21 +2019,30 @@ def gpt_phase(dev, out_dir):
         raise AssertionError(f"GPT sampling entry point failed {checks}")
     numbers.update(sample_s=sample_s, generate_s=gen_s, sampled_jets_per_s=sampled_jets_per_s)
 
+    numbers["decode_graph"] = decode_graph_check(
+        build_system(cfg, "GPT", device=dev, generator=torch.Generator().manual_seed(0)),
+        cfg.batch_size)
+
     # the decode step: one batch's generation under the profiler
     system = build_system(cfg, "GPT", device=dev, generator=torch.Generator().manual_seed(0))
     gen = torch.Generator(device=dev).manual_seed(1)
     system.generate(cfg.batch_size, gen)  # warm-up
     prof = profiling.profile_steps(lambda i: system.generate(cfg.batch_size, gen), 1)
-    step = dict(wall_ms=prof.wall_ms / decode_steps, device_ms=prof.device_ms / decode_steps,
+    # the device time from the kernels themselves: a graph's kernels hang
+    # under no host op, so `prof.device_ms` (the host ops' totals) misses them
+    step = dict(wall_ms=prof.wall_ms / decode_steps,
+                device_ms=sum(ms for _, ms, _ in prof.kernels) / decode_steps,
                 launches=prof.launches / decode_steps,
                 attention_ms=prof.kernel_ms("attention_kernel") / decode_steps)
     step["busy_share"] = _share(step["device_ms"], step["wall_ms"])
     print(f"GPT decode step (batch {cfg.batch_size}, torch.profiler over one batch's "
           f"{decode_steps} steps): wall {step['wall_ms']:.3f} ms, device {step['device_ms']:.3f} "
-          f"ms (busy share {step['busy_share']:.3f}), {step['launches']:.1f} cudaLaunchKernel, "
+          f"ms (busy share {step['busy_share']:.3f}), {step['launches']:.1f} cudaLaunchKernel "
+          f"(a graph replay launches none), "
           f"K2 {step['attention_ms']:.4f} ms a step")
     for name, ms, count in prof.kernels[:10]:
-        print(f"  {ms / decode_steps:8.4f} ms/step {_share(ms, prof.device_ms):6.3f}  "
+        ms /= decode_steps
+        print(f"  {ms:8.4f} ms/step {_share(ms, step['device_ms']):6.3f}  "
               f"{count / decode_steps:6.1f}/step  {name[:100]}")
     numbers["decode_step"] = step
     return train_launches, sample_launches, numbers

@@ -22,12 +22,14 @@ nothing changes and the kernels run.  `attn_dropout` defaults to `dropout`
 (the set encoders); the GPT baseline sets the two apart.  The masks come
 from `dropout_generator` (`models.blocks.set_dropout_generator`).
 
-KV-cache decode (`kv_cache=(k_cache, v_cache, pos)`, the GPT baseline's
-generation): x is the one token at position `pos`; its k and v are written
-into the preallocated (B, seq_len, C) caches in place (the JAX package
-returns updated copies; the port saves the copies) and its query attends to
-the cached positions <= pos under an additive (B, seq_len) key mask.  The
-call returns (y, (k_cache, v_cache, pos)).
+KV-cache decode (`kv_cache=(k_cache, v_cache, pos, key_mask)`, the GPT
+baseline's generation): x is the one token at position `pos`, a (1,) int64
+tensor on the device; its k and v are written into the preallocated
+(B, seq_len, C) caches in place at that index (the JAX package returns
+updated copies; the port saves the copies) and its query attends to the
+cached positions <= pos under the additive (B, seq_len) causal key mask,
+which `FlavorSeqGPT.decode` builds once a step for every layer.  The call
+returns (y, kv_cache).
 
 Compute dtype (`dtype`, the encoders' `Config.compute_dtype`): `c_attn`,
 `c_query`, `c_proj`, the qk-LayerNorm and the MLP compute in it
@@ -110,15 +112,11 @@ class SelfAttention(nn.Module):
             q = self.q_layernorm(q.reshape(B, T, H, hs)).reshape(B, T, C)
             k = self.k_layernorm(k.reshape(B, T, H, hs)).reshape(B, T, C)
         if kv_cache is not None:
-            k_cache, v_cache, pos = kv_cache
-            k_cache[:, pos:pos + T] = k
-            v_cache[:, pos:pos + T] = v
-            # causal: only the cached positions <= pos are keys
-            Tc = k_cache.shape[1]
-            causal = torch.where(torch.arange(Tc, device=x.device) <= pos, 0.0, -1e9)
-            y = multihead_attention_btc(q.contiguous(), k_cache, v_cache, H, None,
-                                        causal.expand(B, Tc).contiguous())
-            return self.c_proj(y), (k_cache, v_cache, pos)
+            k_cache, v_cache, pos, causal = kv_cache
+            k_cache.index_copy_(1, pos, k)
+            v_cache.index_copy_(1, pos, v)
+            y = multihead_attention_btc(q.contiguous(), k_cache, v_cache, H, None, causal)
+            return self.c_proj(y), kv_cache
         rate = self.attn_dropout if self.training else 0.0
         y = multihead_attention_btc(q.contiguous(), k.contiguous(), v.contiguous(), H,
                                     attn_bias, key_mask, dropout_rate=rate,

@@ -80,12 +80,18 @@ class FlavorSeqGPT(nn.Module):
         return [(torch.zeros(shape, device=device), torch.zeros(shape, device=device))
                 for _ in range(self.config.n_layer)]
 
-    def decode(self, token: Tensor, pos: int, caches):
-        """One autoregressive step: token (B,) at position `pos`; returns
-        (logits (B, V + 4), caches), the caches written in place at `pos`."""
-        h = self.wte(token[:, None]) + self.wpe.weight[pos][None, None, :]
-        new_caches = []
+    def decode(self, token: Tensor, pos, caches):
+        """One autoregressive step: token (B,) at position `pos`, an int or a
+        0-d integer tensor on the module's device (read on the device, so a
+        captured step needs nothing from the host); returns (logits (B, V + 4),
+        caches), the caches written in place at `pos`.  The causal key mask
+        over the cache, 0.0 at the positions <= pos and -1e9 past them, is
+        built once here for every layer."""
+        device = self.wpe.weight.device
+        pos = torch.as_tensor(pos, dtype=torch.long, device=device).reshape(1)
+        B, Tc = token.shape[0], self.seq_len
+        key_mask = torch.where((torch.arange(Tc, device=device) <= pos).expand(B, Tc), 0.0, -1e9)
+        h = self.wte(token[:, None]) + self.wpe.weight.index_select(0, pos)[None]
         for block, (kc, vc) in zip(self.blocks, caches):
-            h, (kc, vc, _) = block(h, kv_cache=(kc, vc, pos))
-            new_caches.append((kc, vc))
-        return self.lm_head(self.ln_f(h))[:, 0], new_caches
+            h, _ = block(h, kv_cache=(kc, vc, pos, key_mask))
+        return self.lm_head(self.ln_f(h))[:, 0], caches

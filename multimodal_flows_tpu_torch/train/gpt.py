@@ -3,7 +3,9 @@
 
 Next-token cross-entropy with PAD targets ignored, and autoregressive
 sampling with temperature and top-k through the KV-cached decode: one
-token a step for `seq_len - 1` steps, K2 carrying the attention on CUDA.
+token a step for `seq_len - 1` steps, K2 carrying the attention on CUDA,
+where the whole step is captured once as a CUDA graph and replayed (the
+position a device scalar, so a replay needs nothing from the host).
 The draw at each step is argmax(logits + Gumbel noise), which is what
 `jax.random.categorical` computes; the noise comes from an explicit
 `torch.Generator`, or is injected (`gumbel=`) so that a test can share it
@@ -23,10 +25,20 @@ from torch import nn
 from multimodal_flows_tpu_torch.config import Config
 from multimodal_flows_tpu_torch.data.state import DataCoupling
 from multimodal_flows_tpu_torch.models.gpt import FlavorSeqGPT
+from multimodal_flows_tpu_torch.ops import btc_attention, set_attention
 from multimodal_flows_tpu_torch.train.systems import _device, _dropout_mode, _placed, _rank_total
 from multimodal_flows_tpu_torch.utils.profiling import span, spanned
 
 Tensor = torch.Tensor
+
+
+#: GPT decode steps by how they ran, and the CUDA graphs captured of a
+#: step (`profiling.take_counters()` reads them as `gpt_decode.<key>`)
+DECODE_STEPS = {"graph_steps": 0, "eager_steps": 0, "captures": 0}
+#: the kernels' launch counters, which count on the host: a graph's launch
+#: adds the counts of the step it replays
+_KERNEL_COUNTERS = (btc_attention.LAUNCHES, btc_attention.LAUNCHES_BF16,
+                    set_attention.LAUNCHES, set_attention.LAUNCHES_BF16)
 
 
 def gumbel_noise(generator: Optional[torch.Generator], shape, device) -> Tensor:
@@ -51,6 +63,8 @@ class GPT:
         self.start_token = config.vocab_size + 1
         self.end_token = config.vocab_size + 2
         self.pad_token = config.vocab_size + 3
+        # generation's static buffers and CUDA graphs, by `decode_graph_key`
+        self._decode_loops: Dict[tuple, "_DecodeLoop"] = {}
 
     # ----------------------------------------------------------------- loss
 
@@ -98,7 +112,15 @@ class GPT:
         `top_k` largest logits and draws argmax(logits + Gumbel).  The noise
         (seq_len - 1, B, V + 4) is `gumbel` when given, else drawn from
         `generator` on the system's device.  Sequences that have emitted
-        EOS emit PAD."""
+        EOS emit PAD.
+
+        The steps run on static buffers with the position a device scalar
+        (`_DecodeLoop`).  On CUDA, in eval mode, without tensor parallelism
+        and outside another capture, the first call for a key
+        (`decode_graph_key`) runs its first step eagerly on a side stream,
+        captures the second as a CUDA graph and replays it for the rest;
+        later calls replay it at every step.  Elsewhere every step runs
+        eagerly, the same code."""
         cfg = self.config
         module = module or self.module
         T, V = module.seq_len, module.full_vocab
@@ -110,26 +132,20 @@ class GPT:
             gumbel = gumbel_noise(generator, (T - 1, batch_size, V), self.device)
         elif gumbel.shape != (T - 1, batch_size, V):
             raise ValueError(f"gumbel must be {(T - 1, batch_size, V)}, got {tuple(gumbel.shape)}")
-        gumbel = gumbel.to(self.device, torch.float32)
 
-        caches = module.init_cache(batch_size)
-        tokens = torch.empty((batch_size, T), dtype=torch.int32, device=self.device)
-        tokens[:, 0] = self.start_token
-        prev = tokens[:, 0]
-        done = torch.zeros(batch_size, dtype=torch.bool, device=self.device)
-        for t in range(T - 1):
+        if _graphable(module, self.device):
+            key = decode_graph_key(module, batch_size, temperature, top_k, self.device)
+            loop = self._decode_loops.get(key)
+            if loop is None:
+                loop = self._decode_loops[key] = _DecodeLoop(self, module, batch_size,
+                                                             temperature, top_k, capture=True)
+        else:
+            loop = _DecodeLoop(self, module, batch_size, temperature, top_k, capture=False)
+        loop.reset(gumbel)
+        for _ in range(T - 1):
             with span("gpt.decode_step"):
-                logits, caches = module.decode(prev, t, caches)
-                logits = logits.to(torch.float32) / float(temperature)
-                if top_k is not None:
-                    thresh = torch.topk(logits, top_k, dim=-1).values[:, -1:]
-                    logits = torch.where(logits >= thresh, logits, -1e9)
-                nxt = torch.argmax(logits + gumbel[t], dim=-1).to(torch.int32)
-                nxt = torch.where(done, self.pad_token, nxt)
-                done = done | (nxt == self.end_token)
-                tokens[:, t + 1] = nxt
-                prev = nxt
-        return tokens
+                loop.run_step()
+        return loop.tokens.clone()
 
     def sample_jets(self, batch_size: int, generator: Optional[torch.Generator] = None,
                     temperature=None, top_k: Optional[int] = None) -> np.ndarray:
@@ -145,3 +161,106 @@ class GPT:
     def example_state(self, batch_size: int = 2) -> Tensor:
         return torch.zeros((batch_size, self.module.seq_len), dtype=torch.int32,
                            device=self.device)
+
+
+def decode_graph_key(module: nn.Module, batch_size: int, temperature: float,
+                     top_k: Optional[int], device: torch.device) -> tuple:
+    """What a captured decode step bakes in: the batch size, the
+    temperature, `top_k`, the module (by identity and by where its
+    parameters live; their values are read at each replay) and the device."""
+    return (batch_size, float(temperature), top_k, id(module),
+            tuple(p.data_ptr() for p in module.parameters()), device)
+
+
+def _graphable(module: nn.Module, device: torch.device) -> bool:
+    """A decode step captures on CUDA, in eval mode (no dropout draws), with
+    no collective inside it (no tensor-parallel group) and outside any
+    capture already running."""
+    return (device.type == "cuda" and not module.training
+            and all(block.attn.tp_group is None for block in module.blocks)
+            and not torch.cuda.is_current_stream_capturing())
+
+
+class _DecodeLoop:
+    """One key's generation: static buffers (the KV caches, the noise, the
+    tokens, the previous token, the done flags and the position, a 0-d
+    int64 tensor) that `step` reads and advances in place, and with
+    `capture` the step captured as a CUDA graph on its first call."""
+
+    def __init__(self, system: GPT, module: nn.Module, batch_size: int, temperature: float,
+                 top_k: Optional[int], capture: bool):
+        dev = system.device
+        T, V = module.seq_len, module.full_vocab
+        self.module, self.temperature, self.top_k = module, float(temperature), top_k
+        self.start, self.end, self.pad = system.start_token, system.end_token, system.pad_token
+        self.caches = module.init_cache(batch_size)
+        self.noise = torch.empty((T - 1, batch_size, V), device=dev)
+        self.tokens = torch.empty((batch_size, T), dtype=torch.int32, device=dev)
+        self.prev = torch.empty(batch_size, dtype=torch.int32, device=dev)
+        self.done = torch.empty(batch_size, dtype=torch.bool, device=dev)
+        self.pos = torch.zeros((), dtype=torch.long, device=dev)
+        self.capture = capture
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.launches: list = []   # the kernels' counts a replay adds
+
+    def reset(self, gumbel: Tensor) -> None:
+        """A call's start: its noise, empty caches, BOS, position 0."""
+        self.noise.copy_(gumbel)
+        for k, v in self.caches:
+            k.zero_()
+            v.zero_()
+        self.tokens[:, 0] = self.start
+        self.prev.fill_(self.start)
+        self.done.zero_()
+        self.pos.zero_()
+
+    def step(self) -> None:
+        """Decode at the position, draw, write the token after it and
+        advance; the host reads nothing."""
+        logits, _ = self.module.decode(self.prev, self.pos, self.caches)
+        logits = logits.to(torch.float32) / self.temperature
+        if self.top_k is not None:
+            thresh = torch.topk(logits, self.top_k, dim=-1).values[:, -1:]
+            logits = torch.where(logits >= thresh, logits, -1e9)
+        gumbel = self.noise.index_select(0, self.pos.reshape(1))[0]
+        nxt = torch.argmax(logits + gumbel, dim=-1).to(torch.int32)
+        nxt = torch.where(self.done, self.pad, nxt)
+        self.done |= nxt == self.end
+        self.pos += 1
+        self.tokens.index_copy_(1, self.pos.reshape(1), nxt[:, None])
+        self.prev.copy_(nxt)
+
+    def run_step(self) -> None:
+        """One step: a replay of the graph, or the step run eagerly (on a
+        side stream followed by the capture, the first time a graph is due)."""
+        if self.graph is not None:
+            self.graph.replay()
+            for store, counts in self.launches:
+                for form, n in counts.items():
+                    store[form] += n
+            DECODE_STEPS["graph_steps"] += 1
+            return
+        DECODE_STEPS["eager_steps"] += 1
+        if not self.capture:
+            self.step()
+            return
+        # warm up on the stream the capture uses (the kernels' attributes,
+        # cuBLAS's workspace), then capture; the capture runs nothing, so
+        # the launches it counted are taken back
+        side = torch.cuda.Stream(self.pos.device)
+        side.wait_stream(torch.cuda.current_stream(self.pos.device))
+        with torch.cuda.stream(side):
+            self.step()
+        before = [dict(store) for store in _KERNEL_COUNTERS]
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            self.step()
+        self.launches = []
+        for store, was in zip(_KERNEL_COUNTERS, before):
+            counts = {form: store[form] - was[form] for form in store if store[form] != was[form]}
+            if counts:
+                self.launches.append((store, counts))
+            store.update(was)
+        torch.cuda.current_stream(self.pos.device).wait_stream(side)
+        self.graph = graph
+        DECODE_STEPS["captures"] += 1

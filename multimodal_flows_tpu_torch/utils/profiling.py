@@ -8,7 +8,9 @@ counters.
   range of the same name; a shared no-op when tracing is off;
 - `take_spans()` / `peek_spans()`: the buffered spans, emptied or not;
   `requests(spans, root)`: the spans grouped by request;
-- `take_counters()`: every counter of the port by dotted name, zeroed;
+- `take_counters()`: every counter of the port by dotted name, zeroed
+  (the kernels' launches by form, the GPT decode's steps by graph replay or
+  eager run and its graph captures, ...);
 - `trace(logdir)`: a `torch.profiler` trace of the block, written as a
   Chrome trace into `logdir` (a no-op for None);
 - `force_completion(tree)`: waits for the device and returns the sum of
@@ -176,15 +178,17 @@ def requests(spans: Sequence[Span], root: str, after_ns: int = 0) -> List[List[S
 
 def take_counters() -> Dict[str, int]:
     """Every counter of the port by dotted name (`k1.segments`,
-    `k2_bf16.bias`, `attn.plain_dropout.head_major`, `spans.dropped`, ...),
-    each set to zero.  The kernels' counters live in their modules'
-    dicts."""
+    `k2_bf16.bias`, `attn.plain_dropout.head_major`,
+    `gpt_decode.graph_steps`, `spans.dropped`, ...), each set to zero.  The
+    counters live in their modules' dicts."""
     global _dropped
     from multimodal_flows_tpu_torch.ops import attention, btc_attention, set_attention
+    from multimodal_flows_tpu_torch.train import gpt
 
     stores = {"k1": btc_attention.LAUNCHES, "k1_bf16": btc_attention.LAUNCHES_BF16,
               "k2": set_attention.LAUNCHES, "k2_bf16": set_attention.LAUNCHES_BF16,
-              "attn.plain_dropout": attention.PLAIN_DROPOUT_CALLS}
+              "attn.plain_dropout": attention.PLAIN_DROPOUT_CALLS,
+              "gpt_decode": gpt.DECODE_STEPS}
     out = {}
     for prefix, store in stores.items():
         for key in store:

@@ -138,6 +138,31 @@ def test_gpt_decode_is_not_causal_form(monkeypatch):
         torch.testing.assert_close(call["key_mask"], expect.expand(2, -1), rtol=0, atol=0)
 
 
+def test_gpt_decode_builds_one_key_mask_a_step(monkeypatch):
+    """A decode step builds the causal key mask once and hands every layer
+    that one tensor: contiguous (B, seq_len) fp32, 0 where arange <= pos and
+    -1e9 elsewhere, as each layer built it before; a 0-d tensor position
+    gives the same mask as an int."""
+    calls = _record(monkeypatch)
+    torch.manual_seed(0)
+    cfg = Config(vocab_size=9, max_seq_length=14, n_embd=32, n_inner=64, n_layer=5, n_head=H)
+    model = FlavorSeqGPT(cfg).eval()
+    caches = model.init_cache(3)
+    token = torch.tensor([3, 5, 7])
+    positions = [0, torch.tensor(1), 2, torch.tensor(15)]
+    with torch.no_grad():
+        for pos in positions:
+            _, caches = model.decode(token, pos, caches)
+    assert len(calls) == len(positions) * cfg.n_layer
+    for i, pos in enumerate(positions):
+        step = calls[i * cfg.n_layer:(i + 1) * cfg.n_layer]
+        mask = step[0]["key_mask"]
+        assert all(call["key_mask"] is mask for call in step)
+        expect = torch.where(torch.arange(model.seq_len) <= int(pos), 0.0, -1e9)
+        assert mask.dtype == torch.float32 and mask.is_contiguous()
+        torch.testing.assert_close(mask, expect.expand(3, -1), rtol=0, atol=0)
+
+
 def test_causal_form_refuses_what_it_does_not_take():
     """Tq != Tk, a bias, segments and bf16 are refused before the device is
     looked at (these are CPU tensors)."""

@@ -29,7 +29,8 @@ from multimodal_flows_tpu_torch.data.datasets import jet_set_to_seq
 from multimodal_flows_tpu_torch.data.state import DataCoupling, MultiModal
 from multimodal_flows_tpu_torch.models import blocks
 from multimodal_flows_tpu_torch.ops import attention
-from multimodal_flows_tpu_torch.train.gpt import GPT
+from multimodal_flows_tpu_torch.train import gpt as gpt_train
+from multimodal_flows_tpu_torch.train.gpt import GPT, gumbel_noise
 from multimodal_flows_tpu_torch.train.systems import build_system
 from multimodal_flows_tpu_torch.utils import profiling
 from multimodal_flows_tpu_torch.utils.progress import EpochProgress
@@ -137,6 +138,114 @@ def test_decode_matches_jax_decode_and_the_full_forward():
     for (k, v), (jk, jv) in zip(caches, jcaches):
         np.testing.assert_allclose(k.numpy(), np.asarray(jk), atol=ATOL)
         np.testing.assert_allclose(v.numpy(), np.asarray(jv), atol=ATOL)
+
+
+def test_decode_at_a_device_position_equals_an_int_position():
+    """`decode` with the position as a 0-d int64 tensor gives the logits
+    and the caches of an int position, bit for bit, at every position."""
+    _, _, system = _pair(seed=4, activation="gelu_new")
+    ids = torch.from_numpy(_sequences(B=4, seed=5).discrete)
+    by_int, by_tensor = system.module.init_cache(4), system.module.init_cache(4)
+    with torch.no_grad():
+        for t in range(ids.shape[1]):
+            a, by_int = system.module.decode(ids[:, t], t, by_int)
+            b, by_tensor = system.module.decode(ids[:, t], torch.tensor(t), by_tensor)
+            assert torch.equal(a, b), f"pos {t}"
+    for (ka, va), (kb, vb) in zip(by_int, by_tensor):
+        assert torch.equal(ka, kb) and torch.equal(va, vb)
+
+
+def _decode_before(module, token, pos, caches):
+    """The decode as the port wrote it before the position became a device
+    scalar: the position row by an int, the caches written through slices,
+    the causal key mask built again in each layer."""
+    h = module.wte(token[:, None]) + module.wpe.weight[pos][None, None, :]
+    for block, (kc, vc) in zip(module.blocks, caches):
+        attn, x = block.attn, block.ln1(h)
+        C = attn.n_head * attn.head_size
+        q, k, v = attn.c_attn(x).split(C, dim=-1)
+        kc[:, pos:pos + 1] = k
+        vc[:, pos:pos + 1] = v
+        Tc = kc.shape[1]
+        causal = torch.where(torch.arange(Tc) <= pos, 0.0, -1e9)
+        y = attention.multihead_attention_btc(q.contiguous(), kc, vc, attn.n_head, None,
+                                              causal.expand(len(token), Tc).contiguous())
+        h = h + attn.c_proj(y)
+        h = h + block.ffw(block.ln2(h))
+    return module.lm_head(module.ln_f(h))[:, 0]
+
+
+def _generate_before(system, B, gumbel, temperature, top_k):
+    """`GPT.generate`'s loop before the static buffers: a Python position,
+    fresh caches, the noise indexed by the host."""
+    module = system.module
+    T = module.seq_len
+    caches = module.init_cache(B)
+    tokens = torch.empty((B, T), dtype=torch.int32)
+    tokens[:, 0] = system.start_token
+    prev = tokens[:, 0]
+    done = torch.zeros(B, dtype=torch.bool)
+    for t in range(T - 1):
+        logits = _decode_before(module, prev, t, caches).to(torch.float32) / float(temperature)
+        if top_k is not None:
+            thresh = torch.topk(logits, top_k, dim=-1).values[:, -1:]
+            logits = torch.where(logits >= thresh, logits, -1e9)
+        nxt = torch.argmax(logits + gumbel[t], dim=-1).to(torch.int32)
+        nxt = torch.where(done, system.pad_token, nxt)
+        done = done | (nxt == system.end_token)
+        tokens[:, t + 1] = nxt
+        prev = nxt
+    return tokens
+
+
+@pytest.mark.parametrize("top_k,injected", [(None, False), (4, False), (None, True)],
+                         ids=["no_top_k", "top_k", "injected_gumbel"])
+def test_generate_equals_the_loop_before_device_positions(top_k, injected):
+    """The static-buffer step with a device position draws the tokens the
+    per-step Python loop drew on the same noise: from one seed's generator,
+    with and without top-k, and with `gumbel=` injected."""
+    _, _, system = _pair(seed=20)
+    B, T = 24, system.module.seq_len
+    noise = gumbel_noise(torch.Generator().manual_seed(7), (T - 1, B, V + 4), "cpu")
+    with torch.no_grad():
+        ref = _generate_before(system, B, noise, 1.3, top_k)
+    if injected:
+        out = system.generate(B, temperature=1.3, top_k=top_k, gumbel=noise)
+    else:
+        out = system.generate(B, torch.Generator().manual_seed(7), temperature=1.3, top_k=top_k)
+    assert out.dtype == torch.int32
+    torch.testing.assert_close(out, ref, rtol=0, atol=0)
+    assert (ref == system.end_token).any() and (ref == system.pad_token).any()
+
+
+def test_generate_runs_eagerly_on_the_cpu_and_counts_its_steps():
+    """Off CUDA every decode step runs eagerly: `take_counters()` reports
+    (seq_len - 1) eager steps a call, no graph step and no capture."""
+    _, _, system = _pair(seed=21)
+    profiling.take_counters()
+    for s in range(3):
+        system.generate(5, torch.Generator().manual_seed(s))
+    got = profiling.take_counters()
+    assert got["gpt_decode.eager_steps"] == 3 * (system.module.seq_len - 1)
+    assert got["gpt_decode.graph_steps"] == 0 and got["gpt_decode.captures"] == 0
+    assert not gpt_train._graphable(system.module, system.device)
+    assert system._decode_loops == {}
+
+
+def test_decode_graph_key_tells_the_captured_steps_apart():
+    """A key for each batch size, temperature, top-k, module (and where its
+    parameters live) and device; the same arguments give the same key."""
+    _, _, system = _pair(seed=22)
+    module, cpu = system.module, torch.device("cpu")
+    key = gpt_train.decode_graph_key(module, 8, 1.0, None, cpu)
+    assert key == gpt_train.decode_graph_key(module, 8, 1, None, cpu)
+    other = GPT(Config(**SMALL), device="cpu").module
+    moved = [(9, 1.0, None, module), (8, 0.8, None, module), (8, 1.0, 5, module),
+             (8, 1.0, None, other)]
+    keys = {gpt_train.decode_graph_key(m, b, temp, k, cpu) for b, temp, k, m in moved}
+    assert len(keys) == len(moved) and key not in keys
+    module.wpe.weight.data = module.wpe.weight.data.clone()
+    assert gpt_train.decode_graph_key(module, 8, 1.0, None, cpu) != key
 
 
 def test_loss_matches_jax():

@@ -24,6 +24,7 @@ from multimodal_flows_tpu_torch.ops import attention
 from multimodal_flows_tpu_torch.ops import btc_attention as k1
 from multimodal_flows_tpu_torch.ops import set_attention as k2
 from multimodal_flows_tpu_torch.sampling import generator as gen_mod
+from multimodal_flows_tpu_torch.train import gpt as gpt_train
 from multimodal_flows_tpu_torch.train import systems
 from multimodal_flows_tpu_torch.train.gpt import GPT
 from multimodal_flows_tpu_torch.train.trainer import Trainer
@@ -166,17 +167,19 @@ def test_take_counters_reads_and_zeroes_every_counter():
     k2.LAUNCHES["causal"] += 5
     k2.LAUNCHES_BF16["bias"] += 2
     attention.PLAIN_DROPOUT_CALLS["head_major"] += 4
+    gpt_train.DECODE_STEPS["graph_steps"] += 6
     got = profiling.take_counters()
     expect = ({f"k1.{f}" for f in k1.LAUNCHES} | {f"k1_bf16.{f}" for f in k1.LAUNCHES_BF16}
               | {f"k2.{f}" for f in k2.LAUNCHES} | {f"k2_bf16.{f}" for f in k2.LAUNCHES_BF16}
               | {f"attn.plain_dropout.{f}" for f in attention.PLAIN_DROPOUT_CALLS}
+              | {"gpt_decode.graph_steps", "gpt_decode.eager_steps", "gpt_decode.captures"}
               | {"spans.dropped"})
     assert set(got) == expect
     assert {k: v for k, v in got.items() if v} == {
         "k1.segments": 3, "k1_bf16.none": 1, "k2.causal": 5, "k2_bf16.bias": 2,
-        "attn.plain_dropout.head_major": 4}
+        "attn.plain_dropout.head_major": 4, "gpt_decode.graph_steps": 6}
     for store in (k1.LAUNCHES, k1.LAUNCHES_BF16, k2.LAUNCHES, k2.LAUNCHES_BF16,
-                  attention.PLAIN_DROPOUT_CALLS):
+                  attention.PLAIN_DROPOUT_CALLS, gpt_train.DECODE_STEPS):
         assert not any(store.values())
     assert not any(profiling.take_counters().values())
 
