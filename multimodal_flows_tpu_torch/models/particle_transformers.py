@@ -9,6 +9,11 @@
   KinFormer:      vt (B,D,Fc), optional lambda_u-gated Lund bias
                   (`use_pairwise`)
 
+`KinFormer._lund_bias` is the span `kinformer.lund_bias`, and while
+tracing is on (`utils/profiling.py`) it counts `LUND["pairs"]`, the pair
+rows fed through its pair MLP (B T T a forward, over all its chunks),
+and `LUND["forwards"]` (`take_counters()`: `lund.pairs`, `lund.forwards`).
+
 Module names mirror the flax parameter tree (`block_x_0`, `ln1_x`,
 `coocc/wue`, `lambda_u`, ...) so `convert.params_from_flax` is a rename.
 The pad mask enters as a compact key mask, as (B, T) segment ids on
@@ -48,8 +53,13 @@ from multimodal_flows_tpu_torch.models.blocks import (
     pair_mask_bias,
     time_token_embedding,
 )
+from multimodal_flows_tpu_torch.utils.profiling import spanned, tracing
 
 Tensor = torch.Tensor
+
+#: the Lund bias's counters while tracing is on: pair rows through the
+#: pair MLP and forwards (`take_counters()`: `lund.pairs`, `lund.forwards`)
+LUND = {"pairs": 0, "forwards": 0}
 
 
 class _EmbedMLP(nn.Module):
@@ -351,6 +361,7 @@ class KinFormer(nn.Module):
         self.head = _Head(cfg.n_embd, cfg.n_inner or 4 * cfg.n_embd, cfg.dim_continuous,
                           cfg.bias, dt)
 
+    @spanned("kinformer.lund_bias")
     def _lund_bias(self, state: MultiModal) -> Tensor:
         """lambda_u * pair-MLP(Lund observables), (B, H, D, D)."""
         cfg = self.config
@@ -361,13 +372,16 @@ class KinFormer(nn.Module):
         def stage1(u):
             return self.wue_ln(gelu(self.wue_fc(u)))
 
-        D = U.shape[1]
+        B, D = U.shape[0], U.shape[1]
         c = cfg.pair_chunk if cfg.pair_chunk and cfg.pair_chunk > 0 else D
         U = U.to(self.dtype)
         Ut = U.transpose(1, 2)
         outs = [self.wue_proj_out(gelu(self.wue_proj_fc(
                     0.5 * (stage1(U[:, a:a + c]) + stage1(Ut[:, a:a + c])))))
                 for a in range(0, D, c)]
+        if tracing():
+            LUND["pairs"] += B * D * D
+            LUND["forwards"] += 1
         u = torch.cat(outs, dim=1)                                     # (B, D, D, H)
         return self.lambda_u * u.permute(0, 3, 1, 2).to(torch.float32).contiguous()
 

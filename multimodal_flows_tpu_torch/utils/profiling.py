@@ -8,9 +8,12 @@ counters.
   range of the same name; a shared no-op when tracing is off;
 - `take_spans()` / `peek_spans()`: the buffered spans, emptied or not;
   `requests(spans, root)`: the spans grouped by request;
-- `take_counters()`: every counter of the port by dotted name, zeroed
-  (the kernels' launches by form, the GPT decode's steps by graph replay or
-  eager run and its graph captures, ...);
+- `take_counters()` / `peek_counters()`: every counter of the port by
+  dotted name, zeroed or not (the kernels' launches by form, the GPT
+  decode's steps by graph replay or eager run and its graph captures, the
+  Lund bias's pair rows and forwards, ...);
+- `tracing()`: whether spans are kept now (counters that only tracing
+  reads count while it is true);
 - `trace(logdir)`: a `torch.profiler` trace of the block, written as a
   Chrome trace into `logdir` (a no-op for None);
 - `force_completion(tree)`: waits for the device and returns the sum of
@@ -126,6 +129,12 @@ class _Span:
         return False
 
 
+def tracing() -> bool:
+    """Whether spans are kept: a profiler session is active, or
+    `record_spans(True)` was called."""
+    return _record or _autograd_profiler._is_profiler_enabled
+
+
 def span(name: str):
     """A context manager that records the block as the span `name` while
     tracing is on; otherwise the shared no-op (no allocation, no profiler
@@ -176,25 +185,36 @@ def requests(spans: Sequence[Span], root: str, after_ns: int = 0) -> List[List[S
     return [by_root[r] for _, r in tops]
 
 
-def take_counters() -> Dict[str, int]:
-    """Every counter of the port by dotted name (`k1.segments`,
-    `k2_bf16.bias`, `attn.plain_dropout.head_major`,
-    `gpt_decode.graph_steps`, `spans.dropped`, ...), each set to zero.  The
-    counters live in their modules' dicts."""
-    global _dropped
+def _counter_stores() -> Dict[str, Dict[str, int]]:
+    from multimodal_flows_tpu_torch.models import particle_transformers
     from multimodal_flows_tpu_torch.ops import attention, btc_attention, set_attention
     from multimodal_flows_tpu_torch.train import gpt
 
-    stores = {"k1": btc_attention.LAUNCHES, "k1_bf16": btc_attention.LAUNCHES_BF16,
-              "k2": set_attention.LAUNCHES, "k2_bf16": set_attention.LAUNCHES_BF16,
-              "attn.plain_dropout": attention.PLAIN_DROPOUT_CALLS,
-              "gpt_decode": gpt.DECODE_STEPS}
-    out = {}
-    for prefix, store in stores.items():
+    return {"k1": btc_attention.LAUNCHES, "k1_bf16": btc_attention.LAUNCHES_BF16,
+            "k2": set_attention.LAUNCHES, "k2_bf16": set_attention.LAUNCHES_BF16,
+            "attn.plain_dropout": attention.PLAIN_DROPOUT_CALLS,
+            "gpt_decode": gpt.DECODE_STEPS, "lund": particle_transformers.LUND}
+
+
+def peek_counters() -> Dict[str, int]:
+    """Every counter of the port by dotted name (`k1.segments`,
+    `k2_bf16.bias`, `attn.plain_dropout.head_major`,
+    `gpt_decode.graph_steps`, `lund.pairs`, `spans.dropped`, ...); the
+    counters keep their values.  They live in their modules' dicts."""
+    out = {f"{prefix}.{key}": value for prefix, store in _counter_stores().items()
+           for key, value in store.items()}
+    out["spans.dropped"] = _dropped
+    return out
+
+
+def take_counters() -> Dict[str, int]:
+    """`peek_counters()`, every counter then set to zero."""
+    global _dropped
+    out = peek_counters()
+    for store in _counter_stores().values():
         for key in store:
-            out[f"{prefix}.{key}"] = store[key]
             store[key] = 0
-    out["spans.dropped"], _dropped = _dropped, 0
+    _dropped = 0
     return out
 
 

@@ -20,6 +20,7 @@ from multimodal_flows_tpu_torch.config import Config
 from multimodal_flows_tpu_torch.data import packing
 from multimodal_flows_tpu_torch.data.datasets import ArrayDataset
 from multimodal_flows_tpu_torch.data.state import DataCoupling, MultiModal
+from multimodal_flows_tpu_torch.models import particle_transformers
 from multimodal_flows_tpu_torch.ops import attention
 from multimodal_flows_tpu_torch.ops import btc_attention as k1
 from multimodal_flows_tpu_torch.ops import set_attention as k2
@@ -168,18 +169,21 @@ def test_take_counters_reads_and_zeroes_every_counter():
     k2.LAUNCHES_BF16["bias"] += 2
     attention.PLAIN_DROPOUT_CALLS["head_major"] += 4
     gpt_train.DECODE_STEPS["graph_steps"] += 6
+    particle_transformers.LUND["pairs"] += 7
+    assert profiling.peek_counters() == profiling.peek_counters()  # peeking zeroes nothing
     got = profiling.take_counters()
     expect = ({f"k1.{f}" for f in k1.LAUNCHES} | {f"k1_bf16.{f}" for f in k1.LAUNCHES_BF16}
               | {f"k2.{f}" for f in k2.LAUNCHES} | {f"k2_bf16.{f}" for f in k2.LAUNCHES_BF16}
               | {f"attn.plain_dropout.{f}" for f in attention.PLAIN_DROPOUT_CALLS}
               | {"gpt_decode.graph_steps", "gpt_decode.eager_steps", "gpt_decode.captures"}
-              | {"spans.dropped"})
+              | {"lund.pairs", "lund.forwards"} | {"spans.dropped"})
     assert set(got) == expect
     assert {k: v for k, v in got.items() if v} == {
         "k1.segments": 3, "k1_bf16.none": 1, "k2.causal": 5, "k2_bf16.bias": 2,
-        "attn.plain_dropout.head_major": 4, "gpt_decode.graph_steps": 6}
+        "attn.plain_dropout.head_major": 4, "gpt_decode.graph_steps": 6, "lund.pairs": 7}
     for store in (k1.LAUNCHES, k1.LAUNCHES_BF16, k2.LAUNCHES, k2.LAUNCHES_BF16,
-                  attention.PLAIN_DROPOUT_CALLS, gpt_train.DECODE_STEPS):
+                  attention.PLAIN_DROPOUT_CALLS, gpt_train.DECODE_STEPS,
+                  particle_transformers.LUND):
         assert not any(store.values())
     assert not any(profiling.take_counters().values())
 
@@ -231,6 +235,63 @@ def test_gpt_generate_spans_each_decode_step(spans):
     assert top.name == "gpt.generate"
     assert _children(got, "gpt.generate") == ["gpt.decode_step"] * (system.module.seq_len - 1)
     assert {s.root for s in got} == {top.root}
+
+
+LUND_TINY = dict(TINY, model="KinFormer", use_pairwise=True, n_layer=2, pair_chunk=5,
+                 metadata={"mean": [21.0, 0.0, 0.0], "std": [20.0, 0.15, 0.15]})
+
+
+def _lund_system():
+    system = systems.CFM(Config(**LUND_TINY), device="cpu",
+                         generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        system.module.lambda_u.fill_(1.0)
+    return system
+
+
+def test_the_lund_bias_spans_one_forward_nested_in_each_solver_step(spans):
+    system = _lund_system()
+    mults = np.random.default_rng(2).integers(2, 11, size=30)
+    steps = 3
+    gen_mod.generate_packed(system, _pad_masks(mults, 20), num_timesteps=steps,
+                            pack_width=12, batch_size=8, seed=0)
+    got = spans()
+    solver_steps = [s for s in got if s.name == "solver.step"]
+    lund = [s for s in got if s.name == "kinformer.lund_bias"]
+    assert len(solver_steps) >= 2 * steps and len(lund) == len(solver_steps)
+    assert {s.parent for s in lund} == {"solver.step"}
+    for s in lund:
+        assert any(p.start_ns <= s.start_ns <= s.end_ns <= p.end_ns and p.root == s.root
+                   for p in solver_steps)
+    assert profiling.take_counters()["lund.forwards"] == len(lund)
+
+
+@pytest.mark.parametrize("B,T", [(3, 12), (2, 16), (1, 7)])
+def test_lund_pairs_count_every_pair_row_of_a_forward_across_chunks(spans, B, T):
+    """pair_chunk 5: rows of 12 and 7 end in a short chunk; 16 too."""
+    system = _lund_system()
+    mask = torch.ones(B, T, 1, dtype=torch.int32)
+    state = MultiModal(time=torch.full((B,), 0.5), continuous=torch.randn(B, T, 3), mask=mask)
+    profiling.take_counters()
+    with torch.no_grad():
+        system.module(state, torch.zeros(B, T, dtype=torch.int32))
+        system.module(state, torch.zeros(B, T, dtype=torch.int32))
+    got = profiling.take_counters()
+    assert (got["lund.pairs"], got["lund.forwards"]) == (2 * B * T * T, 2)
+    assert [s.name for s in spans()] == ["kinformer.lund_bias"] * 2
+
+
+def test_the_lund_bias_keeps_nothing_with_tracing_off():
+    profiling.take_spans()
+    profiling.take_counters()
+    system = _lund_system()
+    state = MultiModal(time=torch.full((2,), 0.5), continuous=torch.randn(2, 9, 3),
+                       mask=torch.ones(2, 9, 1, dtype=torch.int32))
+    with torch.no_grad():
+        system.module(state)
+    assert profiling.take_spans() == []
+    got = profiling.take_counters()
+    assert (got["lund.pairs"], got["lund.forwards"]) == (0, 0)
 
 
 def _packed_trainer(tmp_path, **kw):
@@ -378,3 +439,68 @@ def test_span_readers_read_nothing_without_spans(metric, monkeypatch):
     assert read_metric(metric, ctx) is None
     monkeypatch.delattr(profiling, "peek_spans")  # a program without spans
     assert read_metric(metric, ctx) is None
+
+
+# ---------------------------------------------- the readers of the pair bias
+
+def _lund_spans():
+    """One call before the threshold; two after, each of one batch of two
+    solver steps holding a `kinformer.lund_bias` of 4 and 8 ns."""
+    out = [_s("sample.call", 100, 900, None, 1),
+           _s("kinformer.lund_bias", 200, 300, "solver.step", 1)]
+    for root, t0 in ((2, 2_000), (3, 10_000)):
+        out += [_s("sample.call", t0, t0 + 5_000, None, root),
+                _s("sample.batch", t0 + 100, t0 + 900, "sample.call", root)]
+        for i, length in enumerate((4, 8)):
+            a = t0 + 200 + 100 * i
+            out += [_s("solver.step", a, a + 50, "sample.batch", root),
+                    _s("kinformer.lund_bias", a + 10, a + 10 + length, "solver.step", root)]
+    return out
+
+
+def test_lund_host_us_reads_the_device_only_window(monkeypatch):
+    monkeypatch.setattr(profiling, "_spans", deque(_lund_spans()))
+    ctx = _ctx(work=2, steps=4)
+    assert read_metric("sample.lund_host_us", ctx) == pytest.approx(0.006)
+    ctx.work = ctx.work + [{}]
+    assert read_metric("sample.lund_host_us", ctx) is None
+    monkeypatch.setattr(profiling, "_spans", deque(_sampler_spans()))  # no pair bias
+    assert read_metric("sample.lund_host_us", _ctx(work=2, steps=4)) is None
+
+
+def _record(mults, steps, lund):
+    m = np.asarray(mults)
+    return dict(count=steps, tokens=int(m.sum()), pairs=int((m ** 2).sum()), kv_tokens=0,
+                extra_bytes=0, lund=lund)
+
+
+def test_lund_pairs_per_real_divides_the_counters_by_the_real_pairs():
+    # rows of 8 slots: 2 forwards of 2 rows = 256 pair rows against 2 x 29
+    work = [_record([2, 5], 2, {"pairs": 256, "forwards": 2}),
+            _record([3], 2, {"pairs": 128, "forwards": 2})]
+    ctx = SimpleNamespace(work=work)
+    assert read_metric("sample.lund_pairs_per_real", ctx) == pytest.approx(384 / (2 * 29 + 2 * 9))
+    ctx.work = [dict(w, lund=None) for w in work]   # a program without the counters
+    assert read_metric("sample.lund_pairs_per_real", ctx) is None
+
+
+def test_lund_pairs_per_real_reads_nothing_from_an_empty_window():
+    assert read_metric("sample.lund_pairs_per_real", SimpleNamespace(work=[])) is None
+    # a window whose forwards fed no pair through the pair MLP
+    work = [_record([2, 5], 2, {"pairs": 0, "forwards": 0})]
+    assert read_metric("sample.lund_pairs_per_real", SimpleNamespace(work=work)) is None
+
+
+def test_lund_mfu_counts_the_pair_mlp_of_each_real_pair():
+    from bench_torch import counts
+    from bench_torch.reference import kinformer
+
+    cfg = dict(architecture="kinformer", n_embd=256, n_inner=512, n_layer=5, n_head=4,
+               dim_continuous=3, compute_dtype="float32")
+    assert kinformer.pair_flops(cfg) == 134_144
+    work = [_record([40, 30], 100, None)]
+    ctx = SimpleNamespace(cfg=cfg, plain_work=work, plain_wall=2.0)
+    flops = 100 * (counts.forward_flops(cfg, 70, 2_500) + 134_144 * 2_500)
+    assert read_metric("sample.lund_mfu", ctx) == pytest.approx(100 * flops / 2.0 / 495e12)
+    ctx.cfg = dict(cfg, architecture="particleformer")   # no pair term
+    assert read_metric("sample.lund_mfu", ctx) is None
