@@ -18,6 +18,12 @@
    ids, head-major Tq != Tk with an odd Dh), and compares the autograd
    gradients (K1's also at the packed training batch, K2's with the bias's
    gradient).
+   The Lund pair MLP kernel (`csrc/lund_pair_mlp.cu`, `lund_pair_mlp_phase`):
+   its build and HGMMA, each case of LUND_CASES against the plain version
+   and symmetric in (i, j), its launch counter, KinFormer's bias on it, its
+   refusal of widths and head counts it does not take, its
+   Function's gradient, and its time beside the plain version's and its
+   bound (no library call computes it).
 4. Times each kernel, its plain version and one PyTorch call of the same
    function (`scaled_dot_product_attention` with the equivalent float
    mask) at the packed-row shapes, C=128 and C=256, and K1 in its key-mask
@@ -35,7 +41,9 @@
      (the bucketed wide jets), K1 never;
    - MJB + FlavorFormer (pairwise, learned positions: bucketed) and
      CFM + KinFormer (Lund bias: packed rows) at the CLI's widths, with
-     lambda_u set nonzero, fewer jets and steps: K2 ran.
+     lambda_u set nonzero, fewer jets and steps: K2 ran; the KinFormer run
+     traced, each of its forwards ran the Lund pair MLP kernel, none the
+     plain version.
    Each path's output must be well formed; both MMF samplers must agree
    with the CPU sampler (plain attention) for 8 steps on shared uniforms.
 6. Training, on 2048 synthetic jets of that multiplicity plus 8 of
@@ -177,6 +185,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch import nn
 
 from multimodal_flows_tpu_torch.cli import sample_mmf, toy_tutorial, train_mmf
 from multimodal_flows_tpu_torch.config import Config
@@ -192,6 +201,7 @@ from multimodal_flows_tpu_torch.models.blocks import pair_mask_bias
 from multimodal_flows_tpu_torch.ops import attention
 from multimodal_flows_tpu_torch.ops import btc_attention as k1
 from multimodal_flows_tpu_torch.ops import cuda_build
+from multimodal_flows_tpu_torch.ops import lund_pair_mlp as lpm
 from multimodal_flows_tpu_torch.ops import set_attention as k2
 from multimodal_flows_tpu_torch.ops.attention import attention_btc_reference, attention_reference
 from multimodal_flows_tpu_torch.parallel import tensor_parallel as tpar
@@ -747,6 +757,206 @@ def time_gpt_attention(dev):
     return result
 
 
+# ------------------------------------------------------- Lund pair MLP
+
+#: (B, D, C, H, U) of the Lund pair MLP's checks: the Lund cell's packed
+#: batches (128 and 80 rows of 128, U of packed jets), the bucketed width
+#: 150, small D and the other head counts the kernel takes (U random, so
+#: the two orientations differ)
+LUND_CASES = [(128, 128, 256, 4, "jets"), (80, 128, 256, 4, "jets"),
+              (8, 150, 256, 4, "random"), (3, 5, 256, 4, "random"), (2, 9, 256, 3, "random"),
+              (4, 33, 256, 2, "random"), (4, 17, 256, 1, "random")]
+#: the kernel's 3xTF32 C x C product and its own sums against the plain
+#: version's fp32 GEMMs: about 1e-6 on a bias of order one
+LUND_ATOL, LUND_RTOL = 2e-5, 1e-5
+#: the Lund cell's destandardisation (bench_torch/configs/cfm-kinformer-lund.json)
+LUND_METADATA = {"mean": [21.016593877194147, 9.910235204337828e-05, 1.9272257871336627e-05],
+                 "std": [20.03396353429283, 0.14994647759321778, 0.15003588849793748]}
+LUND_CHUNK = 16
+#: the timed shapes: the Lund cell's batch of packed rows, then wide jets
+LUND_TIMED = [(128, 128, 256, 4, "jets"), (8, 150, 256, 4, "jets")]
+
+
+def _lund_mlp(C, H, dev, seed=0, biases=True) -> lpm.PairMLP:
+    """Pair-MLP weights (leaves that take gradients) scaled as the
+    benchmark draws them: matrices N(0, 1/fan_in), biases N(0, 0.1^2),
+    LayerNorm scales 1 + N(0, 0.1^2); eps 1e-6, as KinFormer's."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def draw(shape, scale, shift=0.0):
+        return nn.Parameter(torch.randn(shape, generator=gen, device=dev) * scale + shift)
+
+    fc_w, fc_b = draw((C, 2), 2 ** -0.5), draw((C,), 0.1)
+    ln_w, ln_b = draw((C,), 0.1, 1.0), draw((C,), 0.1)
+    proj_w = draw((C, C), C ** -0.5)
+    proj_b = draw((C,), 0.1) if biases else None
+    out_w = draw((H, C), C ** -0.5)
+    out_b = draw((H,), 0.1) if biases else None
+    return lpm.PairMLP(fc_w, fc_b, ln_w, ln_b, proj_w, proj_b, out_w, out_b,
+                       nn.Parameter(torch.tensor(LAMBDA_U, device=dev)), 1e-6)
+
+
+def _lund_U(B, D, kind, dev, seed=0):
+    """U (B, D, D, 2): the Lund observables of packed rows of standardized
+    noise kinematics (the sampler's start), or standard normal."""
+    if kind == "random":
+        return torch.randn((B, D, D, 2), generator=torch.Generator(device=dev).manual_seed(seed),
+                           device=dev)
+    seg = torch.from_numpy(_packed_segments(B, D, np.random.default_rng(seed))).to(dev)
+    mask = (seg >= 0).to(torch.int32)[..., None]
+    x = torch.randn((B, D, 3), generator=torch.Generator(device=dev).manual_seed(seed),
+                    device=dev) * mask
+    state = MultiModal(continuous=x, mask=mask)
+    return particle_transformers.lund_observables(state, LUND_METADATA["mean"],
+                                                  LUND_METADATA["std"])
+
+
+def _lund_grads(fn, U, mlp, upstream) -> list:
+    """The gradients of sum(fn(U, mlp) * upstream) for U and each parameter
+    of the pair MLP (None where it has none)."""
+    u = U.detach().clone().requires_grad_(True)
+    params = [t for t in mlp.tensors() if t is not None]
+    for t in params:
+        t.grad = None
+    (fn(u, mlp) * upstream).sum().backward()
+    return [u.grad] + [t.grad.clone() for t in params]
+
+
+def _lund_bound(B, D, C, H):
+    """(ms, what bounds it): U read and the bias written once at the HBM
+    rate against the pair MLP's FLOPs of every slot pair (stage 1 once,
+    C x C, C x H: bench_torch/reference/kinformer.py:pair_flops) at the
+    3xTF32 rate."""
+    pairs = B * D * D
+    return _roofline(4 * pairs * (2 + H), pairs * 2 * (2 * C + C * C + C * H))
+
+
+def time_lund_pair_mlp(dev) -> dict:
+    """{"BxD": times} at LUND_TIMED: the kernel beside the plain version
+    (chunks of LUND_CHUNK rows, as the Lund cell runs it) and its bound."""
+    times = {}
+    with torch.no_grad():
+        for B, D, C, H, kind in LUND_TIMED:
+            U = _lund_U(B, D, kind, dev, seed=4)
+            w = _lund_mlp(C, H, dev, seed=4)
+            ms, plain_ms = median_device_ms(
+                [lambda: lpm.lund_pair_mlp_kernel(U, w),
+                 lambda: lpm.lund_pair_mlp_reference(U, w, LUND_CHUNK)], n=20)
+            bound_ms, bound_by = _lund_bound(B, D, C, H)
+            t = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+            print(f"Lund pair MLP time B={B} D={D} C={C} H={H}: kernel {ms:.4f} ms, "
+                  f"plain (chunks of {LUND_CHUNK}) {plain_ms:.4f} ms, "
+                  f"kernel / plain {ms / plain_ms:.3f} (median of 20, CUDA events, device "
+                  f"time); bound {bound_ms:.4f} ms by {bound_by}, kernel / bound "
+                  f"{ms / bound_ms:.2f}")
+            times[f"{B}x{D}"] = t
+    return times
+
+
+def lund_pair_mlp_phase(dev) -> dict:
+    """The fused Lund pair MLP (`ops/lund_pair_mlp.py`): build (time, the
+    compiler's report, HGMMA and no HMMA), every case of LUND_CASES against
+    the plain version (with and without the two biases) and symmetric in
+    (i, j), the launch counter against the forwards, KinFormer's
+    `_lund_bias` on the kernel route, the refusal of widths and head counts
+    the kernel does not take, the Function's gradient against the plain
+    path's, and the kernel's time beside the plain version's (chunks
+    of 16 rows, as the Lund cell) and the bound."""
+    t0 = time.perf_counter()
+    lpm.build()
+    build_s = time.perf_counter() - t0
+    so = lpm._LIB.path()
+    print(f"Lund pair MLP build: {build_s:.2f} s ({so.name})")
+    log = so.with_suffix(".log")
+    if log.exists():
+        print(log.read_text().strip())
+    counts = _tensor_core_counts(so)
+    print(f"Lund pair MLP tensor cores: {counts}")
+    kernels = {sym: c for sym, c in counts.items() if "lund_pair_mlp_kernel" in sym}
+    if not kernels or any(c["HMMA"] or not c["HGMMA"] for c in kernels.values()):
+        raise AssertionError(f"the Lund pair MLP does not run on wgmma alone: {counts}")
+
+    err, sym_err = 0.0, 0.0
+    with torch.no_grad():
+        for case in LUND_CASES:
+            B, D, C, H, kind = case
+            U = _lund_U(B, D, kind, dev)
+            for biases in (True, False):
+                w = _lund_mlp(C, H, dev, biases=biases)
+                ref = lpm.lund_pair_mlp_reference(U, w, LUND_CHUNK)
+                out = lpm.lund_pair_mlp_kernel(U, w)
+                name = f"Lund pair MLP {case} biases={biases}"
+                err = max(err, _held(name, out, ref, torch.ones_like(out, dtype=torch.bool),
+                                     LUND_ATOL, LUND_RTOL))
+                gap = float((out - out.transpose(-1, -2)).abs().max())
+                print(f"{name}: symmetric in (i, j) to {gap:.3e}"
+                      f"{' (to the bit)' if gap == 0 else ''}")
+                if gap > LUND_ATOL:
+                    raise AssertionError(f"{name}: not symmetric ({gap:.3e})")
+                sym_err = max(sym_err, gap)
+
+        # the launch counter against the forwards, through the dispatch
+        U = _lund_U(16, 128, "jets", dev, seed=1)
+        w = _lund_mlp(256, 4, dev, seed=1)
+        before = dict(lpm.ROUTES)
+        for _ in range(5):
+            lpm.lund_pair_mlp(U, w, LUND_CHUNK)
+        routes = {k: lpm.ROUTES[k] - before[k] for k in before}
+        print(f"Lund pair MLP: 5 forwards, routes {routes}")
+        if routes != {"kernel": 5, "plain": 0}:
+            raise AssertionError(f"Lund pair MLP: 5 forwards took the routes {routes}")
+
+        # KinFormer's bias on the kernel route, against the plain version
+        system = _system("CFM", dict(KIN, metadata=LUND_METADATA), dev)
+        seg = torch.from_numpy(_packed_segments(32, 128, np.random.default_rng(2))).to(dev)
+        mask = (seg >= 0).to(torch.int32)[..., None]
+        x = torch.randn((32, 128, 3), device=dev) * mask
+        state = MultiModal(continuous=x, mask=mask)
+        m = system.module
+        before = dict(lpm.ROUTES)
+        got = m._lund_bias(state)
+        if lpm.ROUTES["kernel"] - before["kernel"] != 1:
+            raise AssertionError("KinFormer's Lund bias did not take the kernel")
+        U = particle_transformers.lund_observables(state, LUND_METADATA["mean"],
+                                                   LUND_METADATA["std"])
+        fc, ln, proj, out = m.wue_fc, m.wue_ln, m.wue_proj_fc, m.wue_proj_out
+        w = lpm.PairMLP(fc.weight, fc.bias, ln.weight, ln.bias, proj.weight, proj.bias,
+                        out.weight, out.bias, m.lambda_u, ln.eps)
+        err = max(err, _held("KinFormer._lund_bias (kernel) vs plain", got,
+                             lpm.lund_pair_mlp_reference(U, w, LUND_CHUNK),
+                             torch.ones_like(got, dtype=torch.bool), LUND_ATOL, LUND_RTOL))
+        del system
+
+        # widths and head counts the kernel does not take raise, on the card too
+        for C, H in ((128, 4), (256, 8)):
+            try:
+                lpm.lund_pair_mlp(_lund_U(2, 9, "random", dev), _lund_mlp(C, H, dev))
+            except ValueError as e:
+                print(f"Lund pair MLP C={C} H={H}: refused ({e})")
+            else:
+                raise AssertionError(f"the Lund pair MLP took C={C} H={H}")
+
+    # the Function's gradient: its backward recomputes through the plain version
+    U = _lund_U(4, 40, "random", dev, seed=3)
+    w = _lund_mlp(256, 4, dev, seed=3)
+    upstream = torch.randn((4, 4, 40, 40), device=dev)
+    got = _lund_grads(lambda u, m: lpm.lund_pair_mlp(u, m, LUND_CHUNK), U, w, upstream)
+    want = _lund_grads(lambda u, m: lpm.lund_pair_mlp_reference(u, m, LUND_CHUNK), U, w,
+                       upstream)
+    for i, (a, b) in enumerate(zip(got, want)):
+        gap = float((a - b).abs().max())
+        print(f"Lund pair MLP grad of input {i} {tuple(a.shape)} vs plain: max_abs_err {gap:.3e}")
+        if not torch.allclose(a, b, atol=GRAD_ATOL, rtol=GRAD_RTOL):
+            raise AssertionError(f"Lund pair MLP gradient {i} out of tolerance")
+
+    times = time_lund_pair_mlp(dev)
+    first = times["{}x{}".format(*LUND_TIMED[0])]
+    if first["ms"] > first["plain_ms"] / 4:
+        raise AssertionError("the Lund pair MLP kernel takes more than a quarter of the plain "
+                             f"version's time at {LUND_TIMED[0]}")
+    return {"max_abs_err": err, "max_sym_gap": sym_err, "build_s": build_s, "times": times}
+
+
 def _pad_masks(mult, D):
     return (np.arange(D)[None, :] < np.asarray(mult)[:, None]).astype(np.int64)[..., None]
 
@@ -774,22 +984,37 @@ def _only(form, n) -> dict:
     return {f: n if f == form else 0 for f in k2.LAUNCHES}
 
 
-def drive(name, system, mult, steps, expect, counters=("K1", "K2")):
+def drive(name, system, mult, steps, expect, counters=("K1", "K2"), lund=False):
     """One serving path: counts set to 0, `generate_packed`, counts read.
     `expect(k1_launches, k2_launches)` (the `counters` of the system's
-    dtype) returns what is wrong, or ''."""
+    dtype) returns what is wrong, or ''.  With `lund` (a KinFormer with its
+    Lund bias) the run is traced, and every KinFormer forward of it
+    (`lund.forwards`) must have run the pair MLP kernel (`lund_mlp.kernel`),
+    none the plain version."""
     cfg = system.config
     pad_masks = _pad_masks(mult, cfg.max_num_particles)
     kw = dict(pack_width=128, batch_size=128, seed=0)
     generate_packed(system, pad_masks[-40:], num_timesteps=2, **kw)  # warm-up
 
     profiling.take_counters()
-    res = generate_packed(system, pad_masks, num_timesteps=steps, **kw)
+    profiling.record_spans(lund)
+    try:
+        res = generate_packed(system, pad_masks, num_timesteps=steps, **kw)
+    finally:
+        profiling.record_spans(False)
     launches = _counts()
     print(f"{name}: launches {launches}")
     wrong = expect(launches[counters[0]], launches[counters[1]])
     if wrong:
         raise AssertionError(f"{name}: {wrong}")
+    if lund:
+        profiling.take_spans()
+        c = profiling.take_counters()
+        forwards = c["lund.forwards"]
+        routes = {"kernel": c["lund_mlp.kernel"], "plain": c["lund_mlp.plain"]}
+        print(f"{name}: {forwards} KinFormer forwards, pair MLP routes {routes}")
+        if not forwards or routes != {"kernel": forwards, "plain": 0}:
+            raise AssertionError(f"{name}: {forwards} forwards, pair MLP routes {routes}")
 
     s = res.sample
     N, D = pad_masks.shape[:2]
@@ -3133,6 +3358,7 @@ def main() -> None:
     times = time_kernels(dev)
     bf16_times = time_bf16_kernels(dev)
     gpt_times = time_gpt_attention(dev)
+    lund = lund_pair_mlp_phase(dev)
 
     train_ds, val_ds = _train_data(np.random.default_rng(5))
     build_dir = Path(__file__).resolve().parent / "build"
@@ -3166,7 +3392,8 @@ def main() -> None:
             ("CFM + KinFormer (Lund)", "CFM", KIN, 128, 10)):
         system = _system(kind, cfg_kw, dev)
         drive(name, system, _jets(rng, n, 2), steps,
-              lambda l1, l2: "did not run K2" if not sum(l2.values()) else "")
+              lambda l1, l2: "did not run K2" if not sum(l2.values()) else "",
+              lund=cfg_kw is KIN)
         del system
 
     bf16 = bf16_phase(dev, mult, flagship_gen.sample, train_ds)
@@ -3307,6 +3534,13 @@ def main() -> None:
          "max_abs_err_wide_bf16": wide["max_abs_err"]["K2_bf16"],
          "launches_wide": wide_launches("K2"),
          "wide": {n: t for n, t in wide["times"].items() if n.startswith("K2")}},
+        {"name": "lund_pair_mlp (KinFormer's Lund pair MLP, timed at B=128 D=128 C=256 H=4 and "
+                 "B=8 D=150)",
+         "route": "cuda",
+         "source": "multimodal_flows_tpu_torch/csrc/lund_pair_mlp.cu",
+         "replaces": "none: the JAX package runs the pair MLP in XLA",
+         "max_abs_err": lund["max_abs_err"], "max_sym_gap": lund["max_sym_gap"],
+         "build_s": lund["build_s"], "times": lund["times"]},
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -18,7 +18,9 @@ and the wide forms that lost to `scaled_dot_product_attention` before the
 fp32 core moved to TMA and `wgmma` (head sizes 136-512 in slices, the
 key-mask form at 512 and 2048 keys, causal at 1024, the decode at head
 size 256), each as `chip_smoke.py:_wide_case` makes it, beside the library
-call ("... sdpa").
+call ("... sdpa"); and, in a tree that has it, the Lund pair MLP kernel
+(`time_lund_pair_mlp`) at B=128 D=128 and B=8 D=150 beside its plain
+version ("... plain").
 Each tree prints one line `TIMES <tree> {json}` of device milliseconds; the
 first line is the card's name and power limit.  Needs CUDA; exits non-zero
 without it.
@@ -51,6 +53,9 @@ def _time_tree(tree: str) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     for mod in (cs.k1, cs.k2):
         mod.build()
+    lund = getattr(cs, "lpm", None)
+    if lund is not None:
+        lund.build()
     dev = torch.device("cuda:0")
     times = {}
     for (name, shape), t in cs.time_kernels(dev).items():
@@ -66,6 +71,10 @@ def _time_tree(tree: str) -> dict:
             library = cs._library_call(c["q"], c["k"], c["v"], case[4], c["ref_btc"], c["rows"],
                                        name, **c["sdpa"])
             times[name], times[f"{name} sdpa"] = cs.median_device_ms([c["kernel"], library])
+    if lund is not None:
+        for shape, t in cs.time_lund_pair_mlp(dev).items():
+            times[f"Lund pair MLP {shape}"], times[f"Lund pair MLP {shape} plain"] = (
+                t["ms"], t["plain_ms"])
     return times
 
 

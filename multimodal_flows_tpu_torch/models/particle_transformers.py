@@ -11,8 +11,10 @@
 
 `KinFormer._lund_bias` is the span `kinformer.lund_bias`, and while
 tracing is on (`utils/profiling.py`) it counts `LUND["pairs"]`, the pair
-rows fed through its pair MLP (B T T a forward, over all its chunks),
-and `LUND["forwards"]` (`take_counters()`: `lund.pairs`, `lund.forwards`).
+rows fed through its pair MLP (B T T a forward), and `LUND["forwards"]`
+(`take_counters()`: `lund.pairs`, `lund.forwards`); the pair MLP
+(`ops/lund_pair_mlp.py`) counts its forwards by route (`lund_mlp.kernel`,
+`lund_mlp.plain`).
 
 Module names mirror the flax parameter tree (`block_x_0`, `ln1_x`,
 `coocc/wue`, `lambda_u`, ...) so `convert.params_from_flax` is a rename.
@@ -53,6 +55,7 @@ from multimodal_flows_tpu_torch.models.blocks import (
     pair_mask_bias,
     time_token_embedding,
 )
+from multimodal_flows_tpu_torch.ops.lund_pair_mlp import ROUTES, PairMLP, lund_pair_mlp, pair_bias
 from multimodal_flows_tpu_torch.utils.profiling import spanned, tracing
 
 Tensor = torch.Tensor
@@ -333,9 +336,12 @@ def lund_observables(state: MultiModal, mu: Sequence[float], sig: Sequence[float
 
 class KinFormer(nn.Module):
     """Continuous-only encoder for CFM, with optional lambda_u-gated Lund
-    pairwise bias.  The pair MLP runs in query-row chunks of `pair_chunk`
-    (peak pair-hidden memory chunk/D of the unchunked form), each chunk
-    symmetrized as 0.5 (f(U) + f(U^T)) rows: exactly the unchunked form."""
+    pairwise bias.  The pair MLP (`ops/lund_pair_mlp.py`) runs as one fused
+    kernel on fp32 CUDA tensors; elsewhere in query-row chunks of
+    `pair_chunk` (peak pair-hidden memory chunk/D of the unchunked form),
+    each chunk symmetrized as 0.5 (f(U) + f(U^T)) rows: exactly the
+    unchunked form.  The kernel takes n_embd 256 and at most 4 heads, and
+    raises on others."""
 
     def __init__(self, config: Config):
         super().__init__()
@@ -363,27 +369,30 @@ class KinFormer(nn.Module):
 
     @spanned("kinformer.lund_bias")
     def _lund_bias(self, state: MultiModal) -> Tensor:
-        """lambda_u * pair-MLP(Lund observables), (B, H, D, D)."""
+        """lambda_u * pair-MLP(Lund observables), (B, H, D, D).  In fp32
+        through `ops/lund_pair_mlp.py` (the fused kernel on CUDA tensors,
+        the plain version on the CPU); in bf16, or under a tensor-parallel
+        layout (`wue_proj_out` cut over the heads, its layer doing a
+        collective the kernel does not), the plain version over the
+        model's own layers.  The plain version runs in chunks of
+        `pair_chunk` query rows."""
         cfg = self.config
         meta = cfg.metadata or {}
         U = lund_observables(state, meta.get("mean", [0.0] * cfg.dim_continuous),
                              meta.get("std", [1.0] * cfg.dim_continuous))
-
-        def stage1(u):
-            return self.wue_ln(gelu(self.wue_fc(u)))
-
         B, D = U.shape[0], U.shape[1]
-        c = cfg.pair_chunk if cfg.pair_chunk and cfg.pair_chunk > 0 else D
-        U = U.to(self.dtype)
-        Ut = U.transpose(1, 2)
-        outs = [self.wue_proj_out(gelu(self.wue_proj_fc(
-                    0.5 * (stage1(U[:, a:a + c]) + stage1(Ut[:, a:a + c])))))
-                for a in range(0, D, c)]
         if tracing():
             LUND["pairs"] += B * D * D
             LUND["forwards"] += 1
-        u = torch.cat(outs, dim=1)                                     # (B, D, D, H)
-        return self.lambda_u * u.permute(0, 3, 1, 2).to(torch.float32).contiguous()
+        if self.dtype == torch.float32 and not hasattr(self.wue_proj_out.weight, "tp_split"):
+            fc, ln, proj, out = self.wue_fc, self.wue_ln, self.wue_proj_fc, self.wue_proj_out
+            return lund_pair_mlp(U, PairMLP(fc.weight, fc.bias, ln.weight, ln.bias, proj.weight,
+                                            proj.bias, out.weight, out.bias, self.lambda_u,
+                                            ln.eps), cfg.pair_chunk)
+        ROUTES["plain"] += 1
+        return pair_bias(U.to(self.dtype), lambda u: self.wue_ln(gelu(self.wue_fc(u))),
+                         lambda x: self.wue_proj_out(gelu(self.wue_proj_fc(x))), self.lambda_u,
+                         cfg.pair_chunk)
 
     def forward(self, state: MultiModal, segments: Optional[Tensor] = None,
                 num_segments: Optional[int] = None) -> Tensor:  # num_segments: EPiC only

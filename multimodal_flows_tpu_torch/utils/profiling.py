@@ -187,20 +187,24 @@ def requests(spans: Sequence[Span], root: str, after_ns: int = 0) -> List[List[S
 
 def _counter_stores() -> Dict[str, Dict[str, int]]:
     from multimodal_flows_tpu_torch.models import particle_transformers
-    from multimodal_flows_tpu_torch.ops import attention, btc_attention, set_attention
+    from multimodal_flows_tpu_torch.ops import (
+        attention, btc_attention, lund_pair_mlp, set_attention,
+    )
     from multimodal_flows_tpu_torch.train import gpt
 
     return {"k1": btc_attention.LAUNCHES, "k1_bf16": btc_attention.LAUNCHES_BF16,
             "k2": set_attention.LAUNCHES, "k2_bf16": set_attention.LAUNCHES_BF16,
             "attn.plain_dropout": attention.PLAIN_DROPOUT_CALLS,
-            "gpt_decode": gpt.DECODE_STEPS, "lund": particle_transformers.LUND}
+            "gpt_decode": gpt.DECODE_STEPS, "lund": particle_transformers.LUND,
+            "lund_mlp": lund_pair_mlp.ROUTES}
 
 
 def peek_counters() -> Dict[str, int]:
     """Every counter of the port by dotted name (`k1.segments`,
     `k2_bf16.bias`, `attn.plain_dropout.head_major`,
-    `gpt_decode.graph_steps`, `lund.pairs`, `spans.dropped`, ...); the
-    counters keep their values.  They live in their modules' dicts."""
+    `gpt_decode.graph_steps`, `lund.pairs`, `lund_mlp.kernel`,
+    `spans.dropped`, ...); the counters keep their values.  They live in
+    their modules' dicts."""
     out = {f"{prefix}.{key}": value for prefix, store in _counter_stores().items()
            for key, value in store.items()}
     out["spans.dropped"] = _dropped

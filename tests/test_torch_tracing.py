@@ -23,6 +23,7 @@ from multimodal_flows_tpu_torch.data.state import DataCoupling, MultiModal
 from multimodal_flows_tpu_torch.models import particle_transformers
 from multimodal_flows_tpu_torch.ops import attention
 from multimodal_flows_tpu_torch.ops import btc_attention as k1
+from multimodal_flows_tpu_torch.ops import lund_pair_mlp
 from multimodal_flows_tpu_torch.ops import set_attention as k2
 from multimodal_flows_tpu_torch.sampling import generator as gen_mod
 from multimodal_flows_tpu_torch.train import gpt as gpt_train
@@ -170,20 +171,23 @@ def test_take_counters_reads_and_zeroes_every_counter():
     attention.PLAIN_DROPOUT_CALLS["head_major"] += 4
     gpt_train.DECODE_STEPS["graph_steps"] += 6
     particle_transformers.LUND["pairs"] += 7
+    lund_pair_mlp.ROUTES["kernel"] += 8
     assert profiling.peek_counters() == profiling.peek_counters()  # peeking zeroes nothing
     got = profiling.take_counters()
     expect = ({f"k1.{f}" for f in k1.LAUNCHES} | {f"k1_bf16.{f}" for f in k1.LAUNCHES_BF16}
               | {f"k2.{f}" for f in k2.LAUNCHES} | {f"k2_bf16.{f}" for f in k2.LAUNCHES_BF16}
               | {f"attn.plain_dropout.{f}" for f in attention.PLAIN_DROPOUT_CALLS}
               | {"gpt_decode.graph_steps", "gpt_decode.eager_steps", "gpt_decode.captures"}
-              | {"lund.pairs", "lund.forwards"} | {"spans.dropped"})
+              | {"lund.pairs", "lund.forwards"} | {"lund_mlp.kernel", "lund_mlp.plain"}
+              | {"spans.dropped"})
     assert set(got) == expect
     assert {k: v for k, v in got.items() if v} == {
         "k1.segments": 3, "k1_bf16.none": 1, "k2.causal": 5, "k2_bf16.bias": 2,
-        "attn.plain_dropout.head_major": 4, "gpt_decode.graph_steps": 6, "lund.pairs": 7}
+        "attn.plain_dropout.head_major": 4, "gpt_decode.graph_steps": 6, "lund.pairs": 7,
+        "lund_mlp.kernel": 8}
     for store in (k1.LAUNCHES, k1.LAUNCHES_BF16, k2.LAUNCHES, k2.LAUNCHES_BF16,
                   attention.PLAIN_DROPOUT_CALLS, gpt_train.DECODE_STEPS,
-                  particle_transformers.LUND):
+                  particle_transformers.LUND, lund_pair_mlp.ROUTES):
         assert not any(store.values())
     assert not any(profiling.take_counters().values())
 
