@@ -642,17 +642,11 @@ def time_kernels(dev):
     return result
 
 
-def _causal_bias(T, dev):
-    """The (1, 1, T, T) additive causal bias of `FlavorSeqGPT.forward`."""
-    causal = torch.tril(torch.ones((T, T), dtype=torch.bool, device=dev))
-    return torch.where(causal, 0.0, -1e9)[None, None]
-
-
 def _gpt_forward_inputs(dev, seed=5):
     B, T, C, _ = GPT_SHAPE
     gen = torch.Generator(device=dev).manual_seed(seed)
     q, k, v = (torch.randn((B, T, C), generator=gen, device=dev) for _ in range(3))
-    return q, k, v, _causal_bias(T, dev)
+    return q, k, v, attention.causal_bias(T, dev)
 
 
 def _gpt_decode_inputs(pos, dev, seed=6):
@@ -699,7 +693,7 @@ def check_k2_causal(dev) -> float:
         B, T, C, H = shape
         q, k, v, km, _, _, real = _case_inputs(shape, "key_mask" if masked else "none", dev,
                                                seed=T)
-        bias = _causal_bias(T, dev)
+        bias = attention.causal_bias(T, dev)
         name = f"K2 causal vs plain {shape} {'key_mask' if masked else 'no mask'}"
         out = k2.set_attention_btc(q, k, v, H, km, causal=True)
         worst = max(worst, _held(name, out, attention_btc_reference(q, k, v, H, km, None, bias),
@@ -898,10 +892,11 @@ def lund_pair_mlp_phase(dev) -> dict:
         # the launch counter against the forwards, through the dispatch
         U = _lund_U(16, 128, "jets", dev, seed=1)
         w = _lund_mlp(256, 4, dev, seed=1)
-        before = dict(lpm.ROUTES)
+        before = _group(profiling.peek_counters(), "lund_mlp")
         for _ in range(5):
             lpm.lund_pair_mlp(U, w, LUND_CHUNK)
-        routes = {k: lpm.ROUTES[k] - before[k] for k in before}
+        routes = {k: n - before[k] for k, n in _group(profiling.peek_counters(),
+                                                      "lund_mlp").items()}
         print(f"Lund pair MLP: 5 forwards, routes {routes}")
         if routes != {"kernel": 5, "plain": 0}:
             raise AssertionError(f"Lund pair MLP: 5 forwards took the routes {routes}")
@@ -913,9 +908,9 @@ def lund_pair_mlp_phase(dev) -> dict:
         x = torch.randn((32, 128, 3), device=dev) * mask
         state = MultiModal(continuous=x, mask=mask)
         m = system.module
-        before = dict(lpm.ROUTES)
+        before = profiling.peek_counters()["lund_mlp.kernel"]
         got = m._lund_bias(state)
-        if lpm.ROUTES["kernel"] - before["kernel"] != 1:
+        if profiling.peek_counters()["lund_mlp.kernel"] - before != 1:
             raise AssertionError("KinFormer's Lund bias did not take the kernel")
         U = particle_transformers.lund_observables(state, LUND_METADATA["mean"],
                                                    LUND_METADATA["std"])
@@ -966,13 +961,23 @@ def _jets(rng, n, n_wide, D=150):
     return np.concatenate([_multiplicities(rng, n, D), rng.integers(135, D + 1, size=n_wide)])
 
 
+#: the groups of `_counts()` by their counters' prefix
+COUNT_GROUPS = {"K1": "k1", "K2": "k2", "K1_bf16": "k1_bf16", "K2_bf16": "k2_bf16",
+                "plain_dropout": "attn.plain_dropout"}
+
+
+def _group(counters, prefix) -> dict:
+    """The counters `prefix.<name>` of `counters` (`profiling.peek_counters()`
+    or `take_counters()`) as {name: count}."""
+    return {k[len(prefix) + 1:]: n for k, n in counters.items() if k.startswith(prefix + ".")}
+
+
 def _counts():
     """The launch counts of both kernels by form, fp32 (K1, K2) and bf16
     (K1_bf16, K2_bf16), and the attention calls that took the plain version
-    for dropout."""
-    return {"K1": dict(k1.LAUNCHES), "K2": dict(k2.LAUNCHES),
-            "K1_bf16": dict(k1.LAUNCHES_BF16), "K2_bf16": dict(k2.LAUNCHES_BF16),
-            "plain_dropout": dict(attention.PLAIN_DROPOUT_CALLS)}
+    for dropout (`profiling.peek_counters()`)."""
+    counters = profiling.peek_counters()
+    return {group: _group(counters, prefix) for group, prefix in COUNT_GROUPS.items()}
 
 
 def _total(counts) -> int:
@@ -981,7 +986,7 @@ def _total(counts) -> int:
 
 def _only(form, n) -> dict:
     """K2's counts when only `form` launched, n times."""
-    return {f: n if f == form else 0 for f in k2.LAUNCHES}
+    return {f: n if f == form else 0 for f in _group(profiling.peek_counters(), "k2")}
 
 
 def drive(name, system, mult, steps, expect, counters=("K1", "K2"), lund=False):
@@ -1140,7 +1145,7 @@ def train_card_vs_cpu(dev, train_ds, cfg_kw=TRAIN):
         launches[side] = _counts()
         grads[side] = {n: p.grad.cpu() for n, p in system.module.named_parameters()}
         print(f"training loss on the {side}: {loss[side]:.7f} ({len(b)} rows x {b.width}, "
-              f"{b.num_jets} jets; K1 launches {sum(k1.LAUNCHES.values())})")
+              f"{b.num_jets} jets; K1 launches {_total(launches[side]['K1'])})")
     rel = abs(loss["card"] - loss["cpu"]) / abs(loss["cpu"])
     worst = max(float(((grads["card"][n] - g).abs() / (TRAIN_GRAD_ATOL + TRAIN_GRAD_RTOL
                                                         * g.abs())).max())
@@ -2067,9 +2072,9 @@ def decode_graph_check(system, batch_size: int, calls: int = 3) -> dict:
     checks = {
         "graph and eager tokens identical, every call": all(equal),
         f"K2 key-mask {n_layer} x {steps} a call through the replays":
-            {f: graph_counts[f"k2.{f}"] for f in k2.LAUNCHES} == _only("key_mask", n_layer * n),
+            _group(graph_counts, "k2") == _only("key_mask", n_layer * n),
         f"K2 key-mask {n_layer} x {steps} a call eagerly":
-            {f: eager_counts[f"k2.{f}"] for f in k2.LAUNCHES} == _only("key_mask", n_layer * n),
+            _group(eager_counts, "k2") == _only("key_mask", n_layer * n),
         f"one capture over {calls} calls, {n - 1} replays after one eager step":
             (graph_counts["gpt_decode.captures"], graph_counts["gpt_decode.graph_steps"],
              graph_counts["gpt_decode.eager_steps"]) == (1, n - 1, 1),
@@ -2920,7 +2925,7 @@ def _wide_case(case, dev, dtype=torch.float32, seed=0):
         bias = pbias = torch.randn((B, heads, Tq, Tk), generator=gen, device=dev).to(bias_dtype)
     causal = form.startswith("causal")
     if causal:
-        pbias = _causal_bias(Tq, dev)
+        pbias = attention.causal_bias(Tq, dev)
     same = torch.ones((B, Tq, Tk), dtype=torch.bool, device=dev)
     if seg is not None:
         same = seg[:, :, None] == seg[:, None, :]
@@ -3016,7 +3021,7 @@ def check_wide_kernels(dev) -> dict:
                    lambda a, b_, d: attention_btc_reference(a, b_, d, H, km, seg)]
             leaves = [c["q"], c["k"], c["v"]]
         elif form == "causal":
-            cb = _causal_bias(Tq, dev)
+            cb = attention.causal_bias(Tq, dev)
             fns = [lambda a, b_, d: k2.set_attention_btc(a, b_, d, H, km, causal=True),
                    lambda a, b_, d: attention_btc_reference(a, b_, d, H, km, None, cb)]
             leaves = [c["q"], c["k"], c["v"]]

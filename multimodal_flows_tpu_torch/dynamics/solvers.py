@@ -19,7 +19,7 @@ on two devices can share the noise.
 
 `simulate` runs the time loop eagerly in Python with the time and dt as
 device scalars and every draw on the device, so a step makes no host sync;
-capturing the step in a CUDA graph is a ROADMAP Queue 2 item.
+capturing the step in a CUDA graph is ROADMAP Queue 4 item 5.
 """
 
 from __future__ import annotations

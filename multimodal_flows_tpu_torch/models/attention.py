@@ -112,10 +112,10 @@ class SelfAttention(nn.Module):
             q = self.q_layernorm(q.reshape(B, T, H, hs)).reshape(B, T, C)
             k = self.k_layernorm(k.reshape(B, T, H, hs)).reshape(B, T, C)
         if kv_cache is not None:
-            k_cache, v_cache, pos, causal = kv_cache
+            k_cache, v_cache, pos, key_mask = kv_cache
             k_cache.index_copy_(1, pos, k)
             v_cache.index_copy_(1, pos, v)
-            y = multihead_attention_btc(q.contiguous(), k_cache, v_cache, H, None, causal)
+            y = multihead_attention_btc(q.contiguous(), k_cache, v_cache, H, None, key_mask)
             return self.c_proj(y), kv_cache
         rate = self.attn_dropout if self.training else 0.0
         y = multihead_attention_btc(q.contiguous(), k.contiguous(), v.contiguous(), H,
@@ -179,8 +179,8 @@ class SelfAttnBlock(nn.Module):
     semantics (attn_pdrop apart from resid_pdrop, `gelu_new`); the set
     encoders keep the defaults and pass their compute `dtype`.  With
     `kv_cache` the block returns (x, kv_cache), as `SelfAttention` does;
-    `causal` marks `attn_bias` as the causal bias (GPT's full forward, see
-    `ops.attention.multihead_attention_btc`)."""
+    `causal` makes it a causal self-attention with no `attn_bias` (GPT's
+    full forward, see `ops.attention.multihead_attention_btc`)."""
 
     def __init__(self, n_embd: int, n_head: int, n_inner: Optional[int] = None,
                  bias: bool = True, qk_layernorm: bool = True, dropout: float = 0.0,

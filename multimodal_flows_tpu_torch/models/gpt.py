@@ -50,11 +50,6 @@ class FlavorSeqGPT(nn.Module):
                 activation=cfg.activation))
         self.ln_f = LayerNorm(cfg.n_embd)
         self.lm_head = nn.Linear(cfg.n_embd, self.full_vocab, bias=False)
-        # (1, 1, T, T) additive causal bias, built once; not a parameter of
-        # the flax tree, so it stays out of the state dict
-        causal = torch.tril(torch.ones((self.seq_len, self.seq_len), dtype=torch.bool))
-        self.register_buffer("causal_bias", torch.where(causal, 0.0, -1e9)[None, None],
-                             persistent=False)
 
     @property
     def blocks(self) -> List[SelfAttnBlock]:
@@ -62,12 +57,10 @@ class FlavorSeqGPT(nn.Module):
 
     def forward(self, input_ids: Tensor) -> Tensor:
         """Teacher-forced logits (B, T, V + 4) of token ids (B, T <= seq_len)."""
-        T = input_ids.shape[1]
-        pos = torch.arange(T, device=input_ids.device)
+        pos = torch.arange(input_ids.shape[1], device=input_ids.device)
         h = self.drop_emb(self.wte(input_ids) + self.wpe(pos)[None])
-        bias = self.causal_bias[:, :, :T, :T]
         for block in self.blocks:
-            h = block(h, bias, causal=True)
+            h = block(h, causal=True)
         return self.lm_head(self.ln_f(h))
 
     def init_cache(self, batch_size: int) -> List[Tuple[Tensor, Tensor]]:

@@ -10,11 +10,10 @@
                   (`use_pairwise`)
 
 `KinFormer._lund_bias` is the span `kinformer.lund_bias`, and while
-tracing is on (`utils/profiling.py`) it counts `LUND["pairs"]`, the pair
-rows fed through its pair MLP (B T T a forward), and `LUND["forwards"]`
-(`take_counters()`: `lund.pairs`, `lund.forwards`); the pair MLP
-(`ops/lund_pair_mlp.py`) counts its forwards by route (`lund_mlp.kernel`,
-`lund_mlp.plain`).
+tracing is on (`utils/profiling.py`) it counts `lund.pairs`, the pair
+rows fed through its pair MLP (B T T a forward), and `lund.forwards`; the
+pair MLP (`ops/lund_pair_mlp.py`) counts its forwards by route
+(`lund_mlp.kernel`, `lund_mlp.plain`).
 
 Module names mirror the flax parameter tree (`block_x_0`, `ln1_x`,
 `coocc/wue`, `lambda_u`, ...) so `convert.params_from_flax` is a rename.
@@ -55,14 +54,12 @@ from multimodal_flows_tpu_torch.models.blocks import (
     pair_mask_bias,
     time_token_embedding,
 )
-from multimodal_flows_tpu_torch.ops.lund_pair_mlp import ROUTES, PairMLP, lund_pair_mlp, pair_bias
-from multimodal_flows_tpu_torch.utils.profiling import spanned, tracing
+from multimodal_flows_tpu_torch.ops.lund_pair_mlp import PairMLP, lund_pair_mlp, plain_pair_bias
+from multimodal_flows_tpu_torch.utils.profiling import count, declare, spanned, tracing
 
 Tensor = torch.Tensor
 
-#: the Lund bias's counters while tracing is on: pair rows through the
-#: pair MLP and forwards (`take_counters()`: `lund.pairs`, `lund.forwards`)
-LUND = {"pairs": 0, "forwards": 0}
+declare("lund", "pairs", "forwards")   # while tracing is on
 
 
 class _EmbedMLP(nn.Module):
@@ -380,19 +377,17 @@ class KinFormer(nn.Module):
         meta = cfg.metadata or {}
         U = lund_observables(state, meta.get("mean", [0.0] * cfg.dim_continuous),
                              meta.get("std", [1.0] * cfg.dim_continuous))
-        B, D = U.shape[0], U.shape[1]
         if tracing():
-            LUND["pairs"] += B * D * D
-            LUND["forwards"] += 1
+            count("lund.pairs", U.shape[0] * U.shape[1] ** 2)
+            count("lund.forwards")
         if self.dtype == torch.float32 and not hasattr(self.wue_proj_out.weight, "tp_split"):
             fc, ln, proj, out = self.wue_fc, self.wue_ln, self.wue_proj_fc, self.wue_proj_out
             return lund_pair_mlp(U, PairMLP(fc.weight, fc.bias, ln.weight, ln.bias, proj.weight,
                                             proj.bias, out.weight, out.bias, self.lambda_u,
                                             ln.eps), cfg.pair_chunk)
-        ROUTES["plain"] += 1
-        return pair_bias(U.to(self.dtype), lambda u: self.wue_ln(gelu(self.wue_fc(u))),
-                         lambda x: self.wue_proj_out(gelu(self.wue_proj_fc(x))), self.lambda_u,
-                         cfg.pair_chunk)
+        return plain_pair_bias(U.to(self.dtype), lambda u: self.wue_ln(gelu(self.wue_fc(u))),
+                               lambda x: self.wue_proj_out(gelu(self.wue_proj_fc(x))),
+                               self.lambda_u, cfg.pair_chunk)
 
     def forward(self, state: MultiModal, segments: Optional[Tensor] = None,
                 num_segments: Optional[int] = None) -> Tensor:  # num_segments: EPiC only

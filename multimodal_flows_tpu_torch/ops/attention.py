@@ -15,16 +15,17 @@
   query against the cache under a causal key mask); K1
   (`ops/btc_attention.py`) for the other token-major calls (bias-free,
   Tq == Tk).  A causal call (`causal=True`, the GPT baseline's full
-  forward) goes to K2's causal form, which computes the causal bias in the
-  kernel.  CPU tensors go to the plain versions.
+  forward) takes no bias: it goes to K2's causal form, which computes the
+  causal bias in the kernel, and the plain versions add `causal_bias`.
+  CPU tensors go to the plain versions.
 - A call with `dropout_rate > 0` (a train-mode forward with
   `Config.dropout`) goes to the plain version on every device, by design:
   the JAX package sends attention with probability dropout to its XLA
   path, never to a Pallas kernel, and the kernels here have no dropout.
-  `PLAIN_DROPOUT_CALLS` counts those calls.  The keep mask is drawn in
-  fp32 (`dropout_keep`), at the global shape under a mesh: the rows of a
-  data-parallel rank and the heads of a tensor-parallel rank are cut from
-  the mask one device would draw.
+  `attn.plain_dropout.<layout>` counts those calls.  The keep mask is
+  drawn in fp32 (`dropout_keep`), at the global shape under a mesh: the
+  rows of a data-parallel rank and the heads of a tensor-parallel rank are
+  cut from the mask one device would draw.
 - bf16 (the encoders' `compute_dtype="bfloat16"`): q, k and v in bf16, as
   `_xla_attention` / `_xla_attention_btc` take them.  The scores are
   accumulated in fp32 from the bf16 products (`preferred_element_type=
@@ -44,17 +45,18 @@ from typing import Optional, Tuple
 
 import torch
 
+from multimodal_flows_tpu_torch.utils.profiling import count, declare
+
 Tensor = torch.Tensor
 
-#: calls that took the plain version because of probability dropout
-PLAIN_DROPOUT_CALLS = {"head_major": 0, "token_major": 0}
+declare("attn.plain_dropout", "head_major", "token_major")
 
 
 @functools.lru_cache(maxsize=None)
 def causal_bias(T: int, device: torch.device) -> Tensor:
     """The (1, 1, T, T) additive causal bias, 0 on and below the diagonal
-    and -1e9 above (`FlavorSeqGPT.causal_bias`, the JAX package's
-    `models/gpt.py:71-72`), built once per (T, device)."""
+    and -1e9 above (the JAX package's `models/gpt.py:71-72`), built once
+    per (T, device): the port's only construction of it."""
     causal = torch.tril(torch.ones((T, T), dtype=torch.bool, device=device))
     return torch.where(causal, 0.0, -1e9)[None, None]
 
@@ -163,15 +165,14 @@ def multihead_attention(q: Tensor, k: Tensor, v: Tensor,
     additive key mask and bias: the K2 kernel on CUDA tensors, the reference on CPU
     tensors; the reference on both when `dropout_rate` > 0."""
     if dropout_rate > 0.0:
-        PLAIN_DROPOUT_CALLS["head_major"] += 1
-        return attention_reference(q, k, v, key_mask, bias, dropout_rate, generator)
-    if q.device.type == "cuda":
+        count("attn.plain_dropout.head_major")
+    elif q.device.type == "cuda":
         from multimodal_flows_tpu_torch.ops.set_attention import set_attention
 
         return set_attention(q, k, v, key_mask, bias)
-    if q.device.type == "cpu":
-        return attention_reference(q, k, v, key_mask, bias)
-    raise ValueError(f"no attention path for device {q.device}")
+    elif q.device.type != "cpu":
+        raise ValueError(f"no attention path for device {q.device}")
+    return attention_reference(q, k, v, key_mask, bias, dropout_rate, generator)
 
 
 def multihead_attention_btc(q: Tensor, k: Tensor, v: Tensor, n_head: int,
@@ -190,29 +191,25 @@ def multihead_attention_btc(q: Tensor, k: Tensor, v: Tensor, n_head: int,
     global one by `dropout_rows` / `dropout_heads`).
 
     `causal` marks a causal self-attention (key j > query i masked by
-    -1e9, Tq == Tk), GPT's full forward.  A `bias` given with it is that
-    causal bias (as `FlavorSeqGPT` passes its buffer), else `causal_bias`
-    builds it: the plain paths add it; on CUDA without dropout K2's causal
-    form computes it in the kernel and reads no bias."""
-    if causal and bias is None:
-        bias = causal_bias(q.shape[1], q.device)
+    -1e9, Tq == Tk), GPT's full forward, and takes no `bias`: on CUDA
+    without dropout K2's causal form computes it in the kernel, the plain
+    paths add `causal_bias`."""
+    if causal and bias is not None:
+        raise ValueError("a causal call takes no bias: the causal bias is built here")
     if dropout_rate > 0.0:
-        PLAIN_DROPOUT_CALLS["token_major"] += 1
-        return attention_btc_reference(q, k, v, n_head, key_mask, segments, bias,
-                                       dropout_rate, generator, dropout_rows=dropout_rows,
-                                       dropout_heads=dropout_heads)
-    if q.device.type == "cuda":
-        if causal:
+        count("attn.plain_dropout.token_major")
+    elif q.device.type == "cuda":
+        if causal or bias is not None or k.shape[1] != q.shape[1]:
             from multimodal_flows_tpu_torch.ops.set_attention import set_attention_btc
 
-            return set_attention_btc(q, k, v, n_head, key_mask, None, segments, causal=True)
-        if bias is not None or k.shape[1] != q.shape[1]:
-            from multimodal_flows_tpu_torch.ops.set_attention import set_attention_btc
-
-            return set_attention_btc(q, k, v, n_head, key_mask, bias, segments)
+            return set_attention_btc(q, k, v, n_head, key_mask, bias, segments, causal=causal)
         from multimodal_flows_tpu_torch.ops.btc_attention import btc_attention
 
         return btc_attention(q, k, v, n_head, key_mask, segments)
-    if q.device.type == "cpu":
-        return attention_btc_reference(q, k, v, n_head, key_mask, segments, bias)
-    raise ValueError(f"no attention path for device {q.device}")
+    elif q.device.type != "cpu":
+        raise ValueError(f"no attention path for device {q.device}")
+    if causal:
+        bias = causal_bias(q.shape[1], q.device)
+    return attention_btc_reference(q, k, v, n_head, key_mask, segments, bias, dropout_rate,
+                                   generator, dropout_rows=dropout_rows,
+                                   dropout_heads=dropout_heads)

@@ -23,7 +23,7 @@ the plain version (`ops/attention.py:attention_btc_reference`) serves CPU
 tensors through `multihead_attention_btc`.  The backward recomputes
 through the plain version in the input dtype, as the JAX custom VJP
 `_btc_vjp_bwd` recomputes through XLA; a backward kernel is ROADMAP.md
-Queue 2 item 3.
+Queue 4 item 3.
 """
 
 from __future__ import annotations
@@ -37,14 +37,14 @@ import torch
 from multimodal_flows_tpu_torch.ops.attention import attention_btc_reference
 from multimodal_flows_tpu_torch.ops.cuda_build import CudaLibrary
 from multimodal_flows_tpu_torch.ops.set_attention import bf16_plan, fp32_plan
+from multimodal_flows_tpu_torch.utils.profiling import count, declare
 
 Tensor = torch.Tensor
 
-#: launches of the kernel by form, counted where the launch succeeds: fp32
-#: q/k/v in LAUNCHES, bf16 in LAUNCHES_BF16
-LAUNCHES = {"segments": 0, "key_mask": 0, "none": 0}
-LAUNCHES_BF16 = dict(LAUNCHES)
+FORMS = ("segments", "key_mask", "none")
 DTYPES = (torch.float32, torch.bfloat16)
+#: the launch counters by dtype and form, counted where the launch succeeds
+_LAUNCHED = {torch.float32: declare("k1", *FORMS), torch.bfloat16: declare("k1_bf16", *FORMS)}
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -133,7 +133,7 @@ def _launch(q: Tensor, k: Tensor, v: Tensor, n_head: int,
             out.data_ptr(), B, T, C, n_head, scale, *plan, stream)
     _LIB.check(rc)
     form = "segments" if segments is not None else "key_mask" if key_mask is not None else "none"
-    (LAUNCHES_BF16 if bf16 else LAUNCHES)[form] += 1
+    count(_LAUNCHED[q.dtype][form])
     return out
 
 

@@ -14,8 +14,8 @@ runs it as plain XLA; it replaces no Pallas kernel.
 - `pair_bias`: the chunked form over any stage 1 and head, in chunks of
   `chunk` query rows (the peak pair hidden is chunk / D of the unchunked
   form), each chunk symmetrised as 0.5 (f(U) + f(U^T)) rows: exactly the
-  unchunked form.  KinFormer runs it over its own layers where it keeps
-  the plain path (bf16, a tensor-parallel layout).
+  unchunked form; `plain_pair_bias` is it as a counted forward (the
+  dispatch's CPU route; KinFormer's bf16 and tensor-parallel route).
 - `lund_pair_mlp_reference`: `pair_bias` in fp32 over the weights of a
   `PairMLP`, the ops KinFormer's fp32 layers run.
 - `lund_pair_mlp_kernel`: the fused kernel on CUDA fp32 tensors, one launch
@@ -28,9 +28,9 @@ runs it as plain XLA; it replaces no Pallas kernel.
   kernel through `_LundPairMLP`, whose backward recomputes through the
   plain version, as K1's and K2's do; CPU tensors take the plain version.
 
-`ROUTES` counts the forwards by route (`take_counters()`:
-`lund_mlp.kernel`, `lund_mlp.plain`): the kernel's where it launched, the
-plain version's here and on KinFormer's own plain path.  Build:
+The forwards are counted by route (`utils/profiling.py`: `lund_mlp.kernel`
+where the kernel launched, `lund_mlp.plain` in `plain_pair_bias`); the
+backward's recompute counts nothing.  Build:
 `ops/cuda_build.py` (nvcc for `sm_90a` at first use, ctypes); nothing is
 compiled at import.
 """
@@ -44,11 +44,11 @@ import torch
 import torch.nn.functional as F
 
 from multimodal_flows_tpu_torch.ops.cuda_build import CudaLibrary
+from multimodal_flows_tpu_torch.utils.profiling import count, declare
 
 Tensor = torch.Tensor
 
-#: the forwards by route
-ROUTES = {"kernel": 0, "plain": 0}
+declare("lund_mlp", "kernel", "plain")
 #: the width (n_embd) the kernel takes, and its most heads
 KERNEL_WIDTH = 256
 MAX_HEADS = 4
@@ -76,6 +76,15 @@ class PairMLP(NamedTuple):
         biases as None)."""
         return tuple(self[:9])
 
+    def stage1(self, u: Tensor) -> Tensor:
+        """The plain version's f(u) = LayerNorm(gelu(W_1 u + b_1))."""
+        return F.layer_norm(F.gelu(F.linear(u, self.fc_w, self.fc_b)), self.ln_w.shape,
+                            self.ln_w, self.ln_b, self.eps)
+
+    def head(self, x: Tensor) -> Tensor:
+        """The plain version's W_out gelu(W_fc x + b_fc) + b_out."""
+        return F.linear(F.gelu(F.linear(x, self.proj_w, self.proj_b)), self.out_w, self.out_b)
+
 
 def pair_bias(U: Tensor, stage1: Callable[[Tensor], Tensor], head: Callable[[Tensor], Tensor],
               lambda_u: Tensor, chunk: int = 0) -> Tensor:
@@ -90,18 +99,18 @@ def pair_bias(U: Tensor, stage1: Callable[[Tensor], Tensor], head: Callable[[Ten
     return lambda_u * u.permute(0, 3, 1, 2).to(torch.float32).contiguous()
 
 
+def plain_pair_bias(U: Tensor, stage1: Callable[[Tensor], Tensor],
+                    head: Callable[[Tensor], Tensor], lambda_u: Tensor,
+                    chunk: int = 0) -> Tensor:
+    """`pair_bias`, counted as a forward on the plain route."""
+    count("lund_mlp.plain")
+    return pair_bias(U, stage1, head, lambda_u, chunk)
+
+
 def lund_pair_mlp_reference(U: Tensor, mlp: PairMLP, chunk: int = 0) -> Tensor:
     """The pair bias (B, H, D, D) fp32 of U (B, D, D, 2) fp32, in chunks of
     `chunk` query rows (0: one chunk)."""
-
-    def stage1(u):
-        return F.layer_norm(F.gelu(F.linear(u, mlp.fc_w, mlp.fc_b)), mlp.ln_w.shape, mlp.ln_w,
-                            mlp.ln_b, mlp.eps)
-
-    def head(x):
-        return F.linear(F.gelu(F.linear(x, mlp.proj_w, mlp.proj_b)), mlp.out_w, mlp.out_b)
-
-    return pair_bias(U, stage1, head, mlp.lambda_u, chunk)
+    return pair_bias(U, mlp.stage1, mlp.head, mlp.lambda_u, chunk)
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -167,7 +176,7 @@ def lund_pair_mlp_kernel(U: Tensor, mlp: PairMLP) -> Tensor:
             rc = lib.lund_pair_mlp_fwd(U.data_ptr(), *(_ptr(t) for t in w), out.data_ptr(),
                                        B, D, C, H, mlp.eps, stream)
         _LIB.check(rc)
-        ROUTES["kernel"] += 1
+        count("lund_mlp.kernel")
     return out
 
 
@@ -206,5 +215,4 @@ def lund_pair_mlp(U: Tensor, mlp: PairMLP, chunk: int = 0) -> Tensor:
     plain version in chunks of `chunk` query rows."""
     if U.device.type == "cuda":
         return _LundPairMLP.apply(U, mlp, chunk, *mlp.tensors())
-    ROUTES["plain"] += 1
-    return lund_pair_mlp_reference(U, mlp, chunk)
+    return plain_pair_bias(U, mlp.stage1, mlp.head, mlp.lambda_u, chunk)

@@ -60,15 +60,15 @@ from multimodal_flows_tpu_torch.ops.attention import (
     causal_bias,
 )
 from multimodal_flows_tpu_torch.ops.cuda_build import CudaLibrary
+from multimodal_flows_tpu_torch.utils.profiling import count, declare
 
 Tensor = torch.Tensor
 
-#: launches of the kernel by form, counted where the launch succeeds: fp32
-#: q/k/v in LAUNCHES (GPT's full forward as "causal"), bf16 in LAUNCHES_BF16
-LAUNCHES = {"bias_segments": 0, "bias": 0, "bias_key_mask": 0, "key_mask": 0, "none": 0,
-            "causal": 0}
-LAUNCHES_BF16 = {form: 0 for form in LAUNCHES if form != "causal"}
+FORMS = ("bias_segments", "bias", "bias_key_mask", "key_mask", "none")
 DTYPES = (torch.float32, torch.bfloat16)
+#: the launch counters by dtype and form (GPT's full forward: `k2.causal`)
+_LAUNCHED = {torch.float32: declare("k2", *FORMS, "causal"),
+             torch.bfloat16: declare("k2_bf16", *FORMS)}
 
 #: the bf16 core's tiles: 64 query rows a block (one warpgroup), 64 keys a
 #: key tile; a bias box is 64 rows of 128 bytes
@@ -481,7 +481,7 @@ def _launch(q4: Tensor, k4: Tensor, v4: Tensor, key_mask: Optional[Tensor],
                 rc = lib.set_attention_fwd(*pointers, seg, out4.data_ptr(), packed, B, H, Tq, Tk,
                                            hs, scale, *fp32)
     _LIB.check(rc)
-    (LAUNCHES_BF16 if bf16 else LAUNCHES)[_form(key_mask, bias, segments, causal)] += 1
+    count(_LAUNCHED[q4.dtype][_form(key_mask, bias, segments, causal)])
 
 
 def _heads(x: Tensor, n_head: int) -> Tensor:

@@ -25,20 +25,14 @@ from torch import nn
 from multimodal_flows_tpu_torch.config import Config
 from multimodal_flows_tpu_torch.data.state import DataCoupling
 from multimodal_flows_tpu_torch.models.gpt import FlavorSeqGPT
-from multimodal_flows_tpu_torch.ops import btc_attention, set_attention
 from multimodal_flows_tpu_torch.train.systems import _device, _dropout_mode, _placed, _rank_total
-from multimodal_flows_tpu_torch.utils.profiling import span, spanned
+from multimodal_flows_tpu_torch.utils.profiling import (
+    add_counts, captured_counts, count, declare, span, spanned,
+)
 
 Tensor = torch.Tensor
 
-
-#: GPT decode steps by how they ran, and the CUDA graphs captured of a
-#: step (`profiling.take_counters()` reads them as `gpt_decode.<key>`)
-DECODE_STEPS = {"graph_steps": 0, "eager_steps": 0, "captures": 0}
-#: the kernels' launch counters, which count on the host: a graph's launch
-#: adds the counts of the step it replays
-_KERNEL_COUNTERS = (btc_attention.LAUNCHES, btc_attention.LAUNCHES_BF16,
-                    set_attention.LAUNCHES, set_attention.LAUNCHES_BF16)
+declare("gpt_decode", "graph_steps", "eager_steps", "captures")
 
 
 def gumbel_noise(generator: Optional[torch.Generator], shape, device) -> Tensor:
@@ -201,7 +195,7 @@ class _DecodeLoop:
         self.pos = torch.zeros((), dtype=torch.long, device=dev)
         self.capture = capture
         self.graph: Optional[torch.cuda.CUDAGraph] = None
-        self.launches: list = []   # the kernels' counts a replay adds
+        self.counts: Dict[str, int] = {}   # what a replay adds to the counters
 
     def reset(self, gumbel: Tensor) -> None:
         """A call's start: its noise, empty caches, BOS, position 0."""
@@ -235,32 +229,22 @@ class _DecodeLoop:
         side stream followed by the capture, the first time a graph is due)."""
         if self.graph is not None:
             self.graph.replay()
-            for store, counts in self.launches:
-                for form, n in counts.items():
-                    store[form] += n
-            DECODE_STEPS["graph_steps"] += 1
+            add_counts(self.counts)
+            count("gpt_decode.graph_steps")
             return
-        DECODE_STEPS["eager_steps"] += 1
+        count("gpt_decode.eager_steps")
         if not self.capture:
             self.step()
             return
         # warm up on the stream the capture uses (the kernels' attributes,
-        # cuBLAS's workspace), then capture; the capture runs nothing, so
-        # the launches it counted are taken back
+        # cuBLAS's workspace), then capture
         side = torch.cuda.Stream(self.pos.device)
         side.wait_stream(torch.cuda.current_stream(self.pos.device))
         with torch.cuda.stream(side):
             self.step()
-        before = [dict(store) for store in _KERNEL_COUNTERS]
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=side):
+        with captured_counts() as self.counts, torch.cuda.graph(graph, stream=side):
             self.step()
-        self.launches = []
-        for store, was in zip(_KERNEL_COUNTERS, before):
-            counts = {form: store[form] - was[form] for form in store if store[form] != was[form]}
-            if counts:
-                self.launches.append((store, counts))
-            store.update(was)
         torch.cuda.current_stream(self.pos.device).wait_stream(side)
         self.graph = graph
-        DECODE_STEPS["captures"] += 1
+        count("gpt_decode.captures")

@@ -8,10 +8,11 @@ counters.
   range of the same name; a shared no-op when tracing is off;
 - `take_spans()` / `peek_spans()`: the buffered spans, emptied or not;
   `requests(spans, root)`: the spans grouped by request;
-- `take_counters()` / `peek_counters()`: every counter of the port by
-  dotted name, zeroed or not (the kernels' launches by form, the GPT
-  decode's steps by graph replay or eager run and its graph captures, the
-  Lund bias's pair rows and forwards, ...);
+- `declare(prefix, *names)` at a module's import, then `count(name, n)`:
+  the port's counters, one registry by dotted name; `take_counters()` /
+  `peek_counters()` read them and `spans.dropped`, zeroed or not;
+- `captured_counts()` around a CUDA graph's capture, which runs nothing:
+  what it counted, taken back out, for `add_counts` at each replay;
 - `tracing()`: whether spans are kept now (counters that only tracing
   reads count while it is true);
 - `trace(logdir)`: a `torch.profiler` trace of the block, written as a
@@ -185,28 +186,30 @@ def requests(spans: Sequence[Span], root: str, after_ns: int = 0) -> List[List[S
     return [by_root[r] for _, r in tops]
 
 
-def _counter_stores() -> Dict[str, Dict[str, int]]:
-    from multimodal_flows_tpu_torch.models import particle_transformers
-    from multimodal_flows_tpu_torch.ops import (
-        attention, btc_attention, lund_pair_mlp, set_attention,
-    )
-    from multimodal_flows_tpu_torch.train import gpt
+#: every counter of the port by dotted name but the span buffer's own
+_counters: Dict[str, int] = {}
 
-    return {"k1": btc_attention.LAUNCHES, "k1_bf16": btc_attention.LAUNCHES_BF16,
-            "k2": set_attention.LAUNCHES, "k2_bf16": set_attention.LAUNCHES_BF16,
-            "attn.plain_dropout": attention.PLAIN_DROPOUT_CALLS,
-            "gpt_decode": gpt.DECODE_STEPS, "lund": particle_transformers.LUND,
-            "lund_mlp": lund_pair_mlp.ROUTES}
+
+def declare(prefix: str, *names: str) -> Dict[str, str]:
+    """Declare the counters `prefix.name` at 0, so that `peek_counters()`
+    holds them before their first count; returns {name: dotted name}."""
+    dotted = {name: f"{prefix}.{name}" for name in names}
+    for key in dotted.values():
+        _counters.setdefault(key, 0)
+    return dotted
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add `n` to the declared counter `name` (dotted)."""
+    _counters[name] += n
 
 
 def peek_counters() -> Dict[str, int]:
-    """Every counter of the port by dotted name (`k1.segments`,
-    `k2_bf16.bias`, `attn.plain_dropout.head_major`,
-    `gpt_decode.graph_steps`, `lund.pairs`, `lund_mlp.kernel`,
-    `spans.dropped`, ...); the counters keep their values.  They live in
-    their modules' dicts."""
-    out = {f"{prefix}.{key}": value for prefix, store in _counter_stores().items()
-           for key, value in store.items()}
+    """Every counter of the port by dotted name, declared when its module
+    was imported (`k1.segments`, `k2_bf16.bias`, `gpt_decode.graph_steps`,
+    `lund.pairs`, `lund_mlp.kernel`, ...), and `spans.dropped`; the
+    counters keep their values."""
+    out = dict(_counters)
     out["spans.dropped"] = _dropped
     return out
 
@@ -215,11 +218,30 @@ def take_counters() -> Dict[str, int]:
     """`peek_counters()`, every counter then set to zero."""
     global _dropped
     out = peek_counters()
-    for store in _counter_stores().values():
-        for key in store:
-            store[key] = 0
+    for key in _counters:
+        _counters[key] = 0
     _dropped = 0
     return out
+
+
+@contextlib.contextmanager
+def captured_counts() -> Iterator[Dict[str, int]]:
+    """Around the capture of a CUDA graph: yields a dict that holds, after
+    the block, what the block counted, by dotted name.  A capture runs
+    nothing, so that is taken back out of the registry; `add_counts` adds
+    it at each replay."""
+    before, change = dict(_counters), {}
+    yield change
+    change.update((key, n - before.get(key, 0)) for key, n in _counters.items()
+                  if n != before.get(key, 0))
+    for key, n in change.items():
+        _counters[key] -= n
+
+
+def add_counts(change: Mapping[str, int]) -> None:
+    """Add `change` (from `captured_counts`) to the registry: one replay."""
+    for key, n in change.items():
+        _counters[key] += n
 
 
 @contextlib.contextmanager

@@ -12,7 +12,6 @@ import torch
 
 from multimodal_flows_tpu.ops.attention import _xla_attention_btc
 from multimodal_flows_tpu.ops.pallas_attention import pallas_btc_attention
-from multimodal_flows_tpu_torch.ops import attention
 from multimodal_flows_tpu_torch.ops import btc_attention as k1
 from multimodal_flows_tpu_torch.ops.attention import (
     attention_btc_reference,
@@ -24,6 +23,11 @@ torch.set_num_threads(2)
 
 # fp32 on both sides; the sums over <= 12 keys run in another order
 ATOL = 1e-5
+
+
+def _counts(prefix):
+    """The counters `prefix.*` (`utils/profiling.py`), by dotted name."""
+    return {k: v for k, v in profiling.peek_counters().items() if k.startswith(prefix + ".")}
 
 
 def _qkv(B, T, C, seed=0):
@@ -101,7 +105,7 @@ def test_cpu_dispatch_takes_plain_path_without_launching():
     q, k, v, seg = map(_torch, (q, k, v, seg))
     profiling.take_counters()
     out = multihead_attention_btc(q, k, v, 4, segments=seg)
-    assert k1.LAUNCHES == {"segments": 0, "key_mask": 0, "none": 0}
+    assert _counts("k1") == {"k1.segments": 0, "k1.key_mask": 0, "k1.none": 0}
     torch.testing.assert_close(out, attention_btc_reference(q, k, v, 4, segments=seg),
                                rtol=0, atol=0)
 
@@ -118,8 +122,9 @@ def test_kernel_wrapper_refuses_cpu_tensors_and_unported_forms():
     biased = multihead_attention_btc(q, k, v, 4, bias=torch.zeros(2, 1, 6, 6),
                                      dropout_rate=0.1, generator=gen.manual_seed(0))
     torch.testing.assert_close(out, biased, rtol=0, atol=0)
-    assert attention.PLAIN_DROPOUT_CALLS == {"head_major": 0, "token_major": 2}
-    assert k1.LAUNCHES == {"segments": 0, "key_mask": 0, "none": 0}
+    assert _counts("attn.plain_dropout") == {"attn.plain_dropout.head_major": 0,
+                                             "attn.plain_dropout.token_major": 2}
+    assert _counts("k1") == {"k1.segments": 0, "k1.key_mask": 0, "k1.none": 0}
 
 
 def test_autograd_through_reference_matches_jax():

@@ -2,7 +2,8 @@
 package: the port's dispatcher with `causal=True` and `FlavorSeqGPT`'s
 attention equal JAX's `_xla_attention_btc` under the causal bias of
 `multimodal_flows_tpu/models/gpt.py:71-72`, forward and q/k/v gradients;
-GPT's full forward marks every attention call causal and its decode none;
+GPT's full forward marks every attention call causal, with no bias, and
+its decode none; the dispatcher refuses a bias with `causal=True`;
 the wrapper refuses what the causal form does not take before it looks at
 the device; the kernel's autograd backward recomputes with the causal
 bias.  Inputs are made with numpy from a seed.  The kernel itself runs on
@@ -23,6 +24,7 @@ from multimodal_flows_tpu_torch.models import attention as mattn
 from multimodal_flows_tpu_torch.models.gpt import FlavorSeqGPT
 from multimodal_flows_tpu_torch.ops import set_attention as k2
 from multimodal_flows_tpu_torch.ops.attention import causal_bias, multihead_attention_btc
+from multimodal_flows_tpu_torch.utils import profiling
 
 torch.set_num_threads(2)
 
@@ -57,14 +59,17 @@ def _jax_out_and_grads(q, k, v, up):
 @pytest.mark.parametrize("with_bias", [False, True])
 @pytest.mark.parametrize("T", [1, 17, 65])
 def test_causal_dispatch_matches_jax(T, with_bias):
-    """`multihead_attention_btc(causal=True)` on CPU tensors, with GPT's own
-    bias or building it, equals `_xla_attention_btc` under the causal bias,
-    forward and the q/k/v gradients (T = 65 is one past a 64-row block)."""
+    """`multihead_attention_btc(causal=True)` on CPU tensors builds the
+    causal bias itself (a bias passed with it is refused) and equals
+    `_xla_attention_btc` under the causal bias, forward and the q/k/v
+    gradients (T = 65 is one past a 64-row block)."""
     q, k, v, up = _inputs(3, T, 32, seed=T)
     ref, ref_grads = _jax_out_and_grads(q, k, v, jnp.asarray(up))
     leaves = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
-    bias = causal_bias(T, torch.device("cpu")) if with_bias else None
-    out = multihead_attention_btc(*leaves, H, bias, causal=True)
+    if with_bias:
+        with pytest.raises(ValueError, match="no bias"):
+            multihead_attention_btc(*leaves, H, causal_bias(T, torch.device("cpu")), causal=True)
+    out = multihead_attention_btc(*leaves, H, causal=True)
     (out * torch.from_numpy(up)).sum().backward()
     np.testing.assert_allclose(out.detach().numpy(), ref, atol=ATOL, rtol=0)
     for leaf, g in zip(leaves, ref_grads):
@@ -97,8 +102,8 @@ def _gpt(seed=0):
 @pytest.mark.parametrize("T", [1, 65])
 def test_gpt_forward_attention_is_causal_and_matches_jax(monkeypatch, T):
     """Every attention call of `FlavorSeqGPT.forward` is marked causal, gets
-    GPT's causal bias, and equals `_xla_attention_btc` under JAX's causal
-    bias on the same q/k/v; its q/k/v gradients do too."""
+    no bias (the dispatcher builds it), and equals `_xla_attention_btc`
+    under JAX's causal bias on the same q/k/v; its q/k/v gradients do too."""
     calls = _record(monkeypatch)
     model = _gpt()
     ids = torch.from_numpy(np.random.default_rng(T).integers(0, 13, size=(2, T)))
@@ -107,14 +112,13 @@ def test_gpt_forward_attention_is_causal_and_matches_jax(monkeypatch, T):
     assert len(calls) == model.config.n_layer
     for call in calls:
         assert call["causal"] and call["n_head"] == H and call["key_mask"] is None
-        torch.testing.assert_close(call["bias"], causal_bias(T, torch.device("cpu")),
-                                   rtol=0, atol=0)
+        assert call["bias"] is None
         q, k, v = (call[n].numpy() for n in ("q", "k", "v"))
         up = np.random.default_rng(1).normal(size=q.shape).astype(np.float32)
         ref, ref_grads = _jax_out_and_grads(q, k, v, jnp.asarray(up))
         np.testing.assert_allclose(call["out"].numpy(), ref, atol=ATOL, rtol=0)
         leaves = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
-        out = multihead_attention_btc(*leaves, H, call["bias"], causal=True)
+        out = multihead_attention_btc(*leaves, H, causal=True)
         (out * torch.from_numpy(up)).sum().backward()
         for leaf, g in zip(leaves, ref_grads):
             np.testing.assert_allclose(leaf.grad.numpy(), g, atol=ATOL, rtol=0)
@@ -179,7 +183,7 @@ def test_causal_form_refuses_what_it_does_not_take():
         k2.set_attention_btc(xb, xb, xb, 2, causal=True)
     with pytest.raises(ValueError, match="CUDA"):  # a well-formed call: the device check
         k2.set_attention_btc(x, x, x, 2, causal=True)
-    assert k2.LAUNCHES["causal"] == 0
+    assert profiling.peek_counters()["k2.causal"] == 0
 
 
 def test_causal_backward_recomputes_with_the_causal_bias():

@@ -108,11 +108,11 @@ def test_the_flax_tree_loads_strictly_and_the_causal_bias_is_no_parameter():
     jsys, params, system = _pair()
     names = set(params_from_flax(_to_numpy(params["params"])))
     assert names == set(system.module.state_dict())
-    assert "causal_bias" not in system.module.state_dict()
+    assert not dict(system.module.named_buffers())   # the causal bias is built in ops
     assert {"wte.weight", "wpe.weight", "block_1.attn.c_attn.weight", "block_1.ffw.c_fc.bias",
             "ln_f.weight", "lm_head.weight"} <= names
     assert "lm_head.bias" not in names and "block_0.attn.q_layernorm.weight" not in names
-    bias = system.module.causal_bias
+    bias = attention.causal_bias(system.module.seq_len, system.device)
     assert bias.shape == (1, 1, 8, 8) and bias[0, 0, 2, 3] == -1e9 and bias[0, 0, 3, 2] == 0
 
 
@@ -289,7 +289,7 @@ def test_each_dropout_acts_in_train_mode_only(rate):
                             for s in (1, 1, 2))
     assert det[0] == det[1] and r1 != det[0] and r1 == r1_again and r1 != r2
     assert not system.module.training
-    calls = attention.PLAIN_DROPOUT_CALLS["token_major"]
+    calls = profiling.peek_counters()["attn.plain_dropout.token_major"]
     assert calls == (3 * SMALL["n_layer"] if rate == "dropout_att" else 0)
 
 

@@ -339,9 +339,6 @@ def test_dropout_train_step_takes_plain_attention_and_is_seeded():
     no dropout path; the module's mode is restored.  On the CPU neither
     kernel is launched in any of this."""
     from multimodal_flows_tpu_torch.data.state import DataCoupling
-    from multimodal_flows_tpu_torch.ops import attention
-    from multimodal_flows_tpu_torch.ops import btc_attention as k1
-    from multimodal_flows_tpu_torch.ops import set_attention as k2
 
     cfg_kw = dict(SMALL, multitask_loss="time-weighted")
     plain = MMF(Config(**cfg_kw), device="cpu", generator=torch.Generator().manual_seed(0))
@@ -355,7 +352,10 @@ def test_dropout_train_step_takes_plain_attention_and_is_seeded():
     profiling.take_counters()
     losses = [dropped.loss_fn(batch, torch.Generator().manual_seed(s), train=True)[0].item()
               for s in (0, 0, 1)]
-    assert attention.PLAIN_DROPOUT_CALLS == {"head_major": 0, "token_major": 3 * 5}
+    dropout_calls = {k: v for k, v in profiling.peek_counters().items()
+                     if k.startswith("attn.plain_dropout.")}
+    assert dropout_calls == {"attn.plain_dropout.head_major": 0,
+                             "attn.plain_dropout.token_major": 3 * 5}
     assert losses[0] == losses[1] != losses[2] and np.isfinite(losses).all()
     assert not dropped.module.training
 
@@ -364,8 +364,8 @@ def test_dropout_train_step_takes_plain_attention_and_is_seeded():
         held = float(dropped.loss_fn(batch, torch.Generator().manual_seed(0), train=False)[0])
         ref = float(plain.loss_fn(batch, torch.Generator().manual_seed(0), train=True)[0])
     assert held == ref and held != losses[0]
-    assert sum(attention.PLAIN_DROPOUT_CALLS.values()) == 0
-    assert sum(k1.LAUNCHES.values()) == 0 and sum(k2.LAUNCHES.values()) == 0
+    assert not any(v for k, v in profiling.peek_counters().items()
+                   if k.startswith(("attn.plain_dropout.", "k1.", "k2.")))
 
 
 def test_attention_prob_dropout_keep_fraction_and_scaling():

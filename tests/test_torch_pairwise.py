@@ -39,8 +39,6 @@ from multimodal_flows_tpu_torch.dynamics import solvers
 from multimodal_flows_tpu_torch.models import particle_transformers as pt
 from multimodal_flows_tpu_torch.models.attention import CrossAttention
 from multimodal_flows_tpu_torch.models.registry import build_model
-from multimodal_flows_tpu_torch.ops import btc_attention as k1
-from multimodal_flows_tpu_torch.ops import set_attention as k2
 from multimodal_flows_tpu_torch.sampling.generator import generate_packed
 from multimodal_flows_tpu_torch.train import systems
 from multimodal_flows_tpu_torch.train.trainer import Trainer
@@ -377,7 +375,8 @@ def test_generate_packed_runs_each_system_on_cpu(kind, cfg_kw):
     assert ((s.discrete >= 0) & (s.discrete < cfg.vocab_size)).all()
     pad = s.mask[..., 0] == 0
     assert (s.continuous[pad] == 0).all() and (s.discrete[pad] == 0).all()
-    assert sum(k1.LAUNCHES.values()) == 0 and sum(k2.LAUNCHES.values()) == 0
+    assert not any(v for k, v in profiling.peek_counters().items()
+                   if k.startswith(("k1.", "k2.")))
 
 
 def test_unported_modes_raise_with_roadmap_pointer():

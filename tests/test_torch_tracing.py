@@ -4,6 +4,9 @@ clock, the spans of the sampler, the GPT decode and the trainer, the
 counters behind `take_counters`, and the benchmark's readers of the spans
 (`bench_torch/metrics/*_host_*.py`) on a hand-built trace."""
 
+import ast
+import importlib
+import inspect
 import sys
 import time
 import tracemalloc
@@ -20,13 +23,8 @@ from multimodal_flows_tpu_torch.config import Config
 from multimodal_flows_tpu_torch.data import packing
 from multimodal_flows_tpu_torch.data.datasets import ArrayDataset
 from multimodal_flows_tpu_torch.data.state import DataCoupling, MultiModal
-from multimodal_flows_tpu_torch.models import particle_transformers
-from multimodal_flows_tpu_torch.ops import attention
-from multimodal_flows_tpu_torch.ops import btc_attention as k1
-from multimodal_flows_tpu_torch.ops import lund_pair_mlp
-from multimodal_flows_tpu_torch.ops import set_attention as k2
+from multimodal_flows_tpu_torch.ops import btc_attention  # noqa: F401 (declares k1.*)
 from multimodal_flows_tpu_torch.sampling import generator as gen_mod
-from multimodal_flows_tpu_torch.train import gpt as gpt_train
 from multimodal_flows_tpu_torch.train import systems
 from multimodal_flows_tpu_torch.train.gpt import GPT
 from multimodal_flows_tpu_torch.train.trainer import Trainer
@@ -162,34 +160,66 @@ def test_a_profiler_session_records_spans_on_its_clock():
     assert np.median(opens) < CLOCK_NS and np.median(closes) < CLOCK_NS, (opens, closes)
 
 
+#: every counter of the port, declared by the modules that count them
+EVERY_COUNTER = (
+    {f"k1.{f}" for f in ("segments", "key_mask", "none")}
+    | {f"k1_bf16.{f}" for f in ("segments", "key_mask", "none")}
+    | {f"k2.{f}" for f in ("bias_segments", "bias", "bias_key_mask", "key_mask", "none",
+                           "causal")}
+    | {f"k2_bf16.{f}" for f in ("bias_segments", "bias", "bias_key_mask", "key_mask", "none")}
+    | {"attn.plain_dropout.head_major", "attn.plain_dropout.token_major"}
+    | {"gpt_decode.graph_steps", "gpt_decode.eager_steps", "gpt_decode.captures"}
+    | {"lund.pairs", "lund.forwards"} | {"lund_mlp.kernel", "lund_mlp.plain"}
+    | {"spans.dropped"})
+
+
 def test_take_counters_reads_and_zeroes_every_counter():
     profiling.take_counters()
-    k1.LAUNCHES["segments"] += 3
-    k1.LAUNCHES_BF16["none"] += 1
-    k2.LAUNCHES["causal"] += 5
-    k2.LAUNCHES_BF16["bias"] += 2
-    attention.PLAIN_DROPOUT_CALLS["head_major"] += 4
-    gpt_train.DECODE_STEPS["graph_steps"] += 6
-    particle_transformers.LUND["pairs"] += 7
-    lund_pair_mlp.ROUTES["kernel"] += 8
+    counted = {"k1.segments": 3, "k1_bf16.none": 1, "k2.causal": 5, "k2_bf16.bias": 2,
+               "attn.plain_dropout.head_major": 4, "gpt_decode.graph_steps": 6,
+               "lund.pairs": 7, "lund_mlp.kernel": 8}
+    for name, n in counted.items():
+        profiling.count(name, n)
     assert profiling.peek_counters() == profiling.peek_counters()  # peeking zeroes nothing
     got = profiling.take_counters()
-    expect = ({f"k1.{f}" for f in k1.LAUNCHES} | {f"k1_bf16.{f}" for f in k1.LAUNCHES_BF16}
-              | {f"k2.{f}" for f in k2.LAUNCHES} | {f"k2_bf16.{f}" for f in k2.LAUNCHES_BF16}
-              | {f"attn.plain_dropout.{f}" for f in attention.PLAIN_DROPOUT_CALLS}
-              | {"gpt_decode.graph_steps", "gpt_decode.eager_steps", "gpt_decode.captures"}
-              | {"lund.pairs", "lund.forwards"} | {"lund_mlp.kernel", "lund_mlp.plain"}
-              | {"spans.dropped"})
-    assert set(got) == expect
-    assert {k: v for k, v in got.items() if v} == {
-        "k1.segments": 3, "k1_bf16.none": 1, "k2.causal": 5, "k2_bf16.bias": 2,
-        "attn.plain_dropout.head_major": 4, "gpt_decode.graph_steps": 6, "lund.pairs": 7,
-        "lund_mlp.kernel": 8}
-    for store in (k1.LAUNCHES, k1.LAUNCHES_BF16, k2.LAUNCHES, k2.LAUNCHES_BF16,
-                  attention.PLAIN_DROPOUT_CALLS, gpt_train.DECODE_STEPS,
-                  particle_transformers.LUND, lund_pair_mlp.ROUTES):
-        assert not any(store.values())
-    assert not any(profiling.take_counters().values())
+    assert set(got) == EVERY_COUNTER
+    assert {k: v for k, v in got.items() if v} == counted
+    assert not any(profiling.peek_counters().values())
+    with pytest.raises(KeyError):  # a counter is declared before it counts
+        profiling.count("k1.undeclared")
+
+
+def test_captured_counts_takes_a_capture_back_and_each_replay_adds_it():
+    """Around a capture (here a fake one that counts, as a CUDA graph's
+    capture runs the step's host code) the helper gives the block's change
+    over the whole registry and leaves the registry as it was; each replay
+    adds the change."""
+    profiling.take_counters()
+    profiling.count("k2.key_mask", 2)
+    with profiling.captured_counts() as change:
+        profiling.count("k2.key_mask", 5)
+        profiling.count("lund.pairs", 3)
+    assert change == {"k2.key_mask": 5, "lund.pairs": 3}
+    assert {k: v for k, v in profiling.peek_counters().items() if v} == {"k2.key_mask": 2}
+    profiling.add_counts(change)
+    profiling.add_counts(change)
+    assert {k: v for k, v in profiling.take_counters().items() if v} == {
+        "k2.key_mask": 12, "lund.pairs": 6}
+
+
+@pytest.mark.parametrize("module,allowed", [
+    # the counters' and spans' home sits below every layer of the port
+    ("multimodal_flows_tpu_torch.utils.profiling", ()),
+    # the GPT system reaches the kernels through its model, never directly
+    ("multimodal_flows_tpu_torch.train.gpt", ("config", "data", "models", "train", "utils")),
+])
+def test_layer_imports_no_module_above_it(module, allowed):
+    tree = ast.parse(inspect.getsource(importlib.import_module(module)))
+    imported = [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)]
+    imported += [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+    ours = [name.split(".")[1] for name in imported
+            if name.startswith("multimodal_flows_tpu_torch.")]
+    assert all(layer in allowed for layer in ours), ours
 
 
 # ------------------------------------------------------ spans in the program
