@@ -52,6 +52,13 @@
      the card against the CPU on one packed batch with shared bridge
      states, then one optimizer update from the same gradients on both;
    - 30 steps on one fixed batch with fixed draws: the loss falls;
+   - the train step as one CUDA graph (`train_graph_check`), for the
+     flagship MMF on packed rows and for GPT: 6 steps captured and
+     replayed against the same 6 steps run eagerly from one state and one
+     seed (losses, weights, Adam's moments, EMA within 1e-6), one capture
+     and 5 replays, the replays under the sync-debug mode "error"; a
+     bucketed fit captures once a width; a checkpoint taken after replayed
+     steps resumes to the run it came from;
    - the main path: `Trainer.fit` of the flagship, packed rows of 128,
      256 jets a step, EMA, 2 epochs, counts set to 0 just before and read
      just after: K1 in its segment form (the wide jets as one-jet rows at
@@ -182,11 +189,13 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
 from torch import nn
 
+from bench_torch.drivers.common import moved_rows
 from multimodal_flows_tpu_torch.cli import sample_mmf, toy_tutorial, train_mmf
 from multimodal_flows_tpu_torch.config import Config
 from multimodal_flows_tpu_torch.data.aoj import extract_metadata
@@ -1326,6 +1335,180 @@ def time_training(dev, trainer, state, train_ds, n=20, n_prof=5, label="flagship
                 memcpy_per_step=sum(c for name, _, c in prof.kernels if "Memcpy" in name))
 
 
+#: graph against eager steps: the worst leaf's gap, against the larger of its
+#: norm and the median leaf's (`_leaf_gap`); the eager route itself moves
+#: from run to run (the per-jet sums' atomics, the last bits of a backward),
+#: and under Adam the rows that move by round-off alone (a key's bias
+#: under softmax) move as far as lr: the weights are compared on the rows
+#: that the gradient moves (`bench_torch.drivers.common.moved_rows` of
+#: Adam's first moment), as the benchmark's `change_leaf_gap` is
+GRAPH_STEPS, GRAPH_RTOL = 6, 1e-6
+
+
+def _leaf_gap(a: dict, b: dict, rows: Optional[dict] = None) -> float:
+    """max over the leaves n of ||a_n - b_n|| / max(||b_n||, the median
+    leaf's ||b||), each leaf cut to its `rows[n]` where given."""
+    if rows is not None:
+        a = {n: a[n][r] for n, r in rows.items()}
+        b = {n: b[n][r] for n, r in rows.items()}
+    norms = {n: float(t.double().norm()) for n, t in b.items()}
+    med = float(np.median(list(norms.values())))
+    return max(float((a[n].double() - t.double()).norm()) / max(v, med, 1e-30)
+               for (n, t), v in zip(b.items(), norms.values()))
+
+
+def _state_leaves(state) -> dict:
+    """Host copies of a train state's weights, Adam's moments and EMA
+    weights: {kind: {name: tensor}}."""
+    opt = state.optimizer
+    named = list(state.module.named_parameters())
+    out = {"weights": {n: p.detach().cpu() for n, p in named},
+           "exp_avg": {n: opt.state[p]["exp_avg"].cpu() for n, p in named},
+           "exp_avg_sq": {n: opt.state[p]["exp_avg_sq"].cpu() for n, p in named}}
+    if state.ema is not None:
+        out["ema"] = {n: p.detach().cpu() for n, p in state.ema.named_parameters()}
+    return out
+
+
+def _state_gaps(a: dict, b: dict) -> dict:
+    """`_leaf_gap` of each kind of `_state_leaves`: the weights and the EMA
+    weights on the rows that `b`'s first moment moves."""
+    rows = moved_rows(b["exp_avg"])
+    return {kind: _leaf_gap(a[kind], b[kind], rows if kind in ("weights", "ema") else None)
+            for kind in b}
+
+
+def _graph_counters() -> dict:
+    return _group(profiling.peek_counters(), "train_graph")
+
+
+def _graph_vs_eager(name, dev, kind, cfg, batches) -> dict:
+    """`len(batches)` steps from one state and one seed through
+    `Trainer._train_step` (the graph: the first step eager, the second
+    captured, the rest replayed under the sync-debug mode "error") and
+    through `_eager_step`: their losses, weights, Adam's moments and EMA
+    weights, the graph counters and the kernels' launches."""
+    sides = {}
+    for route in ("graph", "eager"):
+        system = build_system(cfg, kind, device=dev, generator=torch.Generator().manual_seed(0))
+        trainer = Trainer(system, cfg)
+        state = trainer.init_state(len(batches))
+        gen = torch.Generator(device=dev).manual_seed(0)
+        system.module.train()
+        torch.cuda.synchronize()
+        profiling.take_counters()
+        losses = []
+        for i, b in enumerate(batches):
+            if route == "eager":
+                losses.append(trainer._eager_step(state, b, gen)["loss"])
+                continue
+            torch.cuda.set_sync_debug_mode("error" if i >= 2 else "default")
+            try:
+                losses.append(trainer._train_step(state, b, gen)["loss"])
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        sides[route] = dict(losses=torch.stack(losses).cpu(), leaves=_state_leaves(state),
+                            counters=_graph_counters(), keys=len(state.graphs),
+                            launches=_counts())
+        system.module.eval()
+        del trainer, state, system
+    g, e = sides["graph"], sides["eager"]
+    loss_gap = float(((g["losses"] - e["losses"]).abs() / e["losses"].abs()).max())
+    gaps = _state_gaps(g["leaves"], e["leaves"])
+    n = len(batches)
+    if n != GRAPH_STEPS:
+        raise AssertionError(f"{name}: {n} batches, not {GRAPH_STEPS}")
+    want = {"captures": 1, "replays": n - 1, "eager_steps": 1}
+    print(f"{name}, {n} steps as one CUDA graph against eager: losses "
+          f"{np.round(g['losses'].numpy(), 6).tolist()}, worst loss rel gap {loss_gap:.3e}; "
+          f"leaf gaps {({k: f'{v:.3e}' for k, v in gaps.items()})} (<= {GRAPH_RTOL}); "
+          f"counters {g['counters']}; launches equal {g['launches'] == e['launches']}")
+    if not (loss_gap <= GRAPH_RTOL and max(gaps.values()) <= GRAPH_RTOL
+            and g["counters"] == want and g["keys"] == 1 and g["launches"] == e["launches"]):
+        raise AssertionError(f"{name}: the graph's steps differ from the eager steps, or it did "
+                             f"not capture once and replay {n - 1} times ({want})")
+    return dict(loss_rel_gap=loss_gap, leaf_gaps=gaps, counters=g["counters"])
+
+
+def train_graph_check(dev, train_ds, val_ds, out_dir) -> dict:
+    """The train step as one CUDA graph (`Trainer._graph_step`).  The
+    flagship MMF on GRAPH_STEPS packed batches of different rows (so
+    different segment ids under one graph) and GPT on as many batches of
+    sequences: graph against eager (`_graph_vs_eager`).  A bucketed fit
+    of 2 epochs: one key and one capture a width, every other step a
+    replay.  A 2-epoch fit against the same fit resumed from its epoch-1
+    checkpoint (saved after replayed steps): the same weights, moments
+    and EMA."""
+    out = {}
+    cfg = Config(**TRAIN)
+    trainer = Trainer(build_system(cfg, "MMF", device=dev), cfg)
+    unit = trainer._pack_units(train_ds)[0]
+    idx = trainer._epoch_perm(len(unit), trainer._packed_row_bs, shuffle=True, seed=0,
+                              epoch=0)[:GRAPH_STEPS]
+    batches = list(trainer._batches(trainer._resident(unit), idx))
+    if any(torch.equal(a.segments, b.segments) for a, b in zip(batches, batches[1:])):
+        raise AssertionError("train graph check: two successive batches share segment ids")
+    del trainer
+    out["mmf"] = _graph_vs_eager("flagship MMF", dev, "MMF", cfg, batches)
+
+    gpt_cfg, _ = train_mmf.experiment_configs(GPT_ARGV + ["--dir", out_dir])
+    rng = np.random.default_rng(17)
+    x, tok, mask = _physical_jets(rng, _jets(rng, 2 * GPT_JETS, 4))
+    gpt_ds, _ = train_mmf.split_jets(MultiModal(continuous=x, discrete=tok, mask=mask),
+                                     gpt_cfg, "GPT")
+    trainer = Trainer(build_system(gpt_cfg, "GPT", device=dev), gpt_cfg)
+    idx = trainer._epoch_perm(len(gpt_ds), gpt_cfg.batch_size, shuffle=True, seed=0,
+                              epoch=0)[:GRAPH_STEPS]
+    batches = list(trainer._batches(trainer._resident(gpt_ds), idx))
+    del trainer
+    out["gpt"] = _graph_vs_eager("GPT", dev, "GPT", gpt_cfg, batches)
+
+    # a bucketed fit: a graph a width
+    cfg = Config(**dict(TRAIN_BUCKETED, max_epochs=2), dir=out_dir,
+                 experiment_id="graph_buckets")
+    b_train, b_val = _bucket_data(np.random.default_rng(6))
+    trainer = Trainer(build_system(cfg, "MMF", device=dev,
+                                   generator=torch.Generator().manual_seed(0)), cfg)
+    widths = [w for w, _, _ in trainer._bucketize(b_train, min_size=cfg.batch_size)]
+    profiling.take_counters()
+    state = trainer.fit(b_train, b_val)
+    counters = _graph_counters()
+    keyed = sorted({name: shape for name, shape, _ in key[3]}[".target.mask"][1]
+                   for key in state.graphs)
+    print(f"bucketed fit, 2 epochs, {state.step} steps: graph keys at widths {keyed} (bucket "
+          f"widths {widths}); counters {counters}")
+    if not (keyed == sorted(widths) and counters["captures"] == len(widths)
+            and counters["eager_steps"] == len(widths)
+            and counters["replays"] == state.step - len(widths)):
+        raise AssertionError("bucketed fit: not one graph and one capture a width")
+    out["bucketed"] = dict(widths=keyed, steps=state.step, counters=counters)
+    del trainer, state
+
+    # resumed from the checkpoint of epoch 1 against the uninterrupted fit
+    states = []
+    for exp, ckpt in (("graph_full", None),
+                      ("graph_resumed", os.path.join(out_dir, cfg.project, "graph_full",
+                                                     "checkpoints", "best-ep1.pt"))):
+        cfg = Config(**TRAIN, dir=out_dir, experiment_id=exp, ckpt_path=ckpt)
+        system = build_system(cfg, "MMF", device=dev, generator=torch.Generator().manual_seed(0))
+        profiling.take_counters()
+        state = Trainer(system, cfg).fit(train_ds, val_ds)
+        states.append((state.step, _state_leaves(state), _graph_counters()))
+        del system, state
+    (full_steps, full, full_counters), (resumed_steps, resumed, resumed_counters) = states
+    gaps = _state_gaps(resumed, full)
+    print(f"resumed from the epoch-1 checkpoint: {resumed_steps} steps against {full_steps} "
+          f"(counters {resumed_counters} against {full_counters}); leaf gaps "
+          f"{({k: f'{v:.3e}' for k, v in gaps.items()})} (<= {GRAPH_RTOL})")
+    if not (resumed_steps == full_steps and max(gaps.values()) <= GRAPH_RTOL
+            and full_counters["replays"] and resumed_counters["captures"] == 1):
+        raise AssertionError("a fit resumed from a checkpoint taken after replayed steps does "
+                             "not equal the run it was taken from")
+    out["resume_leaf_gaps"] = gaps
+    return out
+
+
 def train_coocc(dev, train_ds, steps=5, cfg_kw=TRAIN_COOCC, k2_counter="K2"):
     """5 train steps of the co-occurrence MMF: K2 in its bias + segments
     form, forward and (through the plain version) backward with the bias's
@@ -1762,17 +1945,21 @@ def _read_events(path):
 
 class _Forwards:
     """Counts the forwards of every module of class `cls` while it is
-    active."""
+    active (`count` after the block), through the counter registry
+    (`smoke.forwards`, declared at the first block: the port's tests import
+    this script and hold the port's own counters), so that a captured
+    train step's forwards count at each of its replays."""
 
     def __init__(self, cls=particle_transformers.ParticleFormer):
         self.cls = cls
 
     def __enter__(self):
-        self.count = 0
+        profiling.declare("smoke", "forwards")
+        self._start = profiling.peek_counters()["smoke.forwards"]
         self._forward = forward = self.cls.forward
 
         def counted(module, *args, **kw):
-            self.count += 1
+            profiling.count("smoke.forwards")
             return forward(module, *args, **kw)
 
         self.cls.forward = counted
@@ -1780,6 +1967,7 @@ class _Forwards:
 
     def __exit__(self, *exc):
         self.cls.forward = self._forward
+        self.count = profiling.peek_counters()["smoke.forwards"] - self._start
 
 
 def cli_entry_points(dev, out_dir):
@@ -3408,6 +3596,7 @@ def main() -> None:
     fit_fixed_batch(dev, train_ds)
     steps_timed = []
     with tempfile.TemporaryDirectory(dir=build_dir) as out_dir:
+        train_graph = train_graph_check(dev, train_ds, val_ds, out_dir)
         train_launches, trainer, state, peak = train_flagship(dev, train_ds, val_ds, out_dir)
         steps_timed.append(dict(time_training(dev, trainer, state, train_ds),
                                 peak_mib=peak / 2**20))
@@ -3469,7 +3658,7 @@ def main() -> None:
     print(json.dumps({"training": {"card": card, "shape": "packed rows of 128, 256 jets/step",
                                    "steps": steps_timed,
                                    "dropout_forward_attention_ms": dropout_attention,
-                                   "physics_eval": physics}}))
+                                   "physics_eval": physics, "graph": train_graph}}))
 
     def timed(name, times=times, tag=""):
         out = {}

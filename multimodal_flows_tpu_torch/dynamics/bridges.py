@@ -11,7 +11,10 @@
   and the solvers.
 
 Times are per jet (B,) or, on packed training rows, per token (B, W).
-Randomness comes from explicit `torch.Generator`s.  Bridge math is fp32:
+Randomness comes from explicit `torch.Generator`s, or is injected: each
+draw has its own function (`noise`, `source_tokens`, `site_uniforms`) and
+the functions that use it take it as an argument (the training losses
+draw before they compute, `train/systems.py`).  Bridge math is fp32:
 the posterior divides by p(k1 | k0) and the rate by (1 - w_t), which lose
 precision in low precision near the time endpoints.
 """
@@ -39,19 +42,28 @@ class UniformFlow:
     def __init__(self, sigma: float):
         self.sigma = float(sigma)
 
+    @staticmethod
+    def noise(generator: Optional[torch.Generator], x: Tensor) -> Tensor:
+        """Standard normals at the shape and on the device of `x`, fp32:
+        the draw of `draw_source` and of `sample`."""
+        return torch.randn(x.shape, generator=generator, dtype=torch.float32, device=x.device)
+
     def draw_source(self, generator: Optional[torch.Generator], x1: Tensor,
-                    mask: Tensor) -> Tensor:
-        """Masked standard-normal source."""
-        x0 = torch.randn(x1.shape, generator=generator, dtype=torch.float32,
-                         device=x1.device)
-        return x0 * mask
+                    mask: Tensor, z: Optional[Tensor] = None) -> Tensor:
+        """Masked standard-normal source; `z` the normals (`noise`), drawn
+        from `generator` when not given."""
+        if z is None:
+            z = self.noise(generator, x1)
+        return z * mask
 
     def sample(self, generator: Optional[torch.Generator], t: Tensor, x0: Tensor,
-               x1: Tensor) -> Tensor:
-        """Interpolant state xt at time t, (B,) or (B, W)."""
+               x1: Tensor, z: Optional[Tensor] = None) -> Tensor:
+        """Interpolant state xt at time t, (B,) or (B, W); `z` the normals
+        (`noise` at x1's shape), drawn from `generator` when not given."""
         tb = _bcast_time(t.to(torch.float32), x1.dim())
         xt = tb * x1 + (1.0 - tb) * x0
-        z = torch.randn(xt.shape, generator=generator, dtype=xt.dtype, device=xt.device)
+        if z is None:
+            z = self.noise(generator, xt)
         return xt + self.sigma * z
 
     def conditional_drift(self, xt: Tensor, x0: Tensor, x1: Tensor) -> Tensor:
@@ -73,12 +85,20 @@ class RandomTelegraphBridge:
         self.thermostat = thermostat or ConstantThermostat(beta, vocab_size)
         self.top_k = top_k
 
+    def source_tokens(self, generator: Optional[torch.Generator], shape: Tuple[int, ...],
+                      device) -> Tensor:
+        """Uniform random tokens in {1..S-1}, int32: the draw of
+        `draw_source`."""
+        return torch.randint(1, self.vocab_size, shape, generator=generator,
+                             dtype=torch.int32, device=device)
+
     def draw_source(self, generator: Optional[torch.Generator], shape: Tuple[int, ...],
-                    mask: Tensor) -> Tensor:
-        """Uniform random tokens in {1..S-1}, masked."""
-        k0 = torch.randint(1, self.vocab_size, shape, generator=generator,
-                           dtype=torch.int32, device=mask.device)
-        return k0 * mask.to(torch.int32)
+                    mask: Tensor, tokens: Optional[Tensor] = None) -> Tensor:
+        """Uniform random tokens in {1..S-1}, masked; `tokens` the unmasked
+        draw (`source_tokens`), made from `generator` when not given."""
+        if tokens is None:
+            tokens = self.source_tokens(generator, shape, mask.device)
+        return tokens * mask.to(torch.int32)
 
     def conditional_probability(self, t_in, t_out, k_in: Tensor, k_out: Tensor) -> Tensor:
         """P(x(t_out) = k_out | x(t_in) = k_in); times are scalars, per-jet
@@ -103,14 +123,22 @@ class RandomTelegraphBridge:
         p_k0_to_k1 = self.conditional_probability(zero, 1.0, k0b, k1b)   # (B,D,1)
         return (p_k_to_k1 * p_k0_to_k) / p_k0_to_k1
 
+    @staticmethod
+    def site_uniforms(generator: Optional[torch.Generator], k: Tensor) -> Tensor:
+        """One uniform on [0, 1) a site of the (B, D) or (B, D, 1) tokens
+        `k`, (B, D) fp32: the draw of `sample`."""
+        return torch.rand(k.shape[:2], generator=generator, dtype=torch.float32,
+                          device=k.device)
+
     def sample(self, generator: Optional[torch.Generator], t: Tensor, k0: Tensor,
-               k1: Tensor) -> Tensor:
+               k1: Tensor, u: Optional[Tensor] = None) -> Tensor:
         """Draw k_t from the posterior (top-k filtered when the bridge has
-        a `top_k`); returns (B, D, 1) int32."""
+        a `top_k`) by one uniform a site, `u` (`site_uniforms`) or drawn
+        from `generator`; returns (B, D, 1) int32."""
         probs = self.transition_probability(t, k0, k1)
         if self.top_k is not None:
             probs = top_k_filter(probs, self.top_k)
-        return sample_categorical(generator, probs).to(torch.int32)[..., None]
+        return sample_categorical(generator, probs, u).to(torch.int32)[..., None]
 
     def rate(self, t: Tensor, k: Tensor, probs: Tensor) -> Tensor:
         """Model-guided jump rate at sampling time:

@@ -10,7 +10,8 @@ The draw at each step is argmax(logits + Gumbel noise), which is what
 `jax.random.categorical` computes; the noise comes from an explicit
 `torch.Generator`, or is injected (`gumbel=`) so that a test can share it
 with the JAX package.  The system has the trainer's interface of the flow
-systems (`loss_fn(batch, generator, train, module)`, `.module`, `.device`).
+systems (`loss_fn(batch, generator, train, module, rows)`, split into
+`loss_draws` and `loss_from_draws`; `dropout_rate`, `.module`, `.device`).
 """
 
 from __future__ import annotations
@@ -62,9 +63,29 @@ class GPT:
 
     # ----------------------------------------------------------------- loss
 
+    @property
+    def dropout_rate(self) -> float:
+        """The largest dropout rate of a train-mode forward."""
+        cfg = self.config
+        return max(cfg.dropout_att, cfg.dropout_emb, cfg.dropout_res)
+
+    def loss_draws(self, batch: DataCoupling,
+                   generator: Optional[torch.Generator] = None) -> Dict[str, Tensor]:
+        """The loss's draws outside the forward: none (the dropout masks are
+        drawn inside it)."""
+        return {}
+
     def loss_fn(self, batch: DataCoupling, generator: Optional[torch.Generator] = None,
                 train: bool = True, module: Optional[nn.Module] = None,
                 rows: Optional[slice] = None) -> Tuple[Tensor, Dict[str, Tensor]]:
+        return self.loss_from_draws(batch, self.loss_draws(batch, generator), train, module,
+                                    rows, generator)
+
+    def loss_from_draws(self, batch: DataCoupling, draws: Dict[str, Tensor],
+                        train: bool = True, module: Optional[nn.Module] = None,
+                        rows: Optional[slice] = None,
+                        generator: Optional[torch.Generator] = None
+                        ) -> Tuple[Tensor, Dict[str, Tensor]]:
         """Next-token CE over the token sequences `batch.target.discrete`
         (B, T) or (B, T, 1); positions whose target is PAD are ignored.
         With `train` and a dropout rate > 0 the forward runs in train mode,
@@ -72,7 +93,6 @@ class GPT:
         forward runs on those rows and the sum divides by their share of
         the batch's target count."""
         module = module or self.module
-        cfg = self.config
         tokens = batch.target.discrete
         if tokens.ndim == 3:
             tokens = tokens[..., 0]
@@ -81,8 +101,7 @@ class GPT:
         total = _rank_total((tokens[:, 1:] != self.pad_token).sum(), rows, n)
         if rows is not None:
             tokens = tokens[rows]
-        rate = max(cfg.dropout_att, cfg.dropout_emb, cfg.dropout_res)
-        with _dropout_mode(module, rate, train, generator, rows, n):
+        with _dropout_mode(module, self.dropout_rate, train, generator, rows, n):
             logits = module(tokens)
         # predict token t+1 from the prefix <= t
         logp = F.log_softmax(logits[:, :-1].to(torch.float32), dim=-1)

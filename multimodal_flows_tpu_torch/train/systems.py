@@ -11,7 +11,14 @@ unless the caller asks for the CPU; without CUDA the default raises.
 `loss_fn(batch, generator, train, module, rows)` takes a `DataCoupling`
 or packed rows (`PackedJets`) on the system's device, draws t, the sources
 and the bridge states from `generator` (on the same device), and returns
-(loss, metrics) of `module` (the system's own, or e.g. its EMA copy).
+(loss, metrics) of `module` (the system's own, or e.g. its EMA copy).  It
+is two calls: `loss_draws(batch, generator)`, every draw of the loss in
+the order it has always made them (a dict of raw uniforms, normals and
+tokens at the batch's shapes), then `loss_from_draws(batch, draws, ...)`,
+which draws nothing but the dropout masks of a train-mode forward at
+`dropout_rate > 0`.  So the trainer can make the draws before a captured
+step and feed them to it (`train/trainer.py`); a seed gives the same draws
+on either route.
 Under data parallelism every rank holds the whole global batch and makes
 every draw at its shape, then runs the forward on its `rows` alone, with
 the loss's denominator taken over the global batch (`train/losses.py`):
@@ -109,11 +116,18 @@ def _dropout_mode(module: nn.Module, rate: float, train: bool,
         module.train(was_training)
 
 
+def _time_uniforms(generator: Optional[torch.Generator], shape, device: torch.device) -> Tensor:
+    """The uniforms of `_sample_time`."""
+    return torch.rand(shape, generator=generator, dtype=torch.float32, device=device)
+
+
 def _sample_time(generator: Optional[torch.Generator], shape, eps: float,
-                 device: torch.device) -> Tensor:
+                 device: torch.device, u: Optional[Tensor] = None) -> Tensor:
     """t = eps + (1 - eps) U[0, 1): (B,) for plain batches, (B, J) for
-    packed rows (one t per jet slot)."""
-    u = torch.rand(shape, generator=generator, dtype=torch.float32, device=device)
+    packed rows (one t per jet slot); `u` the uniforms (`_time_uniforms`),
+    drawn from `generator` when not given."""
+    if u is None:
+        u = _time_uniforms(generator, shape, device)
     return eps + (1.0 - eps) * u
 
 
@@ -135,6 +149,89 @@ def _rank_total(weight_sum: Tensor, rows: Optional[slice], n: int) -> Optional[T
 
 def _take(rows: Optional[slice], *tensors):
     return tensors if rows is None else tuple(t[rows] for t in tensors)
+
+
+def _fields(batch):
+    """(x1, k1, mask, x0, k0, the shape of t's draw) of padded jets (a
+    `DataCoupling`, its sources where it holds them: None where the loss
+    draws them) or of packed rows (the loss draws every source)."""
+    if isinstance(batch, PackedJets):
+        return (batch.continuous, batch.discrete, batch.mask, None, None,
+                tuple(batch.jet_valid.shape))
+    target, source = batch.target, batch.source
+    return (target.continuous, target.discrete, target.mask, source.continuous,
+            source.discrete, (len(target),))
+
+
+def _segments(batch) -> Tuple[Optional[Tensor], Optional[int]]:
+    """The segment ids and the most jets a row holds of packed rows; (None,
+    None) for padded jets."""
+    if isinstance(batch, PackedJets):
+        return batch.segments, batch.jet_valid.shape[1]
+    return None, None
+
+
+class _BridgeLoss:
+    """The flow systems' loss, split into its draws and the computation
+    that takes them (`loss_draws`, `loss_from_draws`); `loss_fn` is both.
+    A system has `bridge_continuous`, `bridge_discrete` or both."""
+
+    @property
+    def dropout_rate(self) -> float:
+        """The largest dropout rate of a train-mode forward."""
+        return self.config.dropout
+
+    def loss_draws(self, batch, generator: Optional[torch.Generator] = None
+                   ) -> Dict[str, Tensor]:
+        """Every draw of the loss, from `generator` on the batch's device,
+        in this order: t's uniforms ("t": (B,) a jet, (B, J) a packed
+        slot), the sources the batch does not hold (the kinematic normals
+        "x0", the token source's unmasked tokens "k0"), the interpolant's
+        normals ("xt") and one uniform a site for the token bridge's draw
+        ("kt"), each for the bridges the system has."""
+        x1, k1, mask, x0, k0, t_shape = _fields(batch)
+        cont, disc = self._bridges()
+        draws = {"t": _time_uniforms(generator, t_shape, mask.device)}
+        if cont is not None and x0 is None:
+            draws["x0"] = cont.noise(generator, x1)
+        if disc is not None and k0 is None:
+            draws["k0"] = disc.source_tokens(generator, k1.shape, mask.device)
+        if cont is not None:
+            draws["xt"] = cont.noise(generator, x1)
+        if disc is not None:
+            draws["kt"] = disc.site_uniforms(generator, k1)
+        return draws
+
+    def loss_fn(self, batch, generator: Optional[torch.Generator] = None, train: bool = True,
+                module: Optional[nn.Module] = None, rows: Optional[slice] = None
+                ) -> Tuple[Tensor, Dict[str, Tensor]]:
+        """`loss_from_draws` at the draws `loss_draws` makes from
+        `generator`, which then gives the dropout masks."""
+        return self.loss_from_draws(batch, self.loss_draws(batch, generator), train, module,
+                                    rows, generator)
+
+    def _bridges(self) -> Tuple[Optional[UniformFlow], Optional[RandomTelegraphBridge]]:
+        return getattr(self, "bridge_continuous", None), getattr(self, "bridge_discrete", None)
+
+    def _bridge_states(self, batch, draws: Dict[str, Tensor]):
+        """(t, time, x0, xt, kt) of the batch at the draws: t a jet, or a
+        jet slot on packed rows; the time the bridges and the model take (t,
+        or t a token on packed rows); the kinematic source and state, and
+        the token state (None for a bridge the system lacks)."""
+        x1, k1, mask, x0, k0, t_shape = _fields(batch)
+        t = _sample_time(None, t_shape, self.config.time_eps, mask.device, draws["t"])
+        time = _token_time(t, batch.segments) if isinstance(batch, PackedJets) else t
+        cont, disc = self._bridges()
+        xt = kt = None
+        if cont is not None:
+            if x0 is None:
+                x0 = cont.draw_source(None, x1, mask, draws["x0"])
+            xt = cont.sample(None, time, x0, x1, draws["xt"])
+        if disc is not None:
+            if k0 is None:
+                k0 = disc.draw_source(None, k1.shape, mask, draws["k0"])
+            kt = disc.sample(None, time, k0, k1, draws["kt"])
+        return t, time, x0, xt, kt
 
 
 def _mmf_metrics(out) -> Tuple[Tensor, Dict[str, Tensor]]:
@@ -178,7 +275,7 @@ class MMFModel(nn.Module):
                               weights=jet_valid.reshape(-1), total=total)
 
 
-class MMF:
+class MMF(_BridgeLoss):
     """MultiModal Flow Bridge: the multitask loss and the hybrid tau-leap
     sampler.  The weights are drawn from `generator` (a CPU generator, so
     a seed gives the same weights on every device) and the module is moved
@@ -195,58 +292,34 @@ class MMF:
         self.bridge_continuous = UniformFlow(config.sigma)
         self.bridge_discrete = RandomTelegraphBridge(config.beta, config.vocab_size, thermostat)
 
-    def loss_fn(self, batch, generator: Optional[torch.Generator] = None, train: bool = True,
-                module: Optional[nn.Module] = None, rows: Optional[slice] = None
-                ) -> Tuple[Tensor, Dict[str, Tensor]]:
-        if isinstance(batch, PackedJets):
-            return self.packed_loss_fn(batch, generator, train, module, rows)
+    def loss_from_draws(self, batch, draws: Dict[str, Tensor], train: bool = True,
+                        module: Optional[nn.Module] = None, rows: Optional[slice] = None,
+                        generator: Optional[torch.Generator] = None
+                        ) -> Tuple[Tensor, Dict[str, Tensor]]:
+        """The multitask loss of `module` at the draws of `loss_draws`.  On
+        packed rows each jet has its own t and the bridges take per-token
+        time.  With `rows`, the forward runs on those rows: the plain mean
+        of padded jets (equal shares), the means of packed rows divided by
+        their share of the batch's jet count."""
         module = module or self.module
-        target, mask = batch.target, batch.target.mask
-        t = _sample_time(generator, (len(target),), self.config.time_eps, mask.device)
-        x0 = batch.source.continuous
-        if x0 is None:
-            x0 = self.bridge_continuous.draw_source(generator, target.continuous, mask)
-        k0 = batch.source.discrete
-        if k0 is None:
-            k0 = self.bridge_discrete.draw_source(generator, target.discrete.shape, mask)
-        xt = self.bridge_continuous.sample(generator, t, x0, target.continuous)
-        kt = self.bridge_discrete.sample(generator, t, k0, target.discrete)
-        state = MultiModal(time=t, continuous=xt, discrete=kt, mask=mask)
-        drift = self.bridge_continuous.conditional_drift(xt, x0, target.continuous)
-        if rows is not None:  # the jets are equal shares: the plain mean of the rows
-            state, drift, k1 = state[rows], drift[rows], target.discrete[rows]
-        else:
-            k1 = target.discrete
-        with _dropout_mode(module, self.config.dropout, train, generator, rows, len(target)):
-            return _mmf_metrics(module.training_loss(state, drift, k1))
-
-    def packed_loss_fn(self, batch: PackedJets, generator: Optional[torch.Generator] = None,
-                       train: bool = True, module: Optional[nn.Module] = None,
-                       rows: Optional[slice] = None) -> Tuple[Tensor, Dict[str, Tensor]]:
-        """The loss over packed rows: each jet draws its own t, the bridges
-        take per-token time.  With `rows`, the forward runs on those rows
-        and the means divide by their share of the batch's jet count."""
-        module = module or self.module
-        mask = batch.mask
-        t_jets = _sample_time(generator, batch.jet_valid.shape, self.config.time_eps,
-                              mask.device)
-        t_tok = _token_time(t_jets, batch.segments)
-        x1, k1 = batch.continuous, batch.discrete
-        x0 = self.bridge_continuous.draw_source(generator, x1, mask)
-        k0 = self.bridge_discrete.draw_source(generator, k1.shape, mask)
-        xt = self.bridge_continuous.sample(generator, t_tok, x0, x1)
-        kt = self.bridge_discrete.sample(generator, t_tok, k0, k1)
-        state = MultiModal(time=t_tok, continuous=xt, discrete=kt, mask=mask)
+        x1, k1, mask, _, _, _ = _fields(batch)
+        t, time, x0, xt, kt = self._bridge_states(batch, draws)
+        state = MultiModal(time=time, continuous=xt, discrete=kt, mask=mask)
         drift = self.bridge_continuous.conditional_drift(xt, x0, x1)
+        dropout = _dropout_mode(module, self.dropout_rate, train, generator, rows, len(batch))
+        if not isinstance(batch, PackedJets):
+            if rows is not None:
+                state, drift, k1 = state[rows], drift[rows], k1[rows]
+            with dropout:
+                return _mmf_metrics(module.training_loss(state, drift, k1))
         total = _rank_total(batch.jet_valid.sum(), rows, len(batch))
         segments, jet_valid = batch.segments, batch.jet_valid
         if rows is not None:
             state = state[rows]
-            drift, k1, t_jets, segments, jet_valid = _take(rows, drift, k1, t_jets, segments,
-                                                           jet_valid)
-        with _dropout_mode(module, self.config.dropout, train, generator, rows, len(batch)):
+            drift, k1, t, segments, jet_valid = _take(rows, drift, k1, t, segments, jet_valid)
+        with dropout:
             return _mmf_metrics(module.packed_training_loss(
-                state, drift, k1, t_jets, segments, jet_valid, total))
+                state, drift, k1, t, segments, jet_valid, total))
 
     def make_solver(self, temperature: Optional[float] = None, top_k=None, top_p=None,
                     segments: Optional[Tensor] = None,
@@ -282,7 +355,7 @@ class MMF:
                         use_final_max_rates=use_final_max_rates, draw_rows=draw_rows)
 
 
-class CFM:
+class CFM(_BridgeLoss):
     """Continuous-only conditional flow matching, euler sampler.  The
     module is the encoder itself (flax tree `params`)."""
 
@@ -295,34 +368,26 @@ class CFM:
         self.module = _placed(build_model(config), self.device, generator)
         self.bridge_continuous = UniformFlow(config.sigma)
 
-    def loss_fn(self, batch, generator: Optional[torch.Generator] = None, train: bool = True,
-                module: Optional[nn.Module] = None, rows: Optional[slice] = None
-                ) -> Tuple[Tensor, Dict[str, Tensor]]:
-        """Masked MSE over the whole batch; on packed rows each jet draws
-        its own t.  The normalisation counts the same real tokens packed
-        or not.  With `rows`, the forward runs on those rows and the sum
-        divides by their share of the batch's count."""
+    def loss_from_draws(self, batch, draws: Dict[str, Tensor], train: bool = True,
+                        module: Optional[nn.Module] = None, rows: Optional[slice] = None,
+                        generator: Optional[torch.Generator] = None
+                        ) -> Tuple[Tensor, Dict[str, Tensor]]:
+        """Masked MSE over the whole batch at the draws of `loss_draws`; on
+        packed rows each jet has its own t.  The normalisation counts the
+        same real tokens packed or not.  With `rows`, the forward runs on
+        those rows and the sum divides by their share of the batch's
+        count."""
         module = module or self.module
-        segments = num_segments = None
-        if isinstance(batch, PackedJets):
-            mask, x1, x0, segments = batch.mask, batch.continuous, None, batch.segments
-            num_segments = batch.jet_valid.shape[1]
-            t = _token_time(_sample_time(generator, batch.jet_valid.shape,
-                                         self.config.time_eps, mask.device), segments)
-        else:
-            mask, x1, x0 = batch.target.mask, batch.target.continuous, batch.source.continuous
-            t = _sample_time(generator, (len(batch.target),), self.config.time_eps,
-                             mask.device)
-        if x0 is None:
-            x0 = self.bridge_continuous.draw_source(generator, x1, mask)
-        xt = self.bridge_continuous.sample(generator, t, x0, x1)
+        x1, _, mask, _, _, _ = _fields(batch)
+        _, t, x0, xt, _ = self._bridge_states(batch, draws)
+        segments, num_segments = _segments(batch)
         drift = self.bridge_continuous.conditional_drift(xt, x0, x1)
         n = len(mask)
         total = _rank_total(mask.sum(), rows, n)
         t, xt, mask, drift = _take(rows, t, xt, mask, drift)
         if segments is not None:
             (segments,) = _take(rows, segments)
-        with _dropout_mode(module, self.config.dropout, train, generator, rows, n):
+        with _dropout_mode(module, self.dropout_rate, train, generator, rows, n):
             vt = module(MultiModal(time=t, continuous=xt, mask=mask), segments, num_segments)
         loss = global_masked_mse(vt, drift, mask, total)
         return loss, {"loss": loss, "loss_mse": loss}
@@ -348,7 +413,7 @@ class CFM:
                         return_trajectory=return_trajectory, draw_rows=draw_rows)
 
 
-class MJB:
+class MJB(_BridgeLoss):
     """Discrete-only Markov jump bridge, Poisson tau-leap sampler.  The
     module is the encoder itself (flax tree `params`)."""
 
@@ -362,31 +427,23 @@ class MJB:
         thermostat = ConstantThermostat(config.beta, config.vocab_size)
         self.bridge_discrete = RandomTelegraphBridge(config.beta, config.vocab_size, thermostat)
 
-    def loss_fn(self, batch, generator: Optional[torch.Generator] = None, train: bool = True,
-                module: Optional[nn.Module] = None, rows: Optional[slice] = None
-                ) -> Tuple[Tensor, Dict[str, Tensor]]:
-        """Masked CE over the whole batch; on packed rows each jet draws its
-        own t.  With `rows`, as `CFM.loss_fn`."""
+    def loss_from_draws(self, batch, draws: Dict[str, Tensor], train: bool = True,
+                        module: Optional[nn.Module] = None, rows: Optional[slice] = None,
+                        generator: Optional[torch.Generator] = None
+                        ) -> Tuple[Tensor, Dict[str, Tensor]]:
+        """Masked CE over the whole batch at the draws of `loss_draws`; on
+        packed rows each jet has its own t.  With `rows`, as
+        `CFM.loss_from_draws`."""
         module = module or self.module
-        segments = num_segments = None
-        if isinstance(batch, PackedJets):
-            mask, k1, k0, segments = batch.mask, batch.discrete, None, batch.segments
-            num_segments = batch.jet_valid.shape[1]
-            t = _token_time(_sample_time(generator, batch.jet_valid.shape,
-                                         self.config.time_eps, mask.device), segments)
-        else:
-            mask, k1, k0 = batch.target.mask, batch.target.discrete, batch.source.discrete
-            t = _sample_time(generator, (len(batch.target),), self.config.time_eps,
-                             mask.device)
-        if k0 is None:
-            k0 = self.bridge_discrete.draw_source(generator, k1.shape, mask)
-        kt = self.bridge_discrete.sample(generator, t, k0, k1)
+        _, k1, mask, _, _, _ = _fields(batch)
+        _, t, _, _, kt = self._bridge_states(batch, draws)
+        segments, num_segments = _segments(batch)
         n = len(mask)
         total = _rank_total(mask.sum(), rows, n)
         t, kt, mask, k1 = _take(rows, t, kt, mask, k1)
         if segments is not None:
             (segments,) = _take(rows, segments)
-        with _dropout_mode(module, self.config.dropout, train, generator, rows, n):
+        with _dropout_mode(module, self.dropout_rate, train, generator, rows, n):
             logits = module(MultiModal(time=t, discrete=kt, mask=mask), segments, num_segments)
         loss = global_masked_ce(logits, k1, mask, total)
         return loss, {"loss": loss, "loss_ce": loss}

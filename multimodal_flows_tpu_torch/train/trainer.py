@@ -52,10 +52,28 @@ in one collective at the end of a unit's epoch.  Checkpoints hold the
 full tensors whatever the layout (`parallel.tensor_parallel`); rank 0
 writes them and the metric files.
 
+On one CUDA device a step is a CUDA graph (`_graph_step`): loss, backward,
+clip, Adam and EMA captured once for each key (the module, the batch's
+field names, shapes and dtypes, the device; bucketed training has one a
+width, all in one memory pool) and replayed after.  The step's draws are
+made before it from the caller's generator (`loss_draws`, the eager
+route's draws in its order) and copied with the batch into the key's
+static inputs, Adam's rate is written into its 0-d device tensor, and the
+step's scalars are copied out of the graph's outputs.  A key's first step
+runs eagerly on the stream the capture uses, its second is captured and
+replayed once, and no step runs twice.  The CPU, every mesh, dropout
+(whose masks the forward draws) and a loss without `loss_draws` take the
+eager route, the same code op by op.  On CUDA without a mesh Adam is
+fused and capturable on both routes: its step counts and its rate live on
+the card, so an update reads nothing back to the host.  The counters
+`train_graph.captures`, `train_graph.replays` and
+`train_graph.eager_steps` say which route each step took.
+
 A step is the span `train.step` (`utils/profiling.py`): `train.loss`,
 `train.backward`, `train.update` (`train.clip`, `train.adam`, `train.ema`);
 `fit` adds `train.batch`, `train.fetch`, `train.validate`,
-`train.physics_eval` and `train.checkpoint`.
+`train.physics_eval` and `train.checkpoint`.  A replayed step is the
+`train.step` span alone: its phases ran at the capture.
 """
 
 from __future__ import annotations
@@ -65,7 +83,7 @@ import dataclasses
 import math
 import os
 import time
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -95,10 +113,14 @@ from multimodal_flows_tpu_torch.train.checkpoints import CheckpointManager
 from multimodal_flows_tpu_torch.train.ema import ema_update
 from multimodal_flows_tpu_torch.train.lr_schedules import warmup_cosine_epoch_schedule
 from multimodal_flows_tpu_torch.utils.logger import MetricsLogger, SimpleLogger as log
-from multimodal_flows_tpu_torch.utils.profiling import span, spanned
+from multimodal_flows_tpu_torch.utils.profiling import (
+    add_counts, captured_counts, count, declare, span, spanned,
+)
 
 # Adam as optax.adam builds it: eps outside the square root, no weight decay
 ADAM_BETAS, ADAM_EPS = (0.9, 0.999), 1e-8
+
+declare("train_graph", "captures", "replays", "eager_steps")
 
 
 @dataclasses.dataclass
@@ -107,6 +129,8 @@ class TrainState:
     optimizer: torch.optim.Optimizer
     ema: Optional[nn.Module]          # an EMA copy of `module`, None when EMA is off
     step: int                         # optimizer updates so far
+    # the captured steps of this state by `_graph_key`; they hold its tensors
+    graphs: Dict[tuple, "_StepGraph"] = dataclasses.field(default_factory=dict, repr=False)
 
 
 def _seed(*parts: int) -> int:
@@ -132,17 +156,27 @@ class Trainer:
         self.device = system.device
         self._packed_row_bs = None  # rows per step in packed training (_pack_units)
         self._physics_ref = None    # (reference observables, masks) of the physics eval
+        self._graph_pool = None     # the memory pool every captured step shares
 
     # ------------------------------------------------------------ building
 
     def make_optimizer(self, steps_per_epoch: int) -> torch.optim.Optimizer:
         """Adam over every parameter of the system's module (the multitask
-        loss's included); `_apply_gradients` clips first and sets the rate."""
+        loss's included); `_update` clips first and sets the rate.  On one
+        CUDA device Adam is capturable, its rate a 0-d tensor on the card
+        (`_set_rate`), and fused: one kernel updates every parameter, with
+        the bias corrections in double as on the host (the capturable
+        foreach Adam takes them in fp32, 1 - 0.999 off by 1.3e-5, and adds
+        two kernels a parameter)."""
         cfg = self.config
         self.lr_schedule = warmup_cosine_epoch_schedule(
             cfg.lr, cfg.lr_final, cfg.warmup_epochs, cfg.max_epochs, steps_per_epoch)
-        return torch.optim.Adam(self.system.module.parameters(), lr=self.lr_schedule(0),
-                                betas=ADAM_BETAS, eps=ADAM_EPS, weight_decay=0.0)
+        params, lr = self.system.module.parameters(), self.lr_schedule(0)
+        if self.device.type == "cuda" and self.mesh is None:
+            return torch.optim.Adam(params, lr=torch.full((), lr, device=self.device),
+                                    betas=ADAM_BETAS, eps=ADAM_EPS, weight_decay=0.0,
+                                    capturable=True, fused=True)
+        return torch.optim.Adam(params, lr=lr, betas=ADAM_BETAS, eps=ADAM_EPS, weight_decay=0.0)
 
     def init_state(self, steps_per_epoch: int) -> TrainState:
         """The system's module in the mesh's layout (sharded in place), its
@@ -187,14 +221,25 @@ class Trainer:
             torch._foreach_mul_(tpar.local_tensors(grads),
                                 torch.clamp(cfg.gradient_clip_val / grad_norm, max=1.0))
         with span("train.adam"):
-            for group in state.optimizer.param_groups:
-                group["lr"] = self.lr_schedule(state.step)
+            # a replay's rate is written before it (`_graph_step`)
+            if not (self.device.type == "cuda" and torch.cuda.is_current_stream_capturing()):
+                self._set_rate(state)
             state.optimizer.step()
         if state.ema is not None:
             with span("train.ema"):
                 ema_update(state.ema.parameters(), params, cfg.ema_decay)
         state.step += 1
         return grad_norm.detach()
+
+    def _set_rate(self, state: TrainState) -> None:
+        """Adam's rate for the update at `state.step`: a fill of its 0-d
+        device tensor (no sync; what a replay reads), or a float."""
+        rate = self.lr_schedule(state.step)
+        for group in state.optimizer.param_groups:
+            if torch.is_tensor(group["lr"]):
+                group["lr"].fill_(rate)
+            else:
+                group["lr"] = rate
 
     @torch.no_grad()
     def _average_gradients(self, grads: List[torch.Tensor]) -> None:
@@ -216,11 +261,64 @@ class Trainer:
 
     @spanned("train.step")
     def _train_step(self, state: TrainState, batch, generator: torch.Generator):
+        """One step on `batch` with the draws from `generator`: captured and
+        replayed where `_graphable`, else run eagerly.  Returns the step's
+        metrics (its loss terms and `grad_norm`), tensors of its own."""
+        if self._graphable(state):
+            return self._graph_step(state, batch, generator)
+        count("train_graph.eager_steps")
+        return self._eager_step(state, batch, generator)
+
+    def _eager_step(self, state: TrainState, batch, generator: torch.Generator):
+        """The step op by op: the system's loss (its draws from
+        `generator`), then `_apply_gradients`."""
         with span("train.loss"):
             loss, metrics = self.system.loss_fn(batch, generator, train=True,
                                                 module=state.module,
                                                 rows=data_rows(len(batch), self.mesh))
         return self._apply_gradients(state, loss, metrics)
+
+    def _graphable(self, state: TrainState) -> bool:
+        """A step is captured on one CUDA device (no mesh: no collective in
+        it) with a capturable Adam, when the loss's draws come apart from
+        it (`loss_draws`) and no dropout mask is drawn inside the forward,
+        outside another capture."""
+        return (self.mesh is None and self.device.type == "cuda"
+                and hasattr(self.system, "loss_draws") and self.system.dropout_rate == 0
+                and all(g["capturable"] for g in state.optimizer.param_groups)
+                and not torch.cuda.is_current_stream_capturing())
+
+    def _step_of_draws(self, state: TrainState, batch, draws: Dict[str, torch.Tensor]):
+        """The step at the draws `draws`: what a graph captures."""
+        with span("train.loss"):
+            loss, metrics = self.system.loss_from_draws(batch, draws, train=True,
+                                                        module=state.module)
+        return self._apply_gradients(state, loss, metrics)
+
+    def _graph_step(self, state: TrainState, batch, generator: torch.Generator):
+        """A step on the captured route (module docstring).  The draws are
+        made here, eagerly, whatever the step does with them."""
+        draws = self.system.loss_draws(batch, generator)
+        key = _graph_key(state.module, batch, self.device)
+        step = state.graphs.get(key)
+        if step is None:
+            step = state.graphs[key] = _StepGraph(batch, draws, self.device)
+            count("train_graph.eager_steps")
+            return step.run_eagerly(lambda: self._step_of_draws(state, step.batch, step.draws))
+        step.feed(batch, draws)
+        self._set_rate(state)
+        if step.graph is None:
+            if self._graph_pool is None:
+                self._graph_pool = torch.cuda.graph_pool_handle()
+            # the backward allocates the gradients in the graph's pool
+            state.optimizer.zero_grad(set_to_none=True)
+            # the capture runs `_update` once on the host, which counts this step
+            step.capture(lambda: self._step_of_draws(state, step.batch, step.draws),
+                         self._graph_pool, state.module)
+            count("train_graph.captures")
+        else:
+            state.step += 1
+        return step.replay()
 
     @torch.no_grad()
     def _eval_step(self, module: nn.Module, batch, generator: torch.Generator):
@@ -598,23 +696,104 @@ class Trainer:
     @staticmethod
     def _from_ckpt(state: TrainState, restored: dict) -> int:
         """Restore `state` in place from a single-device checkpoint, each
-        tensor cut to this rank's share; returns the checkpoint's epoch."""
+        tensor cut to this rank's share; returns the checkpoint's epoch.
+        The optimizer keeps its own form whatever device wrote the
+        checkpoint (a fused, capturable Adam with its rate on the card, or
+        floats), and the captured steps, which hold the replaced tensors,
+        go."""
         tpar.load_full_state_dict(state.module, restored["params"])
+        saved = restored["opt_state"]
+        groups = [dict(s, **{k: g[k] for k in ("lr", "capturable", "fused", "foreach")})
+                  for s, g in zip(saved["param_groups"], state.optimizer.param_groups)]
         tpar.load_full_optimizer_state_dict(state.module, state.optimizer,
-                                            restored["opt_state"])
+                                            dict(saved, param_groups=groups))
         if state.ema is not None and "ema_params" in restored:
             tpar.load_full_state_dict(state.ema, restored["ema_params"])
         state.step = int(restored["step"])
+        state.graphs.clear()
         return int(restored["epoch"])
+
+
+def _named_leaves(x, prefix: str = ""):
+    """(dotted field name, array) of each array of a (nested) dataclass of
+    arrays."""
+    if dataclasses.is_dataclass(x):
+        for f in dataclasses.fields(x):
+            yield from _named_leaves(getattr(x, f.name), prefix + "." + f.name)
+    elif x is not None:
+        yield prefix, x
 
 
 def _leaves(x):
     """The arrays of a (nested) dataclass of arrays."""
-    if dataclasses.is_dataclass(x):
-        for f in dataclasses.fields(x):
-            yield from _leaves(getattr(x, f.name))
-    elif x is not None:
-        yield x
+    return (a for _, a in _named_leaves(x))
+
+
+def _graph_key(module: nn.Module, batch, device: torch.device) -> tuple:
+    """What a captured step bakes in: the module (by identity), the
+    batch's type and each field's name, shape and dtype, and the device."""
+    return (id(module), type(batch).__name__, device,
+            tuple((name, tuple(a.shape), a.dtype) for name, a in _named_leaves(batch)))
+
+
+class _StepGraph:
+    """One key's captured step: static copies of the batch and the draws
+    (the first step's own), the side stream of the first step and the
+    capture, the graph, its outputs, what its capture counted, and the
+    gradient tensors it writes."""
+
+    def __init__(self, batch, draws: Dict[str, torch.Tensor], device: torch.device):
+        self.batch = batch.map(torch.clone)
+        self.draws = draws
+        self.device = device
+        self.stream = torch.cuda.Stream(device)
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.outputs: Dict[str, torch.Tensor] = {}
+        self.counts: Dict[str, int] = {}
+        self.params: List[torch.Tensor] = []
+        self.grads: List[torch.Tensor] = []
+
+    def run_eagerly(self, step: Callable):
+        """The first step, eagerly on the stream the capture will use (the
+        kernels' attributes and cuBLAS's workspace are set up there)."""
+        current = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(current)
+        with torch.cuda.stream(self.stream):
+            out = step()
+        current.wait_stream(self.stream)
+        return out
+
+    def feed(self, batch, draws: Dict[str, torch.Tensor]) -> None:
+        """This step's batch and draws into the static inputs."""
+        torch._foreach_copy_(list(_leaves(self.batch)), list(_leaves(batch)))
+        if draws:
+            torch._foreach_copy_(list(self.draws.values()), list(draws.values()))
+
+    def capture(self, step: Callable, pool, module: nn.Module) -> None:
+        """Capture `step` into the graph (which runs nothing) on the side
+        stream, in `pool`; what it counted waits for the replays."""
+        self.stream.wait_stream(torch.cuda.current_stream(self.device))
+        graph = torch.cuda.CUDAGraph()
+        with captured_counts() as self.counts, torch.cuda.graph(graph, pool=pool,
+                                                                stream=self.stream):
+            self.outputs = step()
+        torch.cuda.current_stream(self.device).wait_stream(self.stream)
+        self.params = list(module.parameters())
+        self.grads = [p.grad for p in self.params]
+        self.graph = graph
+
+    def replay(self) -> Dict[str, torch.Tensor]:
+        """Run the graph on the current stream; the parameters' `.grad` are
+        its gradients again (another key's step may have moved them), and
+        the step's scalars come back in one copy that no replay overwrites."""
+        self.graph.replay()
+        add_counts(self.counts)
+        count("train_graph.replays")
+        if self.params[0].grad is not self.grads[0]:
+            for p, g in zip(self.params, self.grads):
+                p.grad = g
+        values = torch.stack(list(self.outputs.values()))
+        return dict(zip(self.outputs, values.unbind()))
 
 
 def _combine_stacked(accum, weights, prefix: str = "", inner_weights=None) -> Dict[str, float]:

@@ -170,6 +170,7 @@ EVERY_COUNTER = (
     | {"attn.plain_dropout.head_major", "attn.plain_dropout.token_major"}
     | {"gpt_decode.graph_steps", "gpt_decode.eager_steps", "gpt_decode.captures"}
     | {"lund.pairs", "lund.forwards"} | {"lund_mlp.kernel", "lund_mlp.plain"}
+    | {"train_graph.captures", "train_graph.replays", "train_graph.eager_steps"}
     | {"spans.dropped"})
 
 
