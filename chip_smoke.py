@@ -24,6 +24,12 @@
    refusal of widths and head counts it does not take, its
    Function's gradient, and its time beside the plain version's and its
    bound (no library call computes it).
+   ParT (`part_phase`): K2's bias + segments form at head size 16
+   (B=128, T=128, H=8, C=128) against the plain version and timed beside
+   it; CFM + ParticleTransformer through `generate_packed` (K2 bias +
+   segments and bias, no K1, one `part.pair_embed` span and one K2 launch
+   a block a forward); the pair embedding's share of a forward.  Its K2
+   launches, error and time go into K2's entry of the kernels line.
 4. Times each kernel, its plain version and one PyTorch call of the same
    function (`scaled_dot_product_attention` with the equivalent float
    mask) at the packed-row shapes, C=128 and C=256, and K1 in its key-mask
@@ -959,6 +965,76 @@ def lund_pair_mlp_phase(dev) -> dict:
         raise AssertionError("the Lund pair MLP kernel takes more than a quarter of the plain "
                              f"version's time at {LUND_TIMED[0]}")
     return {"max_abs_err": err, "max_sym_gap": sym_err, "build_s": build_s, "times": times}
+
+
+# ------------------------------------------------------------- ParT (CFM)
+
+#: CFM over the Particle Transformer at the published widths of
+#: `bench_torch/configs/cfm-part.json` (8 heads of 16, 8 blocks), on the
+#: Lund configuration's metadata
+PART = dict(model="ParticleTransformer", n_embd=128, n_inner=512, n_layer=8, n_head=8,
+            vocab_size=9, dim_continuous=3, max_num_particles=150, qk_layernorm=False,
+            metadata=LUND_METADATA)
+#: K2's bias + segments form at ParT's packed rows: B=128 rows of T=128,
+#: C=128 over H=8 heads of 16 (the head size's 32 bucket, half padding)
+PART_K2_SHAPE = (128, 128, 128, 8)
+
+
+def part_phase(dev) -> dict:
+    """K2's bias + segments form at ParT's head size 16 against the plain
+    attention (and timed beside it), then CFM + ParT through
+    `generate_packed`: K2 bias + segments on the packed rows, its bias form
+    on the jets wider than a row, no K1, one `part.pair_embed` span and one
+    K2 launch a block a forward."""
+    q, k, v, km, seg, bias, real = _case_inputs(PART_K2_SHAPE, "bias_segments", dev)
+    H = PART_K2_SHAPE[3]
+    err = _held(f"K2 vs plain {PART_K2_SHAPE} bias_segments (head size 16)",
+                k2.set_attention_btc(q, k, v, H, km, bias, seg),
+                attention_btc_reference(q, k, v, H, km, seg, bias), real)
+    times = _time_packed(PART_K2_SHAPE, dev)["K2"]
+
+    system = _system("CFM", PART, dev)
+    mult = _jets(np.random.default_rng(9), 128, 2)
+    launches, _ = drive("CFM + ParticleTransformer", system, mult, 10,
+                        lambda l1, l2: ("did not run K2 as bias + segments and as bias"
+                                        if not (l2["bias_segments"] and l2["bias"])
+                                        else "launched K1" if _total(l1) else ""))
+    profiling.take_counters()
+    profiling.take_spans()
+    profiling.record_spans(True)
+    try:
+        generate_packed(system, _pad_masks(mult[:-2], PART["max_num_particles"]),
+                        num_timesteps=3, pack_width=128, batch_size=128, seed=1)
+    finally:
+        profiling.record_spans(False)
+    spans = profiling.take_spans()
+    c = profiling.take_counters()
+    steps = sum(s.name == "solver.step" for s in spans)
+    pair = sum(s.name == "part.pair_embed" for s in spans)
+    k2_launches = _total(_group(c, "k2"))
+    print(f"CFM + ParticleTransformer: {steps} solver steps, {pair} pair embeddings, "
+          f"part.forwards {c['part.forwards']}, K2 launches {k2_launches}")
+    if (not steps or not (pair == steps == c["part.forwards"])
+            or k2_launches != PART["n_layer"] * steps):
+        raise AssertionError("CFM + ParticleTransformer: a forward without its pair embedding "
+                             "or without a K2 launch a block")
+    # the pair embedding's share of a forward's device time, on one batch
+    # of 128 packed rows of the drive's jets
+    rows = _pad_masks(_multiplicities(np.random.default_rng(10), 420, 128), 128)
+    row_of, offset_of, n_rows = pack_jets(rows[..., 0].sum(axis=1), 128)
+    row_mask, row_seg = build_packed_rows(rows, row_of, offset_of, n_rows, 128)
+    B = min(n_rows, 128)
+    mask = torch.as_tensor(row_mask[:B], dtype=torch.int32, device=dev)
+    state = MultiModal(time=torch.full((B,), 0.5, device=dev), mask=mask,
+                       continuous=torch.randn((B, 128, 3), device=dev) * mask)
+    seg = torch.as_tensor(row_seg[:B], device=dev)
+    with torch.no_grad():
+        forward_ms, pair_ms = median_device_ms([lambda: system.module(state, seg),
+                                                lambda: system.module._pair_bias(state)])
+    print(f"CFM + ParticleTransformer forward on {B} rows of 128: {forward_ms:.3f} ms, its pair "
+          f"embedding {pair_ms:.3f} ms ({100 * pair_ms / forward_ms:.1f}%)")
+    return {"max_abs_err": err, "k2_time": times, "launches": launches["K2"],
+            "forward_ms": forward_ms, "pair_embed_ms": pair_ms}
 
 
 def _pad_masks(mult, D):
@@ -3552,6 +3628,8 @@ def main() -> None:
     bf16_times = time_bf16_kernels(dev)
     gpt_times = time_gpt_attention(dev)
     lund = lund_pair_mlp_phase(dev)
+    part = part_phase(dev)
+    print(json.dumps({"part": {k: part[k] for k in ("forward_ms", "pair_embed_ms")}}))
 
     train_ds, val_ds = _train_data(np.random.default_rng(5))
     build_dir = Path(__file__).resolve().parent / "build"
@@ -3727,7 +3805,9 @@ def main() -> None:
          "max_abs_err_wide": wide["max_abs_err"]["K2"],
          "max_abs_err_wide_bf16": wide["max_abs_err"]["K2_bf16"],
          "launches_wide": wide_launches("K2"),
-         "wide": {n: t for n, t in wide["times"].items() if n.startswith("K2")}},
+         "wide": {n: t for n, t in wide["times"].items() if n.startswith("K2")},
+         "launches_part": _total(part["launches"]), "launches_part_by_form": part["launches"],
+         "max_abs_err_part_h16": part["max_abs_err"], "part_h16": part["k2_time"]},
         {"name": "lund_pair_mlp (KinFormer's Lund pair MLP, timed at B=128 D=128 C=256 H=4 and "
                  "B=8 D=150)",
          "route": "cuda",

@@ -106,6 +106,9 @@ class EPiCLayer(nn.Module):
 class EPiC(nn.Module):
     """The EPiC drift network: vt (B, D, Fc)."""
 
+    #: takes packed multi-jet rows (segment ids), through its per-segment pooling
+    packable = True
+
     def __init__(self, config: Config):
         super().__init__()
         cfg = config

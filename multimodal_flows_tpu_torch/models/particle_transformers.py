@@ -142,6 +142,10 @@ class ParticleFormer(nn.Module):
     full-width fused blocks, split back with modality skip connections
     into drift and logit heads."""
 
+    #: takes packed multi-jet rows (segment ids), through its attention's
+    #: block-diagonal segment mask
+    packable = True
+
     def __init__(self, config: Config):
         super().__init__()
         cfg = config
@@ -214,6 +218,10 @@ class FusedParticleFormer(nn.Module):
     attention is K1: its key-mask form on padded jets, its segment form on
     packed rows."""
 
+    #: takes packed multi-jet rows (segment ids), through its attention's
+    #: block-diagonal segment mask
+    packable = True
+
     def __init__(self, config: Config):
         super().__init__()
         cfg = config
@@ -262,6 +270,10 @@ def _block(cfg: Config, width: int, dtype: torch.dtype) -> SelfAttnBlock:
 class FlavorFormer(nn.Module):
     """Discrete-only encoder for MJB, with optional learned positional
     embedding and lambda_u-gated co-occurrence bias."""
+
+    #: takes packed multi-jet rows (segment ids), through its attention's
+    #: block-diagonal segment mask
+    packable = True
 
     def __init__(self, config: Config):
         super().__init__()
@@ -339,6 +351,10 @@ class KinFormer(nn.Module):
     each chunk symmetrized as 0.5 (f(U) + f(U^T)) rows: exactly the
     unchunked form.  The kernel takes n_embd 256 and at most 4 heads, and
     raises on others."""
+
+    #: takes packed multi-jet rows (segment ids), through its attention's
+    #: block-diagonal segment mask
+    packable = True
 
     def __init__(self, config: Config):
         super().__init__()

@@ -4,6 +4,7 @@ from __future__ import annotations
 
 from multimodal_flows_tpu_torch.config import Config
 from multimodal_flows_tpu_torch.models.epic import EPiC
+from multimodal_flows_tpu_torch.models.part import ParticleTransformer
 from multimodal_flows_tpu_torch.models.particle_transformers import (
     FlavorFormer,
     FusedParticleFormer,
@@ -18,6 +19,8 @@ MODEL_REGISTRY = {
     "FlavorFormer": FlavorFormer,
     "KinFormer": KinFormer,
     "EPiC": EPiC,
+    # the port's own: the Particle Transformer (models/part.py), no JAX twin
+    "ParticleTransformer": ParticleTransformer,
     "ToyMLP": ToyMLP,
 }
 

@@ -84,11 +84,11 @@ def make_noise_source(generator: torch.Generator, pad_mask: Tensor,
     return MultiModal(time=t0, continuous=x, discrete=k, mask=mask)
 
 
-#: encoders that take packed multi-jet rows (segment ids): the
-#: transformers through the block-diagonal segment mask of their attention,
-#: EPiC through its per-segment pooling
-_PACKABLE_MODELS = ("ParticleFormer", "FusedParticleFormer", "KinFormer",
-                    "FlavorFormer", "EPiC")
+def _packable(system) -> bool:
+    """Whether the system's encoder takes packed multi-jet rows: its class
+    says so with `packable = True`."""
+    module = system.module
+    return getattr(getattr(module, "encoder", module), "packable", False)
 
 
 def _snap_batch(n: int) -> int:
@@ -281,7 +281,7 @@ def generate_packed(system, pad_masks: np.ndarray, *, num_timesteps: int,
     num_jets, D = pad_masks.shape[0], pad_masks.shape[1]
     kw = dict(num_timesteps=num_timesteps, temperature=temperature, top_k=top_k,
               top_p=top_p, use_final_max_rates=use_final_max_rates, mesh=mesh)
-    if (cfg.model not in _PACKABLE_MODELS or cfg.use_pos_emb
+    if (not _packable(system) or cfg.use_pos_emb
             or not first_n_filled(pad_masks)):
         return generate_bucketed(system, pad_masks, batch_size=batch_size, seed=seed,
                                  metadata=metadata, **kw)

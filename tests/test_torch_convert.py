@@ -87,7 +87,8 @@ def test_unported_model_raises_with_roadmap_pointer():
     from multimodal_flows_tpu.models.registry import MODEL_REGISTRY as JAX_MODELS
     from multimodal_flows_tpu_torch.models.registry import MODEL_REGISTRY
 
-    assert set(MODEL_REGISTRY) == set(JAX_MODELS)
+    # the JAX registry's models, and the port's own Particle Transformer
+    assert set(MODEL_REGISTRY) == set(JAX_MODELS) | {"ParticleTransformer"}
     assert type(build_model(Config(model="ToyMLP", **small))).__name__ == "ToyMLP"
     with pytest.raises(KeyError, match="unknown model 'NoSuchFormer'") as raised:
         build_model(Config(model="NoSuchFormer"))

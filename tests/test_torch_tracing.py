@@ -170,6 +170,7 @@ EVERY_COUNTER = (
     | {"attn.plain_dropout.head_major", "attn.plain_dropout.token_major"}
     | {"gpt_decode.graph_steps", "gpt_decode.eager_steps", "gpt_decode.captures"}
     | {"lund.pairs", "lund.forwards"} | {"lund_mlp.kernel", "lund_mlp.plain"}
+    | {"part.pairs", "part.forwards"}
     | {"train_graph.captures", "train_graph.replays", "train_graph.eager_steps"}
     | {"spans.dropped"})
 
@@ -539,3 +540,59 @@ def test_lund_mfu_counts_the_pair_mlp_of_each_real_pair():
     assert read_metric("sample.lund_mfu", ctx) == pytest.approx(100 * flops / 2.0 / 495e12)
     ctx.cfg = dict(cfg, architecture="particleformer")   # no pair term
     assert read_metric("sample.lund_mfu", ctx) is None
+
+
+# ------------------------------------------------- the readers of ParT
+
+def _part_spans():
+    """`_lund_spans` with ParT's `part.pair_embed` in each solver step."""
+    return [s._replace(name="part.pair_embed") if s.name == "kinformer.lund_bias" else s
+            for s in _lund_spans()]
+
+
+def test_part_pair_host_us_reads_the_device_only_window(monkeypatch):
+    monkeypatch.setattr(profiling, "_spans", deque(_part_spans()))
+    ctx = _ctx(work=2, steps=4)
+    assert read_metric("sample.part_pair_host_us", ctx) == pytest.approx(0.006)
+    ctx.work = ctx.work + [{}]
+    assert read_metric("sample.part_pair_host_us", ctx) is None
+    monkeypatch.setattr(profiling, "_spans", deque(_lund_spans()))  # another pair bias
+    assert read_metric("sample.part_pair_host_us", _ctx(work=2, steps=4)) is None
+    monkeypatch.delattr(profiling, "peek_spans")  # a program without spans
+    assert read_metric("sample.part_pair_host_us", _ctx(work=2, steps=4)) is None
+
+
+def test_part_mfu_counts_the_pair_embedding_of_each_real_pair():
+    import json
+
+    from bench_torch import counts
+    from bench_torch.reference import part
+
+    root = Path(__file__).resolve().parents[1]
+    cfg = json.loads((root / "bench_torch" / "configs" / "cfm-part.json").read_text())
+    assert part.pair_flops(cfg) == 17_920
+    assert part.dense_flops(cfg) == 3_542_784
+    assert part.attention_layers(cfg) == [(128, 8)]
+    work = [_record([40, 30], 100, None)]
+    ctx = SimpleNamespace(cfg=cfg, plain_work=work, plain_wall=2.0)
+    flops = 100 * (counts.forward_flops(cfg, 70, 2_500) + 17_920 * 2_500)
+    assert read_metric("sample.part_mfu", ctx) == pytest.approx(100 * flops / 2.0 / 495e12)
+    ctx.cfg = dict(cfg, architecture="particleformer")   # no pair term
+    assert read_metric("sample.part_mfu", ctx) is None
+    assert read_metric("sample.part_mfu", SimpleNamespace(cfg=cfg, plain_work=[],
+                                                          plain_wall=2.0)) is None
+
+
+def test_allreduce_ms_reads_the_nccl_kernels_a_step():
+    from bench_torch.trace import Trace
+
+    trace = Trace.__new__(Trace)
+    trace.device = [(0, 2_000_000, "ncclDevKernel_AllReduce_Sum_f32_RING_LL", 1),
+                    (3_000_000, 4_000_000, "cutlass_80_simt_sgemm_128x256_8x4_nt_align1", 2),
+                    (5_000_000, 5_500_000, "ncclDevKernel_AllReduce_Sum_f32_RING_LL", 3)]
+    ctx = SimpleNamespace(trace=trace, steps=5)
+    assert read_metric("train.allreduce_ms", ctx) == pytest.approx(2.5 / 5)
+    trace.device = trace.device[1:2]   # one card: no collective kernel
+    assert read_metric("train.allreduce_ms", ctx) is None
+    trace.device, ctx.steps = [(0, 1_000_000, "ncclDevKernel_AllReduce", 1)], 0
+    assert read_metric("train.allreduce_ms", ctx) is None
