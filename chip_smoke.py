@@ -147,6 +147,10 @@
      launches a forward in each; each layout's step timed (wall, device
      time, launches, NCCL kernel time, peak memory); an FSDP `fit` whose
      `last` reloads into a plain one-device system to the logged val_loss;
+   - the captured step on a data mesh (`mesh_graph_check`): a NCCL group
+     of one rank, whose step still all-reduces its gradients (between its
+     two graphs), 6 steps captured and replayed against the same 6 steps
+     run eagerly on the mesh, as `train_graph_check` holds them;
    - two processes sharing the card over gloo (CUDA tensors): a data
      parallel and a tensor_parallel=2 step equal to the plain step (K1 at
      H=2, 16 a forward), and 128 jets sampled over the data mesh at 8
@@ -1468,6 +1472,7 @@ def _graph_vs_eager(name, dev, kind, cfg, batches) -> dict:
     for route in ("graph", "eager"):
         system = build_system(cfg, kind, device=dev, generator=torch.Generator().manual_seed(0))
         trainer = Trainer(system, cfg)
+        meshed = trainer.mesh is not None
         state = trainer.init_state(len(batches))
         gen = torch.Generator(device=dev).manual_seed(0)
         system.module.train()
@@ -1486,7 +1491,7 @@ def _graph_vs_eager(name, dev, kind, cfg, batches) -> dict:
         torch.cuda.synchronize()
         sides[route] = dict(losses=torch.stack(losses).cpu(), leaves=_state_leaves(state),
                             counters=_graph_counters(), keys=len(state.graphs),
-                            launches=_counts())
+                            launches=_counts(), meshed=meshed)
         system.module.eval()
         del trainer, state, system
     g, e = sides["graph"], sides["eager"]
@@ -1496,7 +1501,7 @@ def _graph_vs_eager(name, dev, kind, cfg, batches) -> dict:
     if n != GRAPH_STEPS:
         raise AssertionError(f"{name}: {n} batches, not {GRAPH_STEPS}")
     want = {"captures": 1, "replays": n - 1, "eager_steps": 1}
-    print(f"{name}, {n} steps as one CUDA graph against eager: losses "
+    print(f"{name}, {n} steps captured and replayed against eager: losses "
           f"{np.round(g['losses'].numpy(), 6).tolist()}, worst loss rel gap {loss_gap:.3e}; "
           f"leaf gaps {({k: f'{v:.3e}' for k, v in gaps.items()})} (<= {GRAPH_RTOL}); "
           f"counters {g['counters']}; launches equal {g['launches'] == e['launches']}")
@@ -1504,7 +1509,42 @@ def _graph_vs_eager(name, dev, kind, cfg, batches) -> dict:
             and g["counters"] == want and g["keys"] == 1 and g["launches"] == e["launches"]):
         raise AssertionError(f"{name}: the graph's steps differ from the eager steps, or it did "
                              f"not capture once and replay {n - 1} times ({want})")
-    return dict(loss_rel_gap=loss_gap, leaf_gaps=gaps, counters=g["counters"])
+    return dict(loss_rel_gap=loss_gap, leaf_gaps=gaps, counters=g["counters"],
+                meshed=g["meshed"] and e["meshed"])
+
+
+def _graph_batches(dev, train_ds) -> list:
+    """GRAPH_STEPS packed batches of the flagship's training, on the card,
+    no two successive ones with the same segment ids."""
+    cfg = Config(**TRAIN)
+    trainer = Trainer(build_system(cfg, "MMF", device=dev), cfg, mesh=None)
+    unit = trainer._pack_units(train_ds)[0]
+    idx = trainer._epoch_perm(len(unit), trainer._packed_row_bs, shuffle=True, seed=0,
+                              epoch=0)[:GRAPH_STEPS]
+    batches = list(trainer._batches(trainer._resident(unit), idx))
+    if any(torch.equal(a.segments, b.segments) for a, b in zip(batches, batches[1:])):
+        raise AssertionError("train graph check: two successive batches share segment ids")
+    return batches
+
+
+def mesh_graph_check(dev, train_ds) -> dict:
+    """The captured step on a data mesh: a NCCL group of one rank on the
+    card, whose data mesh still all-reduces the gradients every step
+    (`Trainer._average_gradients`), so each replay makes it between the
+    step's two graphs.
+    The flagship MMF's graph against its eager steps (`_graph_vs_eager`:
+    one capture, a replay every later step, no eager step past the first),
+    both on the mesh."""
+    torch.distributed.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}",
+                                         rank=0, world_size=1, device_id=dev)
+    try:
+        out = _graph_vs_eager("flagship MMF, data mesh of one NCCL rank", dev, "MMF",
+                              Config(**TRAIN), _graph_batches(dev, train_ds))
+    finally:
+        torch.distributed.destroy_process_group()
+    if not out["meshed"]:
+        raise AssertionError("mesh graph check: the trainers did not take the data mesh")
+    return out
 
 
 def train_graph_check(dev, train_ds, val_ds, out_dir) -> dict:
@@ -1516,17 +1556,8 @@ def train_graph_check(dev, train_ds, val_ds, out_dir) -> dict:
     replay.  A 2-epoch fit against the same fit resumed from its epoch-1
     checkpoint (saved after replayed steps): the same weights, moments
     and EMA."""
-    out = {}
-    cfg = Config(**TRAIN)
-    trainer = Trainer(build_system(cfg, "MMF", device=dev), cfg)
-    unit = trainer._pack_units(train_ds)[0]
-    idx = trainer._epoch_perm(len(unit), trainer._packed_row_bs, shuffle=True, seed=0,
-                              epoch=0)[:GRAPH_STEPS]
-    batches = list(trainer._batches(trainer._resident(unit), idx))
-    if any(torch.equal(a.segments, b.segments) for a, b in zip(batches, batches[1:])):
-        raise AssertionError("train graph check: two successive batches share segment ids")
-    del trainer
-    out["mmf"] = _graph_vs_eager("flagship MMF", dev, "MMF", cfg, batches)
+    out = {"mmf": _graph_vs_eager("flagship MMF", dev, "MMF", Config(**TRAIN),
+                                  _graph_batches(dev, train_ds))}
 
     gpt_cfg, _ = train_mmf.experiment_configs(GPT_ARGV + ["--dir", out_dir])
     rng = np.random.default_rng(17)
@@ -2815,17 +2846,19 @@ def two_ranks_one_card(dev, plain_step, batch, out_dir):
 
 def mesh_phase(dev, train_ds, val_ds, out_dir):
     """The meshes: K1 / K2 at the TP shard shapes (held, timed), NCCL at
-    world size 1 (plain, data parallel, FSDP2), then two ranks on the one
-    card over gloo (data parallel, tensor parallel, sharded sampling)."""
+    world size 1 (plain, data parallel, FSDP2; the data mesh's captured
+    step against its eager steps), then two ranks on the one card over gloo
+    (data parallel, tensor parallel, sharded sampling)."""
     t0 = time.perf_counter()
     worst, tp_times = check_tp_shapes(dev)
     batch = _mesh_batch(train_ds)
     layouts, fsdp_fit, plain_step = nccl_world_one(dev, train_ds, val_ds, out_dir, batch)
+    graph = mesh_graph_check(dev, train_ds)
     two = two_ranks_one_card(dev, plain_step, batch, out_dir)
     wall = time.perf_counter() - t0
     print(f"mesh phase: {wall:.1f} s")
-    return worst, tp_times, dict(layouts=layouts, fsdp_fit=fsdp_fit, two_ranks=two,
-                                 wall_s=wall)
+    return worst, tp_times, dict(layouts=layouts, fsdp_fit=fsdp_fit, graph=graph,
+                                 two_ranks=two, wall_s=wall)
 
 
 # ------------------------------------------------------------------ bf16

@@ -52,21 +52,29 @@ in one collective at the end of a unit's epoch.  Checkpoints hold the
 full tensors whatever the layout (`parallel.tensor_parallel`); rank 0
 writes them and the metric files.
 
-On one CUDA device a step is a CUDA graph (`_graph_step`): loss, backward,
-clip, Adam and EMA captured once for each key (the module, the batch's
-field names, shapes and dtypes, the device; bucketed training has one a
-width, all in one memory pool) and replayed after.  The step's draws are
-made before it from the caller's generator (`loss_draws`, the eager
-route's draws in its order) and copied with the batch into the key's
-static inputs, Adam's rate is written into its 0-d device tensor, and the
-step's scalars are copied out of the graph's outputs.  A key's first step
-runs eagerly on the stream the capture uses, its second is captured and
-replayed once, and no step runs twice.  The CPU, every mesh, dropout
-(whose masks the forward draws) and a loss without `loss_draws` take the
-eager route, the same code op by op.  On CUDA without a mesh Adam is
-fused and capturable on both routes: its step counts and its rate live on
-the card, so an update reads nothing back to the host.  The counters
-`train_graph.captures`, `train_graph.replays` and
+On CUDA, on one device or on each rank of a data-parallel mesh over NCCL,
+a step is captured (`_graph_step`): loss, backward, clip, Adam and EMA as
+one CUDA graph for each key (the module, the batch's field names, shapes
+and dtypes, the device; bucketed training has one a width, all in one
+memory pool) and replayed after.  On a mesh the gradients' all-reduce
+splits the step into two graphs, and a replay launches the collective
+between them from the host, on the replay's stream: NCCL's teardown of a
+communicator waits for every graph that holds one of its collectives, so
+a process group destroyed while the trainer's graphs live would hang.
+The step's draws are made before it from the caller's generator
+(`loss_draws`, the eager route's draws in its order, at the global batch's
+shape on a mesh) and copied with the batch into the key's static inputs,
+Adam's rate is written into its 0-d device tensor, and the step's scalars
+are copied out of the graph's outputs.  A key's first step runs eagerly
+on the stream the capture uses, its second is captured and replayed once,
+and no step runs twice.  Every rank holds the global batch, so every rank
+captures at the same step and makes the same collectives in the same
+order.  The CPU, gloo, FSDP and tensor-parallel meshes (whose hooks and
+DTensors are not captured), dropout (whose masks the forward draws) and a
+loss without `loss_draws` take the eager route, the same code op by op.  On CUDA without a mesh or
+on a data mesh Adam is fused and capturable on both routes: its step
+counts and its rate live on the card, so an update reads nothing back to
+the host.  The counters `train_graph.captures`, `train_graph.replays` and
 `train_graph.eager_steps` say which route each step took.
 
 A step is the span `train.step` (`utils/profiling.py`): `train.loss`,
@@ -80,6 +88,8 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
+import itertools
 import math
 import os
 import time
@@ -157,22 +167,24 @@ class Trainer:
         self._packed_row_bs = None  # rows per step in packed training (_pack_units)
         self._physics_ref = None    # (reference observables, masks) of the physics eval
         self._graph_pool = None     # the memory pool every captured step shares
+        self._capture = None        # the `_StepGraph` being captured
 
     # ------------------------------------------------------------ building
 
     def make_optimizer(self, steps_per_epoch: int) -> torch.optim.Optimizer:
         """Adam over every parameter of the system's module (the multitask
         loss's included); `_update` clips first and sets the rate.  On one
-        CUDA device Adam is capturable, its rate a 0-d tensor on the card
-        (`_set_rate`), and fused: one kernel updates every parameter, with
-        the bias corrections in double as on the host (the capturable
-        foreach Adam takes them in fp32, 1 - 0.999 off by 1.3e-5, and adds
-        two kernels a parameter)."""
+        CUDA device or a data mesh of them Adam is capturable, its rate a
+        0-d tensor on the card (`_set_rate`), and fused: one kernel updates
+        every parameter, with the bias corrections in double as on the host
+        (the capturable foreach Adam takes them in fp32, 1 - 0.999 off by
+        1.3e-5, and adds two kernels a parameter).  FSDP's and tensor
+        parallelism's sharded parameters keep the plain Adam."""
         cfg = self.config
         self.lr_schedule = warmup_cosine_epoch_schedule(
             cfg.lr, cfg.lr_final, cfg.warmup_epochs, cfg.max_epochs, steps_per_epoch)
         params, lr = self.system.module.parameters(), self.lr_schedule(0)
-        if self.device.type == "cuda" and self.mesh is None:
+        if self.device.type == "cuda" and (self.mesh is None or self._data_mesh()):
             return torch.optim.Adam(params, lr=torch.full((), lr, device=self.device),
                                     betas=ADAM_BETAS, eps=ADAM_EPS, weight_decay=0.0,
                                     capturable=True, fused=True)
@@ -184,7 +196,7 @@ class Trainer:
         module = self.system.module
         ema = (copy.deepcopy(module).requires_grad_(False)
                if self.config.use_ema_weights else None)
-        if self.mesh is not None and (self.config.fsdp or self.config.tensor_parallel > 1):
+        if self.mesh is not None and not self._data_mesh():
             shard = tpar.tp_sharding if self.config.tensor_parallel > 1 else tpar.fsdp_sharding
             for m in (module, ema):
                 if m is not None:
@@ -255,7 +267,12 @@ class Trainer:
             return
         with span("train.allreduce"):
             flat = torch._utils._flatten_dense_tensors(grads)
-            torch.distributed.all_reduce(flat, group=self.mesh.get_group(DATA_AXIS))
+            reduce = functools.partial(torch.distributed.all_reduce, flat,
+                                       group=self.mesh.get_group(DATA_AXIS))
+            if self._capture is None:
+                reduce()
+            else:  # kept out of the graphs, between two of them (module docstring)
+                self._capture.cut(reduce)
             flat /= n_data
             torch._foreach_copy_(grads, torch._utils._unflatten_dense_tensors(flat, grads))
 
@@ -278,21 +295,33 @@ class Trainer:
                                                 rows=data_rows(len(batch), self.mesh))
         return self._apply_gradients(state, loss, metrics)
 
+    def _data_mesh(self) -> bool:
+        """A data-parallel mesh: the module replicated, its gradients
+        all-reduced by `_average_gradients` (neither FSDP nor tensor
+        parallelism)."""
+        return self.mesh is not None and not self.config.fsdp and self.config.tensor_parallel == 1
+
     def _graphable(self, state: TrainState) -> bool:
-        """A step is captured on one CUDA device (no mesh: no collective in
-        it) with a capturable Adam, when the loss's draws come apart from
-        it (`loss_draws`) and no dropout mask is drawn inside the forward,
-        outside another capture."""
-        return (self.mesh is None and self.device.type == "cuda"
+        """A step is captured on CUDA with a capturable Adam, on one device
+        or on a data mesh over NCCL (whose all-reduce runs between two
+        graphs), when the loss's draws come apart from it (`loss_draws`)
+        and no dropout mask is drawn inside the forward, outside another
+        capture.  FSDP's hooks, tensor parallelism's DTensors and gloo's
+        collectives are not captured."""
+        return (self.device.type == "cuda"
+                and (self.mesh is None or (self._data_mesh() and torch.distributed.get_backend(
+                    self.mesh.get_group(DATA_AXIS)) == "nccl"))
                 and hasattr(self.system, "loss_draws") and self.system.dropout_rate == 0
                 and all(g["capturable"] for g in state.optimizer.param_groups)
                 and not torch.cuda.is_current_stream_capturing())
 
     def _step_of_draws(self, state: TrainState, batch, draws: Dict[str, torch.Tensor]):
-        """The step at the draws `draws`: what a graph captures."""
+        """The step at the draws `draws` (made at the global batch's shape),
+        on this rank's rows: what a graph captures."""
         with span("train.loss"):
             loss, metrics = self.system.loss_from_draws(batch, draws, train=True,
-                                                        module=state.module)
+                                                        module=state.module,
+                                                        rows=data_rows(len(batch), self.mesh))
         return self._apply_gradients(state, loss, metrics)
 
     def _graph_step(self, state: TrainState, batch, generator: torch.Generator):
@@ -307,14 +336,18 @@ class Trainer:
             return step.run_eagerly(lambda: self._step_of_draws(state, step.batch, step.draws))
         step.feed(batch, draws)
         self._set_rate(state)
-        if step.graph is None:
+        if not step.graphs:
             if self._graph_pool is None:
                 self._graph_pool = torch.cuda.graph_pool_handle()
             # the backward allocates the gradients in the graph's pool
             state.optimizer.zero_grad(set_to_none=True)
             # the capture runs `_update` once on the host, which counts this step
-            step.capture(lambda: self._step_of_draws(state, step.batch, step.draws),
-                         self._graph_pool, state.module)
+            self._capture = step
+            try:
+                step.capture(lambda: self._step_of_draws(state, step.batch, step.draws),
+                             self._graph_pool, state.module)
+            finally:
+                self._capture = None
             count("train_graph.captures")
         else:
             state.step += 1
@@ -739,15 +772,18 @@ def _graph_key(module: nn.Module, batch, device: torch.device) -> tuple:
 class _StepGraph:
     """One key's captured step: static copies of the batch and the draws
     (the first step's own), the side stream of the first step and the
-    capture, the graph, its outputs, what its capture counted, and the
-    gradient tensors it writes."""
+    capture, the graphs and the host calls a replay makes between them
+    (`cut`), the outputs, what the capture counted, and the gradient
+    tensors it writes."""
 
     def __init__(self, batch, draws: Dict[str, torch.Tensor], device: torch.device):
         self.batch = batch.map(torch.clone)
         self.draws = draws
         self.device = device
         self.stream = torch.cuda.Stream(device)
-        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.graphs: List[torch.cuda.CUDAGraph] = []
+        self.between: List[Callable] = []
+        self.pool = None
         self.outputs: Dict[str, torch.Tensor] = {}
         self.counts: Dict[str, int] = {}
         self.params: List[torch.Tensor] = []
@@ -770,23 +806,44 @@ class _StepGraph:
             torch._foreach_copy_(list(self.draws.values()), list(draws.values()))
 
     def capture(self, step: Callable, pool, module: nn.Module) -> None:
-        """Capture `step` into the graph (which runs nothing) on the side
-        stream, in `pool`; what it counted waits for the replays."""
+        """Capture `step` (which runs nothing) on the side stream, in
+        `pool`, into one graph and one more after each `cut`, as
+        `torch.cuda.graph` captures; what it counted waits for the
+        replays."""
         self.stream.wait_stream(torch.cuda.current_stream(self.device))
-        graph = torch.cuda.CUDAGraph()
-        with captured_counts() as self.counts, torch.cuda.graph(graph, pool=pool,
-                                                                stream=self.stream):
-            self.outputs = step()
+        torch.cuda.synchronize(self.device)
+        torch.cuda.empty_cache()
+        self.pool = pool
+        with captured_counts() as self.counts, torch.cuda.stream(self.stream):
+            self._begin()
+            try:
+                self.outputs = step()
+            finally:
+                self.graphs[-1].capture_end()
         torch.cuda.current_stream(self.device).wait_stream(self.stream)
         self.params = list(module.parameters())
         self.grads = [p.grad for p in self.params]
-        self.graph = graph
+
+    def _begin(self) -> None:
+        self.graphs.append(torch.cuda.CUDAGraph())
+        self.graphs[-1].capture_begin(self.pool)
+
+    def cut(self, call: Callable) -> None:
+        """End the graph being captured here: a replay makes `call` on the
+        host after it, then runs the next graph, whose capture begins."""
+        self.graphs[-1].capture_end()
+        self.between.append(call)
+        self._begin()
 
     def replay(self) -> Dict[str, torch.Tensor]:
-        """Run the graph on the current stream; the parameters' `.grad` are
-        its gradients again (another key's step may have moved them), and
-        the step's scalars come back in one copy that no replay overwrites."""
-        self.graph.replay()
+        """Run the graphs, with the calls between them, on the current
+        stream; the parameters' `.grad` are its gradients again (another
+        key's step may have moved them), and the step's scalars come back
+        in one copy that no replay overwrites."""
+        for graph, call in itertools.zip_longest(self.graphs, self.between):
+            graph.replay()
+            if call is not None:
+                call()
         add_counts(self.counts)
         count("train_graph.replays")
         if self.params[0].grad is not self.grads[0]:

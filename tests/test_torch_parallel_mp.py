@@ -8,7 +8,9 @@ same numpy inputs and seeds.
 - data parallel: the loss core on each rank's rows (packed rows of
   unequal jet counts) with the gradients averaged by the trainer, against
   JAX's single-device loss on the whole batch; one `Trainer` step and a
-  two-epoch `fit` against one process; `setup_logging_dir`;
+  two-epoch `fit` against one process; what a data mesh's CUDA graph
+  captures (the split loss on the rank's rows, the all-reduce) against
+  the eager step, bit for bit; `setup_logging_dir`;
   `generate_packed` over the mesh against one process, `gather_multihost`;
 - FSDP: one step (clipping active) against one process; a `fit` whose
   `last` checkpoint a fresh pair restores and resumes, and one process
@@ -208,6 +210,9 @@ def _dp_worker(rank, store, out, params_path):
         res["step"], res["after"], res["ema_after"], _ = _one_step(
             Trainer(_system(cfg), cfg), _step_batch())
 
+        # what a data mesh's graph captures, run op by op, against the eager step
+        res["split"] = {route: _split_or_eager_step(cfg, route) for route in ("eager", "split")}
+
         # a two-epoch fit: validation, metrics and checkpoints included
         fit_cfg = Config(**TRAIN, dir=os.path.join(out, "dp_fit"), experiment_id="dp")
         state = Trainer(_system(fit_cfg), fit_cfg).fit(*_datasets())
@@ -227,6 +232,29 @@ def _dp_worker(rank, store, out, params_path):
         _save("_dp_worker", rank, out, res)
     finally:
         dist.destroy_process_group()
+
+
+def _split_or_eager_step(cfg: Config, route: str) -> dict:
+    """One step of a fresh trainer on the global batch from `_one_step`'s
+    draw seed: `_eager_step`, or what a data mesh's graph captures
+    (`loss_draws` at the global batch's shape from the generator, then
+    `_step_of_draws` on this rank's rows, the gradients averaged in
+    `_update`).  The step's metrics, the averaged and clipped gradients,
+    the weights and EMA weights after it, and the generator's state."""
+    system = _system(cfg)
+    trainer = Trainer(system, cfg)
+    state = trainer.init_state(10)
+    state.module.train()
+    batch, gen = _step_batch(), torch.Generator().manual_seed(7)
+    if route == "eager":
+        metrics = trainer._eager_step(state, batch, gen)
+    else:
+        metrics = trainer._step_of_draws(state, batch, system.loss_draws(batch, gen))
+    named = list(state.module.named_parameters())
+    return dict(metrics=metrics, grads={n: p.grad.clone() for n, p in named},
+                after={n: p.detach().clone() for n, p in named},
+                ema={n: p.detach().clone() for n, p in state.ema.named_parameters()},
+                rows=mesh.data_rows(len(batch), trainer.mesh), generator=gen.get_state())
 
 
 def _fsdp_worker(rank, store, out):
@@ -510,6 +538,35 @@ def test_dp_step_and_fit_equal_one_process(dp_run, single_step, tmp_path):
     for r in ranks:
         _assert_weights(r["fit_params"], tpar.full_state_dict(state.module))
     assert sorted(os.listdir(os.path.join(str(tmp), "dp_fit", cfg.project))) == ["dp"]
+
+
+def test_dp_captured_computation_equals_the_eager_step(dp_run):
+    """What a data mesh's graph captures (`loss_draws` from the shared
+    generator at the global batch's shape, then `_step_of_draws` on the
+    rank's rows with the mesh's all-reduce) equals `_eager_step` bit for
+    bit on each rank: the loss and its terms, the averaged and clipped
+    gradients, the weights after Adam and the EMA, and the generator's
+    state.  The ranks ran their own rows (their losses differ) and hold one
+    averaged gradient, clipped to the clip value."""
+    _, ranks = dp_run
+    for r in ranks:
+        eager, split = r["split"]["eager"], r["split"]["split"]
+        assert eager["rows"] == split["rows"] is not None
+        assert torch.equal(eager["generator"], split["generator"])
+        assert eager["metrics"].keys() == split["metrics"].keys()
+        for k, v in eager["metrics"].items():
+            assert torch.equal(v, split["metrics"][k]), k
+        for kind in ("grads", "after", "ema"):
+            assert eager[kind].keys() == split[kind].keys()
+            for n, v in eager[kind].items():
+                assert torch.equal(v, split[kind][n]), (kind, n)
+    a, b = (r["split"]["split"] for r in ranks)
+    assert a["rows"] != b["rows"] and not torch.equal(a["metrics"]["loss"], b["metrics"]["loss"])
+    assert all(torch.equal(g, b["grads"][n]) for n, g in a["grads"].items())
+    norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g)
+                                                 for g in a["grads"].values()]))
+    assert float(a["metrics"]["grad_norm"]) > TRAIN["gradient_clip_val"]
+    np.testing.assert_allclose(float(norm), TRAIN["gradient_clip_val"], rtol=1e-5)
 
 
 def test_dp_run_dir_sampling_and_gather(dp_run):

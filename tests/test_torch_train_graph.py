@@ -1,7 +1,9 @@
 """The trainer's captured route (`train/trainer.py`) on the CPU, where every
 step is eager: each system's loss split into its draws and the computation
 that takes them, held to the draws made where the bridges need them (the
-loss before the split) to the bit; the route predicate and its counters;
+loss before the split) to the bit; the route predicate (one device and
+data meshes over NCCL captured; FSDP, tensor-parallel and gloo meshes,
+dropout and an unsplit loss eager) and its counters;
 the copy of a replay's outputs; the optimizer's form across a checkpoint
 written on the card.  The captured steps themselves run on the card only
 (`chip_smoke.py:train_graph_check`)."""
@@ -166,6 +168,14 @@ def _mesh_of_one(monkeypatch):
                            get_group=lambda axis: None)
 
 
+#: what each case changes of a trainer as on one CUDA device: the system's
+#: dropout, the mesh (a data mesh of one rank), its layout and its backend
+ROUTES = {"cpu": {}, "mesh": dict(mesh=True), "fsdp_mesh": dict(mesh=True, fsdp=True),
+          "tp_mesh": dict(mesh=True, tensor_parallel=2),
+          "gloo_mesh": dict(mesh=True, backend="gloo"), "dropout": dict(dropout=0.1),
+          "dropout_mesh": dict(mesh=True, dropout=0.1), "no_split": {}}
+
+
 class _Unsplit:
     """A system whose loss draws as it goes: `loss_fn` and no `loss_draws`."""
 
@@ -174,14 +184,17 @@ class _Unsplit:
         self.loss_fn = system.loss_fn
 
 
-@pytest.mark.parametrize("route", ["cpu", "mesh", "dropout", "no_split"])
+@pytest.mark.parametrize("route", list(ROUTES))
 def test_the_route_predicate_and_its_counters(monkeypatch, route):
-    """The CPU, a mesh, dropout > 0 and a loss without `loss_draws` take
-    the eager route: on a trainer that is otherwise as on one CUDA device
-    the predicate says no (and yes without the case's difference), and CPU
-    steps count as eager, none captured or replayed."""
-    system = _system("MMF", **(dict(dropout=0.1) if route == "dropout" else {}))
-    mesh = _mesh_of_one(monkeypatch) if route == "mesh" else None
+    """A data mesh over NCCL is captured as one device is; the CPU, an FSDP
+    or tensor-parallel mesh, a mesh over gloo, dropout > 0 (with a mesh or
+    without) and a loss without `loss_draws` take the eager route: on a
+    trainer that is otherwise as on one CUDA device the predicate says yes
+    for the data mesh alone (and yes without the case's difference), and
+    CPU steps count as eager, none captured or replayed."""
+    case = ROUTES[route]
+    system = _system("MMF", **({"dropout": case["dropout"]} if "dropout" in case else {}))
+    mesh = _mesh_of_one(monkeypatch) if case.get("mesh") else None
     if route == "no_split":
         system = _Unsplit(system)
     trainer = Trainer(system, system.config, mesh=mesh)
@@ -190,7 +203,12 @@ def test_the_route_predicate_and_its_counters(monkeypatch, route):
     if route != "cpu":
         with monkeypatch.context() as m:
             _cuda_like(trainer, state, m)
-            assert not trainer._graphable(state)
+            m.setattr(torch.distributed, "get_backend",
+                      lambda group=None: case.get("backend", "nccl"))
+            for key in ("fsdp", "tensor_parallel"):
+                if key in case:
+                    m.setattr(trainer.config, key, case[key])
+            assert trainer._graphable(state) == (route == "mesh")
             m.setattr(trainer, "mesh", None)
             m.setattr(trainer.system.config, "dropout", 0.0)
             assert trainer._graphable(state) == (route != "no_split")
@@ -230,7 +248,8 @@ def test_a_replay_returns_a_copy_of_the_graph_outputs():
     parameters' `.grad` set back to the graph's gradients."""
     outputs = {"loss": torch.tensor(1.0), "grad_norm": torch.tensor(2.0)}
     step = trainer_mod._StepGraph.__new__(trainer_mod._StepGraph)
-    step.graph = SimpleNamespace(replay=lambda: [v.add_(1.0) for v in outputs.values()])
+    step.graphs = [SimpleNamespace(replay=lambda: [v.add_(1.0) for v in outputs.values()])]
+    step.between = []
     step.outputs, step.counts = outputs, {"train_graph.eager_steps": 0}
     param, grad = torch.nn.Parameter(torch.zeros(3)), torch.ones(3)
     step.params, step.grads = [param], [grad]
@@ -241,6 +260,59 @@ def test_a_replay_returns_a_copy_of_the_graph_outputs():
     b = step.replay()
     assert (float(a["loss"]), float(a["grad_norm"]), float(b["loss"])) == (2.0, 3.0, 3.0)
     assert _graph_counters()["train_graph.replays"] == 2
+
+
+class _StandInGraph:
+    """What `_StepGraph` calls of a `torch.cuda.CUDAGraph`, logged."""
+
+    def __init__(self, log):
+        self.log, self.name = log, f"graph {sum(e.startswith('begin') for e in log)}"
+
+    def capture_begin(self, pool):
+        self.log.append(f"begin {self.name}")
+
+    def capture_end(self):
+        self.log.append(f"end {self.name}")
+
+    def replay(self):
+        self.log.append(f"replay {self.name}")
+
+
+def test_a_mesh_step_runs_its_all_reduce_between_two_graphs(monkeypatch):
+    """On a data mesh the capture of `_step_of_draws` ends its first graph
+    at the gradients' all-reduce, which it does not run, and captures the
+    rest into a second graph (stand-in graphs on the CPU); a replay runs
+    the first graph, the all-reduce on the flattened gradients, then the
+    second.  Outside a capture the all-reduce runs in place."""
+    log = []
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", lambda: _StandInGraph(log))
+    system = _system("MMF")
+    trainer = Trainer(system, system.config, mesh=_mesh_of_one(monkeypatch))
+    monkeypatch.setattr(torch.distributed, "all_reduce",
+                        lambda flat, group=None: log.append(f"all-reduce {flat.numel()}"))
+    state = trainer.init_state(4)
+    batch = _batch("MMF", True)
+    draws = system.loss_draws(batch, torch.Generator().manual_seed(SEED))
+    n_params = sum(p.numel() for p in system.module.parameters())
+    trainer._step_of_draws(state, batch, draws)
+    assert log == [f"all-reduce {n_params}"]
+
+    log.clear()
+    step = trainer_mod._StepGraph.__new__(trainer_mod._StepGraph)
+    step.graphs, step.between, step.pool = [], [], None
+    step._begin()
+    trainer._capture = step
+    trainer._step_of_draws(state, batch, draws)
+    step.graphs[-1].capture_end()
+    assert log == ["begin graph 0", "end graph 0", "begin graph 1", "end graph 1"]
+    assert len(step.between) == 1
+    step.outputs, step.counts = {"loss": torch.tensor(1.0)}, {}
+    step.params = list(system.module.parameters())
+    step.grads = [p.grad for p in step.params]
+    monkeypatch.setattr(trainer_mod, "add_counts", lambda counts: None)
+    log.clear()
+    step.replay()
+    assert log == ["replay graph 0", f"all-reduce {n_params}", "replay graph 1"]
 
 
 def test_the_graph_key_is_the_batch_fields_names_shapes_and_dtypes():
